@@ -1,0 +1,144 @@
+// Fused prediction: binarize -> leaf index -> leaf gather in one pass,
+//   pred[n, c] = sum_t lv[t, idx(bins[n], t), c],  bins = binarize(x).
+//
+// Replaces the TPU kernel src/repro/kernels/fused_predict.py:fused_predict
+// (_fused_kernel).  The TPU kernel binarizes a row block once into VMEM
+// scratch, then walks tree blocks as a serial grid axis, gathering with
+// one-hot matmuls and carrying the sum in its output tile.  Here a block
+// binarizes its rows into shared memory once and then every thread walks
+// all T trees for its own row: no cross-block reduction, no atomics, no
+// one-hot.  The sum over trees is taken in tree order, one add per tree,
+// exactly as leaf_gather takes it, so fused and staged scores are
+// bit-identical.
+//
+// What bounds it on an H100: operations.  The bytes are small (x read
+// once, the leaf table and splits from L2, (N, C) written: about 41 MB at
+// N = 139,440), but each (row, tree) costs D shared-memory loads and
+// compares plus C leaf loads: about 2.6e9 operations at T = 1,000, D = 8,
+// C = 7.  The design keeps every one of those loads on chip:
+//   * 128 rows a block, one per thread, C accumulators in registers;
+//   * the bins tile is uint8 when the ensemble has at most 255 borders (the
+//     quantized-pool representation, as src/repro/kernels/ops.py picks for
+//     the TPU scratch), int32 otherwise;
+//   * the tile's row stride is an odd number of 4-byte words, so the 32
+//     rows a warp reads at one feature fall in 32 distinct banks;
+//   * split features and bins are the same for every thread of a warp
+//     (one broadcast __ldg each, L1-resident); the leaf table stays in L2.
+#include "common.cuh"
+
+namespace {
+
+template <typename BinT, int MaxC>
+__global__ void fused_predict_kernel(
+    const float* __restrict__ x, const float* __restrict__ borders,
+    const int32_t* __restrict__ sf, const int32_t* __restrict__ sb,
+    const float* __restrict__ lv, float* __restrict__ out, long long n_rows,
+    int n_feat, int n_borders, int n_trees, int depth, int n_out,
+    int stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BinT* tile = reinterpret_cast<BinT*>(smem_raw);
+  const int rows_per_block = blockDim.x;
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * rows_per_block;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(rows_per_block), n_rows - row0));
+
+  // Stage 1: binarize the block's rows of x into the shared bins tile.
+  const float* xsrc = x + row0 * n_feat;
+  for (int i = threadIdx.x; i < rows * n_feat; i += rows_per_block) {
+    const int r = i / n_feat;
+    const int f = i - r * n_feat;
+    const float v = xsrc[i];
+    int count = 0;
+    for (int b = 0; b < n_borders; ++b) {
+      count += v > __ldg(borders + static_cast<long long>(b) * n_feat + f);
+    }
+    tile[r * stride + f] = static_cast<BinT>(count);
+  }
+  __syncthreads();
+
+  // Stage 2: every tree for this thread's row, index then gather.
+  const int r = threadIdx.x;
+  if (r >= rows) return;
+  const BinT* row = tile + r * stride;
+  const int n_leaves = 1 << depth;
+  float acc[MaxC];
+#pragma unroll
+  for (int c = 0; c < MaxC; ++c) acc[c] = 0.0f;
+  for (int t = 0; t < n_trees; ++t) {
+    const int32_t* tsf = sf + static_cast<long long>(t) * depth;
+    const int32_t* tsb = sb + static_cast<long long>(t) * depth;
+    int idx = 0;
+    for (int d = 0; d < depth; ++d) {
+      // int32 compare: the 2^30 PAD_SPLIT_BIN never goes right
+      idx |= (static_cast<int>(row[__ldg(tsf + d)]) >= __ldg(tsb + d)) << d;
+    }
+    const float* leaf =
+        lv + (static_cast<long long>(t) * n_leaves + idx) * n_out;
+#pragma unroll
+    for (int c = 0; c < MaxC; ++c) {
+      if (c < n_out) acc[c] += __ldg(leaf + c);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < MaxC; ++c) {
+    if (c < n_out) out[(row0 + r) * n_out + c] = acc[c];
+  }
+}
+
+template <typename BinT>
+void launch(dim3 grid, int rows_per_block, size_t smem, cudaStream_t s,
+            const float* x, const float* borders, const int32_t* sf,
+            const int32_t* sb, const float* lv, float* out, long long n_rows,
+            int n_feat, int n_borders, int n_trees, int depth, int n_out,
+            int stride) {
+  if (n_out <= 8) {
+    fused_predict_kernel<BinT, 8><<<grid, rows_per_block, smem, s>>>(
+        x, borders, sf, sb, lv, out, n_rows, n_feat, n_borders, n_trees,
+        depth, n_out, stride);
+  } else {
+    fused_predict_kernel<BinT, 32><<<grid, rows_per_block, smem, s>>>(
+        x, borders, sf, sb, lv, out, n_rows, n_feat, n_borders, n_trees,
+        depth, n_out, stride);
+  }
+}
+
+}  // namespace
+
+// x (n_rows, n_feat) f32; borders (n_borders, n_feat) f32; sf, sb
+// (n_trees, depth) int32 with every sf in [0, n_feat) and depth <=
+// kMaxDepth; lv (n_trees, 2^depth, n_out) f32 with n_out <= 32; out
+// (n_rows, n_out) f32.  The bins tile is uint8 when bins_u8 (the caller
+// guarantees n_borders <= 255) else int32, with `stride` elements a row;
+// rows_per_block * stride * sizeof(bin) fits 48 KB.
+extern "C" int repro_fused_predict(const void* x, const void* borders,
+                                   const void* sf, const void* sb,
+                                   const void* lv, void* out,
+                                   long long n_rows, int n_feat,
+                                   int n_borders, int n_trees, int depth,
+                                   int n_out, int bins_u8, int stride,
+                                   int rows_per_block, int device,
+                                   void* stream) {
+  cudaError_t err = select_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(
+      (n_rows + rows_per_block - 1) / rows_per_block));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* bp = static_cast<const float*>(borders);
+  const int32_t* sfp = static_cast<const int32_t*>(sf);
+  const int32_t* sbp = static_cast<const int32_t*>(sb);
+  const float* lp = static_cast<const float*>(lv);
+  float* op = static_cast<float*>(out);
+  if (bins_u8) {
+    const size_t smem = static_cast<size_t>(rows_per_block) * stride;
+    launch<uint8_t>(grid, rows_per_block, smem, s, xp, bp, sfp, sbp, lp, op,
+                    n_rows, n_feat, n_borders, n_trees, depth, n_out, stride);
+  } else {
+    const size_t smem =
+        static_cast<size_t>(rows_per_block) * stride * sizeof(int32_t);
+    launch<int32_t>(grid, rows_per_block, smem, s, xp, bp, sfp, sbp, lp, op,
+                    n_rows, n_feat, n_borders, n_trees, depth, n_out, stride);
+  }
+  return launch_status();
+}

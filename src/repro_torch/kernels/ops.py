@@ -1,0 +1,170 @@
+"""Public kernel ops: registry-dispatched wrappers around the port's
+CUDA kernels and their plain PyTorch versions.
+
+The port's counterpart of `src/repro/kernels/ops.py`.  Each op has a
+`torch_ref` implementation (the plain versions in `kernels.ref`) and a
+`cuda` one (the kernel wrappers in `kernels.binarize`, `leaf_index`,
+`leaf_gather` and `fused_predict`); binarize takes its output dtype as an
+argument (int32, or uint8 for the one-byte quantized-pool stream).
+`backend="auto"` resolves from the device of the data (`registry.resolve`).
+
+The kernels mask their own ragged edges, so neither the data nor the model
+is padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import binarize as _binarize_k
+from repro_torch.kernels import fused_predict as _fused_k
+from repro_torch.kernels import leaf_gather as _gather_k
+from repro_torch.kernels import leaf_index as _index_k
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import registry
+from repro_torch.kernels.ref import MAX_U8_BORDERS  # noqa: F401
+
+Backend = str
+
+# Sentinel split bin guaranteeing `bins < PAD_SPLIT_BIN`: padded trees and
+# truncated levels always go left.  Canonical definition; `core.trees`
+# re-exports it.
+PAD_SPLIT_BIN = 1 << 30
+
+# The wrappers that launch a kernel, each with its `launches` count.
+KERNELS = {
+    "binarize": _binarize_k.binarize,
+    "leaf_index": _index_k.leaf_index,
+    "leaf_gather": _gather_k.leaf_gather,
+    "fused_predict": _fused_k.fused_predict,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last `reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def pad_dim(a: torch.Tensor, axis: int, target: int, value=0) -> torch.Tensor:
+    """Pad `a` along `axis` up to `target` with `value` (no copy when it
+    is already that long)."""
+    pad = target - a.shape[axis]
+    if pad == 0:
+        return a
+    shape = list(a.shape)
+    shape[axis] = pad
+    fill = torch.full(shape, value, dtype=a.dtype, device=a.device)
+    return torch.cat([a, fill], dim=axis)
+
+
+def _bins_dtype(bins: torch.Tensor) -> str:
+    return "uint8" if bins.dtype == torch.uint8 else "int32"
+
+
+# --------------------------------------------------------------------------
+# Registered implementations
+# --------------------------------------------------------------------------
+@registry.register("binarize", "torch_ref", dtypes=("int32", "uint8"),
+                   constraints="any shape; uint8 bins need <= 255 borders")
+def _binarize_ref(x, borders, out_dtype=torch.int32):
+    if out_dtype == torch.uint8:
+        return _ref.binarize_u8(x, borders)
+    return _ref.binarize(x, borders)
+
+
+@registry.register("binarize", "cuda", dtypes=("int32", "uint8"),
+                   constraints="uint8 bins need <= 255 borders; "
+                               "csrc/binarize.cu")
+def _binarize_cuda(x, borders, out_dtype=torch.int32):
+    return _binarize_k.binarize(x, borders, out_dtype=out_dtype)
+
+
+@registry.register("leaf_index", "torch_ref", dtypes=("int32", "uint8"),
+                   constraints="any shape; compares in int32")
+def _leaf_index_ref(bins, sf, sb):
+    return _ref.leaf_index(bins, sf, sb)
+
+
+@registry.register("leaf_index", "cuda", dtypes=("int32", "uint8"),
+                   constraints="depth <= 16; csrc/leaf_index.cu")
+def _leaf_index_cuda(bins, sf, sb):
+    return _index_k.leaf_index(bins, sf, sb)
+
+
+@registry.register("leaf_gather", "torch_ref", constraints="any shape")
+def _leaf_gather_ref(idx, lv):
+    return _ref.leaf_gather(idx, lv)
+
+
+@registry.register("leaf_gather", "cuda",
+                   constraints="<= 32 outputs; csrc/leaf_gather.cu")
+def _leaf_gather_cuda(idx, lv):
+    return _gather_k.leaf_gather(idx, lv)
+
+
+@registry.register("fused_predict", "torch_ref", constraints="any shape")
+def _fused_ref(x, borders, sf, sb, lv):
+    return _ref.fused_predict(x, borders, sf, sb, lv)
+
+
+@registry.register("fused_predict", "cuda", dtypes=("int32", "uint8"),
+                   constraints="depth <= 16, <= 32 outputs; uint8 bins "
+                               "tile when <= 255 borders; "
+                               "csrc/fused_predict.cu")
+def _fused_cuda(x, borders, sf, sb, lv):
+    return _fused_k.fused_predict(x, borders, sf, sb, lv)
+
+
+# --------------------------------------------------------------------------
+# Public ops
+# --------------------------------------------------------------------------
+def binarize(x: torch.Tensor, borders: torch.Tensor, *,
+             backend: Backend = "auto") -> torch.Tensor:
+    """(N, F) f32, (B, F) f32 -> (N, F) int32 bin indices."""
+    return registry.dispatch("binarize", backend, x, borders)
+
+
+def binarize_u8(x: torch.Tensor, borders: torch.Tensor, *,
+                backend: Backend = "auto") -> torch.Tensor:
+    """(N, F) f32, (B, F) f32 -> (N, F) uint8 bin indices (B <= 255): the
+    quantized-pool stream the paper's CalcIndexes loop consumes."""
+    return registry.dispatch("binarize", backend, x, borders, dtype="uint8",
+                             out_dtype=torch.uint8)
+
+
+def leaf_index(bins: torch.Tensor, split_features: torch.Tensor,
+               split_bins: torch.Tensor, *,
+               backend: Backend = "auto") -> torch.Tensor:
+    """(N, F) i32|u8, (T, D) i32, (T, D) i32 -> (N, T) int32 leaf ids."""
+    return registry.dispatch("leaf_index", backend, bins, split_features,
+                             split_bins, dtype=_bins_dtype(bins))
+
+
+def leaf_gather(idx: torch.Tensor, leaf_values: torch.Tensor, *,
+                backend: Backend = "auto") -> torch.Tensor:
+    """(N, T) i32, (T, L, C) f32 -> (N, C) f32 summed leaf values."""
+    return registry.dispatch("leaf_gather", backend, idx, leaf_values)
+
+
+def fused_predict(x: torch.Tensor, borders: torch.Tensor,
+                  split_features: torch.Tensor, split_bins: torch.Tensor,
+                  leaf_values: torch.Tensor, *,
+                  backend: Backend = "auto") -> torch.Tensor:
+    """Fused binarize + index + gather -> (N, C) f32."""
+    return registry.dispatch("fused_predict", backend, x, borders,
+                             split_features, split_bins, leaf_values)
+
+
+# The plan's entries keep the JAX package's `_prepadded` names, so each
+# call site in `core.predictor` and `core.layout` maps to its counterpart
+# there.  The CUDA kernels mask their own edges, so a lowered model is
+# never padded and these are the public ops themselves.
+binarize_prepadded = binarize
+binarize_u8_prepadded = binarize_u8
+leaf_index_prepadded = leaf_index
+leaf_gather_prepadded = leaf_gather
+fused_predict_prepadded = fused_predict

@@ -1,0 +1,165 @@
+"""Kernel registry: named implementations per op, chosen by device.
+
+The port's counterpart of `src/repro/kernels/registry.py`.  Each op
+registers named implementations with capability metadata:
+
+  op        one of CORE_OPS
+  name      "torch_ref" (the plain PyTorch versions, for CPU data) or
+            "cuda" (the hand-written kernels, for CUDA data)
+  family    torch_ref | cuda
+  dtypes    bin-stream dtypes the implementation produces or consumes
+            (binarize takes the output dtype as an argument)
+  devices   the device type the implementation runs on
+
+The registry is the one place that picks the code for a device: `auto`
+resolves to `cuda` on a CUDA device and to `torch_ref` on the CPU, and a
+family named for the other device is refused, so a plan on the card never
+runs the plain versions and `backend="cuda"` never quietly does on the CPU.
+
+`dispatch` ticks a per-op counter, so "no binarize while scoring a
+quantized pool" is a checkable invariant.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+# The ops every backend family covers.  This slice ports the four ops of
+# the serving path; later slices add theirs.
+CORE_OPS = ("binarize", "leaf_index", "leaf_gather", "fused_predict")
+FAMILIES = ("torch_ref", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelImpl:
+    """One registered implementation of one op."""
+    op: str
+    name: str
+    fn: Callable[..., Any]
+    family: str
+    dtypes: tuple[str, ...]
+    devices: tuple[str, ...]
+    constraints: str
+
+
+_REGISTRY: dict[str, dict[str, KernelImpl]] = {}
+_CALL_STATS: dict[str, int] = {}
+
+
+def register(op: str, name: str, *, dtypes: tuple[str, ...] = ("int32",),
+             constraints: str = "") -> Callable:
+    """Decorator: register `fn` as implementation `name` of `op`.  The
+    family is the name's prefix; registering a name twice is an error."""
+    family = next((f for f in FAMILIES if name.startswith(f)), None)
+    if family is None:
+        raise ValueError(f"implementation {name!r} belongs to no family "
+                         f"{FAMILIES}")
+
+    def deco(fn: Callable) -> Callable:
+        impls = _REGISTRY.setdefault(op, {})
+        if name in impls:
+            raise ValueError(f"kernel impl {op}:{name} already registered")
+        impls[name] = KernelImpl(
+            op=op, name=name, fn=fn, family=family, dtypes=tuple(dtypes),
+            devices=("cuda",) if family == "cuda" else ("cpu",),
+            constraints=constraints)
+        return fn
+    return deco
+
+
+def ops() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def implementations(op: str) -> dict[str, KernelImpl]:
+    if op not in _REGISTRY:
+        raise KeyError(f"unknown kernel op {op!r}; registered: {ops()}")
+    return dict(_REGISTRY[op])
+
+
+def get(op: str, name: str) -> KernelImpl:
+    impls = implementations(op)
+    if name not in impls:
+        raise KeyError(f"op {op!r} has no implementation {name!r}; "
+                       f"available: {sorted(impls)}")
+    return impls[name]
+
+
+def default_backend(device: torch.device | str) -> str:
+    """The `auto` resolution: the cuda kernels on a CUDA device, the
+    plain versions on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch_ref"
+
+
+def known_backends() -> tuple[str, ...]:
+    """Backend names valid as a `PredictConfig.backend`: implementation
+    names registered for every core op."""
+    names: Optional[set] = None
+    for op in CORE_OPS:
+        impls = set(_REGISTRY.get(op, {}))
+        names = impls if names is None else names & impls
+    return tuple(sorted(names or ()))
+
+
+def check_backend(backend: str, device: torch.device | str) -> None:
+    """Refuse a family meant for the other device: the plain versions for
+    data on the card, the kernels for data on the CPU."""
+    on_cuda = torch.device(device).type == "cuda"
+    if on_cuda and backend.startswith("torch_ref"):
+        raise ValueError(
+            f"backend {backend!r} runs the plain PyTorch versions; a CUDA "
+            "plan runs the cuda kernels (use backend='cuda' or 'auto')")
+    if not on_cuda and backend.startswith("cuda"):
+        raise ValueError(
+            f"backend {backend!r} launches CUDA kernels; data on the CPU "
+            "runs the plain versions (use backend='torch_ref' or 'auto')")
+
+
+def resolve(op: str, backend: str = "auto", *,
+            device: torch.device | str = "cpu",
+            dtype: Optional[str] = None) -> str:
+    """Map a backend (`auto`, a family, or an exact implementation name)
+    to the implementation to run on `device`, refusing one that does not
+    handle `dtype` when that is given."""
+    name = default_backend(device) if backend == "auto" else backend
+    check_backend(name, device)
+    impls = implementations(op)
+    if name not in impls:
+        raise KeyError(f"op {op!r} has no implementation {name!r}; "
+                       f"available: {sorted(impls)} (backends: "
+                       f"{known_backends()} or 'auto')")
+    if dtype is not None and dtype not in impls[name].dtypes:
+        raise ValueError(
+            f"op {op!r} implementation {name!r} does not handle dtype "
+            f"{dtype!r} (handles {impls[name].dtypes})")
+    return name
+
+
+def dispatch(op: str, backend: str, *args: Any,
+             dtype: Optional[str] = None, **kw: Any) -> Any:
+    """Resolve against the first argument's device, count, and call."""
+    impl = get(op, resolve(op, backend, device=args[0].device, dtype=dtype))
+    _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
+    return impl.fn(*args, **kw)
+
+
+def call_stats() -> dict[str, int]:
+    """Per-op dispatch counts since the last `reset_call_stats`."""
+    return dict(_CALL_STATS)
+
+
+def reset_call_stats() -> None:
+    _CALL_STATS.clear()
+
+
+def table() -> list[dict[str, str]]:
+    """One row per (op, implementation), sorted: the introspection
+    surface for docs and tests."""
+    return [{"op": op, "impl": name, "family": impl.family,
+             "dtypes": "/".join(impl.dtypes),
+             "devices": "/".join(impl.devices),
+             "constraints": impl.constraints}
+            for op in ops()
+            for name, impl in sorted(_REGISTRY[op].items())]

@@ -1,0 +1,310 @@
+"""The port's kernel ops against the JAX package, on the CPU.
+
+Each of the four kernel modules of the serving path (binarize,
+leaf_index, leaf_gather, fused_predict) is checked three ways on the
+"mixed" and "edge" scenarios of tests/test_differential.py:
+
+  * its plain PyTorch version against the JAX reference (`repro.kernels.ref`);
+  * its kernel wrapper, called on CPU tensors (where it takes the plain
+    version and launches nothing), on the model as a plan lowers it;
+  * against the JAX Pallas kernel in interpret mode, on a tiny case.
+
+The CUDA kernels themselves run only on the card (chip_smoke.py holds
+them against these plain versions there).  Integer outputs match exactly;
+float sums within rtol = atol = 1e-4 (tests/test_differential.py:88): the
+port sums trees in another order than XLA.
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import trees as jtrees  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import registry as jregistry  # noqa: E402
+from repro_torch.core import layout as tlayout  # noqa: E402
+from repro_torch.core import trees as ttrees  # noqa: E402
+from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
+from repro_torch.kernels import binarize as binarize_k  # noqa: E402
+from repro_torch.kernels import fused_predict as fused_k  # noqa: E402
+from repro_torch.kernels import leaf_gather as gather_k  # noqa: E402
+from repro_torch.kernels import leaf_index as index_k  # noqa: E402
+
+torch.set_num_threads(1)
+
+SCENARIOS = ("mixed", "edge")
+
+
+def _scenario(name):
+    """(x, borders, sf, sb, lv) numpy arrays; the scenarios of
+    tests/test_differential.py:40-70, truncation included."""
+    if name == "mixed":
+        rng = np.random.default_rng(11)
+        n, f, b, t, d, c = 21, 7, 9, 6, 4, 2
+        x = rng.normal(size=(n, f)).astype(np.float32)
+        x[rng.random((n, f)) < 0.08] = np.nan
+        borders = np.sort(rng.normal(size=(b, f)), 0).astype(np.float32)
+        sf = rng.integers(0, f, (t, d)).astype(np.int32)
+        sb = rng.integers(1, b + 1, (t, d)).astype(np.int32)
+        lv = rng.normal(size=(t, 1 << d, c)).astype(np.float32)
+        ens = jtrees.ObliviousEnsemble(
+            jnp.asarray(sf), jnp.asarray(sb), jnp.asarray(lv),
+            jnp.asarray(borders), jnp.full((f,), b, jnp.int32))
+        ens = jtrees.truncate_tree_depths(ens, np.array([0, 1, 2, 4, 3, 4]))
+        sb, lv = np.asarray(ens.split_bins), np.asarray(ens.leaf_values)
+    else:  # "edge": 255 borders, bins 0 and 255, T = 1, one row
+        rng = np.random.default_rng(23)
+        f, b, t, d, c = 3, 255, 1, 2, 1
+        borders = np.sort(rng.normal(size=(b, f)), 0).astype(np.float32)
+        x = np.array([[borders[0, 0] - 1.0, borders[-1, 1] + 1.0,
+                       np.nan]], np.float32)
+        sf = np.array([[1, 0]], np.int32)
+        sb = np.array([[255, 1]], np.int32)
+        lv = rng.normal(size=(t, 1 << d, c)).astype(np.float32)
+    return x, borders, sf, sb, lv
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _int_equal(got, want):
+    np.testing.assert_array_equal(np.asarray(got).astype(np.int64),
+                                  np.asarray(want).astype(np.int64))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _jax_outputs(x, borders, sf, sb, lv):
+    bins = jref.binarize(jnp.asarray(x), jnp.asarray(borders))
+    idx = jref.leaf_index(bins, jnp.asarray(sf), jnp.asarray(sb))
+    return {"binarize": bins,
+            "binarize_u8": jref.binarize_u8(jnp.asarray(x),
+                                            jnp.asarray(borders)),
+            "leaf_index": idx,
+            "leaf_gather": jref.leaf_gather(idx, jnp.asarray(lv)),
+            "fused_predict": jref.fused_predict(
+                jnp.asarray(x), jnp.asarray(borders), jnp.asarray(sf),
+                jnp.asarray(sb), jnp.asarray(lv))}
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+@pytest.mark.parametrize("op", ["binarize", "binarize_u8", "leaf_index",
+                                "leaf_index_u8", "leaf_gather",
+                                "fused_predict"])
+def test_plain_version_matches_jax_ref(op, scenario):
+    x, borders, sf, sb, lv = _scenario(scenario)
+    want = _jax_outputs(x, borders, sf, sb, lv)
+    xt, bt, sft, sbt, lvt = _t(x, borders, sf, sb, lv)
+    if op == "binarize":
+        got = ref.binarize(xt, bt)
+        assert got.dtype == torch.int32
+        _int_equal(got, want["binarize"])
+    elif op == "binarize_u8":
+        got = ref.binarize_u8(xt, bt)
+        assert got.dtype == torch.uint8
+        _int_equal(got, want["binarize_u8"])
+    elif op.startswith("leaf_index"):
+        bins = ref.binarize(xt, bt)
+        if op == "leaf_index_u8":
+            bins = bins.to(torch.uint8)
+        got = ref.leaf_index(bins, sft, sbt)
+        assert got.dtype == torch.int32
+        _int_equal(got, want["leaf_index"])
+    elif op == "leaf_gather":
+        idx = torch.from_numpy(np.array(want["leaf_index"]))
+        _close(ref.leaf_gather(idx, lvt), want["leaf_gather"])
+    else:
+        _close(ref.fused_predict(xt, bt, sft, sbt, lvt),
+               want["fused_predict"])
+
+
+def _lowered_model(scenario):
+    """The scenario's model as a plan lowers it: the exact arrays, with no
+    tree padding (the kernels mask their own edges)."""
+    x, borders, sf, sb, lv = _scenario(scenario)
+    ens = ttrees.ObliviousEnsemble(*_t(sf, sb, lv, borders),
+                                   torch.full((borders.shape[1],),
+                                              borders.shape[0]))
+    low = tlayout.lower(ens, "soa")
+    assert low.split_features.shape == sf.shape
+    assert low.leaf_values.shape == lv.shape
+    return torch.from_numpy(x), low, _jax_outputs(x, borders, sf, sb, lv)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+@pytest.mark.parametrize("op", ["binarize", "leaf_index", "leaf_gather",
+                                "fused_predict"])
+def test_cuda_entry_on_cpu_tensors_matches_jax_ref(op, scenario):
+    # The kernel wrappers, called on CPU tensors, take their plain
+    # versions; through the registry the cuda family refuses CPU data.
+    x, low, want = _lowered_model(scenario)
+    sf, sb, lv = low.split_features, low.split_bins, low.leaf_values
+    bins = ref.binarize_u8(x, low.borders)
+    idx = torch.from_numpy(np.array(want["leaf_index"]))
+    ops.reset_launch_counts()
+    if op == "binarize":
+        _int_equal(binarize_k.binarize(x, low.borders), want["binarize"])
+        got = binarize_k.binarize(x, low.borders, out_dtype=torch.uint8)
+        assert got.dtype == torch.uint8
+        _int_equal(got, want["binarize_u8"])
+        call = lambda: ops.binarize_u8(x, low.borders, backend="cuda")
+    elif op == "leaf_index":
+        _int_equal(index_k.leaf_index(bins, sf, sb), want["leaf_index"])
+        call = lambda: ops.leaf_index(bins, sf, sb, backend="cuda")
+    elif op == "leaf_gather":
+        _close(gather_k.leaf_gather(idx, lv), want["leaf_gather"])
+        call = lambda: ops.leaf_gather(idx, lv, backend="cuda")
+    else:
+        _close(fused_k.fused_predict(x, low.borders, sf, sb, lv),
+               want["fused_predict"])
+        call = lambda: low.fused_raw(x, backend="cuda")
+    # CPU tensors take the plain versions: no kernel was launched
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    with pytest.raises(ValueError, match="CPU"):
+        call()
+
+
+def _pallas(op, *args):
+    """The JAX Pallas kernel, in interpret mode off-TPU."""
+    return jregistry.get(op, "pallas").fn(*(jnp.asarray(a) for a in args))
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+@pytest.mark.parametrize("op", ["binarize", "leaf_index", "leaf_gather",
+                                "fused_predict"])
+def test_plain_version_matches_pallas_interpret(op, scenario):
+    x, borders, sf, sb, lv = _scenario(scenario)
+    x = x[:8]                            # tiny: Pallas interprets on CPU
+    xt, bt, sft, sbt, lvt = _t(x, borders, sf, sb, lv)
+    bins = ref.binarize(xt, bt)
+    if op == "binarize":
+        _int_equal(ref.binarize(xt, bt), _pallas("binarize", x, borders))
+    elif op == "leaf_index":
+        _int_equal(ref.leaf_index(bins, sft, sbt),
+                   _pallas("leaf_index", bins.numpy(), sf, sb))
+    elif op == "leaf_gather":
+        idx = ref.leaf_index(bins, sft, sbt)
+        _close(ref.leaf_gather(idx, lvt),
+               _pallas("leaf_gather", idx.numpy(), lv))
+    else:
+        _close(ref.fused_predict(xt, bt, sft, sbt, lvt),
+               _pallas("fused_predict", x, borders, sf, sb, lv))
+
+
+def test_sentinel_survives_uint8_bins():
+    # bin 255 against a PAD_SPLIT_BIN level: narrowing the split bin to
+    # uint8 would make it 0 and send the level right
+    bins = torch.tensor([[255, 0]], dtype=torch.uint8)
+    sf = torch.tensor([[0, 0]], dtype=torch.int32)
+    sb = torch.tensor([[255, ops.PAD_SPLIT_BIN]], dtype=torch.int32)
+    assert ops.leaf_index(bins, sf, sb).tolist() == [[1]]
+
+
+def test_registry_resolves_by_device():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert registry.known_backends() == ("cuda", "torch_ref")
+    assert registry.resolve("binarize", "auto", device=cpu) == "torch_ref"
+    assert registry.resolve("binarize", "auto", device=cuda) == "cuda"
+    assert registry.resolve("binarize", "auto", device=cuda,
+                            dtype="uint8") == "cuda"
+    assert registry.resolve("binarize", "torch_ref", device=cpu,
+                            dtype="uint8") == "torch_ref"
+    assert registry.resolve("leaf_index", "cuda", device=cuda,
+                            dtype="uint8") == "cuda"
+    with pytest.raises(ValueError, match="dtype"):
+        registry.resolve("leaf_gather", "cuda", device=cuda, dtype="uint8")
+    with pytest.raises(ValueError, match="plain"):
+        registry.resolve("leaf_gather", "torch_ref", device=cuda)
+    with pytest.raises(ValueError, match="CPU"):
+        registry.resolve("leaf_gather", "cuda", device=cpu)
+    with pytest.raises(KeyError):
+        registry.resolve("leaf_gather", "pallas", device=cpu)
+    assert {r["op"] for r in registry.table()} == set(registry.CORE_OPS)
+
+
+def test_dispatch_counts_calls():
+    registry.reset_call_stats()
+    x = torch.zeros((2, 3))
+    ops.binarize_u8(x, torch.zeros((4, 3)))
+    ops.binarize(x, torch.zeros((4, 3)))
+    assert registry.call_stats() == {"binarize": 2}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.zeros((2, 3))
+    sf = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="255"):
+        binarize_k.binarize(x, torch.zeros((256, 3)), out_dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        binarize_k.binarize(x, torch.zeros((4, 5)))
+    with pytest.raises(ValueError):
+        index_k.leaf_index(torch.zeros((2, 3)), sf, sf)  # f32 bins
+    with pytest.raises(ValueError):
+        gather_k.leaf_gather(torch.zeros((2, 4), dtype=torch.int32),
+                             torch.zeros((3, 4, 1)))
+    with pytest.raises(ValueError):
+        fused_k.fused_predict(x, torch.zeros((4, 3)), sf, sf,
+                              torch.zeros((5, 4, 1)))
+
+
+def test_shared_memory_tiles_fit_and_avoid_bank_conflicts():
+    # Covertype width: 128 rows of 54 uint8 or int32 bins
+    assert index_k.tile_rows(54, 1) == 128
+    assert index_k.tile_rows(54, 4) == 128
+    for n_feat, u8 in [(f, u8) for f in (1, 3, 54, 200) for u8 in (0, 1)] \
+            + [(512, 1)]:
+            rows, stride = fused_k.tile_shape(n_feat, u8)
+            bin_bytes = 1 if u8 else 4
+            assert stride >= n_feat and rows % 32 == 0
+            assert (stride * bin_bytes // 4) % 2 == 1    # odd word stride
+            assert rows * stride * bin_bytes <= index_k.TILE_BYTES
+    with pytest.raises(ValueError):
+        index_k.tile_rows(10_000, 4)
+    with pytest.raises(ValueError):
+        fused_k.tile_shape(10_000, False)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+
+
+def test_failed_nvcc_build_raises(monkeypatch, tmp_path):
+    # a compiler that exits non-zero stands in for nvcc refusing a source
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "false")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build._compile(tmp_path / "lib.so")
+    assert not (tmp_path / "lib.so").exists()
+
+
+def test_nonzero_launch_status_raises(monkeypatch):
+    class Lib:
+        def repro_binarize(self, *args):
+            return 9
+
+        def repro_cuda_error_string(self, code):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(_build, "library", Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        _build.launch("repro_binarize", torch.device("cuda", 0), 1, 2)
+
+
+def test_build_hash_covers_every_source():
+    sources = {p.name for p in _build.CSRC.glob("*.cu*")}
+    assert {"binarize.cu", "leaf_index.cu", "leaf_gather.cu",
+            "fused_predict.cu", "common.cuh"} <= sources
+    assert _build.source_hash() == _build.source_hash()
+    assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
