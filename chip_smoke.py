@@ -8,23 +8,36 @@ Run from the root of a checkout, on a machine with one Hopper card:
 It builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`,
 serves a random-weight oblivious-tree model at the full width of the
 paper's Covertype workload (54 features, 7 classes, depth 8, 63 borders,
-1,000 trees) through `GBDTServer`, and checks:
+1,000 trees, a tenth of them truncated: 8 depth groups) through
+`GBDTServer` on each layout in turn (soa, depth_major, depth_grouped,
+bitpacked), then the same model untruncated (one depth group) on
+bitpacked, whose fused route is its own kernel.  Each of these serving
+paths runs single requests, `predict_batch` over the test split,
+`quantize` + `predict_pool` and one staged `proba` call, with the kernel
+launch counts set to 0 before it and read after it.  It checks:
 
-  * every kernel of the path was launched by the serving phases;
-  * the fused, pool and staged paths classify the same;
-  * the card's scores agree with the plain PyTorch plan on the CPU;
+  * each path launched exactly the kernels of its layout, and every one
+    of the eight kernels was launched;
+  * the fused, pool and staged routes of each path classify the same;
+  * depth_major gives soa's scores bit for bit on every route, bitpacked
+    gives depth_grouped's, and one-group bitpacked fused gives soa fused's
+    on the untruncated model (the same trees summed in the same order);
+    depth_grouped and bitpacked agree with soa within `sum_limit` (the
+    group sums reassociate) and in class on rows with a clear margin;
+  * the card's scores agree with the plain PyTorch plan on the CPU, on
+    every layout;
   * each kernel agrees with its plain version on the card at every row
     count the main path gives it (the whole test split, the largest and
     the smallest serving bucket): integers exactly, float sums within the
     rounding limit of `sum_limit`, which a bf16 leaf table must fail.
 
-Then it times each kernel at the serving path's bulk shape beside its
-plain version, one PyTorch library call where one computes the same
-function, and the least time the card could take (`bound_ms`), and times
-the tree-looping kernels once more on a model padded to a multiple of 32
-trees.  The last three lines of output are the `kernels` JSON, the
-serving JSON and the result line.  Any failed check exits non-zero before
-the result line.
+Then it times each kernel at the serving path's bulk shape and at the
+1,024-row bucket beside its plain version, one PyTorch library call where
+one computes the same function, and the least time the card could take
+(`bound_ms`), and times the soa tree-looping kernels once more on a model
+padded to a multiple of 32 trees.  The last three lines of output are the
+`kernels` JSON, the serving JSON and the result line.  Any failed check
+exits non-zero before the result line.
 """
 from __future__ import annotations
 
@@ -52,6 +65,8 @@ DEPTH = 8               # Covertype's depth (configs/gbdt_workloads.py)
 MAX_BINS = 64           # BoostingParams.max_bins: 63 borders
 MAX_BATCH = 1024
 N_CLIENTS, N_REQUESTS = 8, 64
+N_LAYOUT_REQUESTS = 16  # single requests on each path after soa
+STAGED_REPEATS = 5      # bulk staged calls timed after the first
 N_REFERENCE = 1024      # rows compared with the CPU plan
 U = 2.0 ** -24          # unit roundoff of float32
 K_SIGMA = 8.0           # width of the float limit, in rounding walks
@@ -99,8 +114,9 @@ def compare_sums(name: str, got, want, limit) -> tuple[float, float]:
 
 
 def make_model(x_train: np.ndarray, n_outputs: int):
-    """Covertype-width ensemble with numpy-seeded splits and leaves, a
-    tenth of its trees truncated (so PAD_SPLIT_BIN is on the path)."""
+    """Covertype-width ensemble with numpy-seeded splits and leaves: the
+    uniform depth-8 model and the same model with a tenth of its trees
+    truncated (so PAD_SPLIT_BIN is on the path, and depth groups are)."""
     from repro_torch.core.quantize import compute_borders
     from repro_torch.core.trees import ObliviousEnsemble, truncate_tree_depths
     borders, n_borders = compute_borders(x_train, MAX_BINS)
@@ -116,18 +132,21 @@ def make_model(x_train: np.ndarray, n_outputs: int):
     depths = np.full(N_TREES, DEPTH)
     cut = rng.choice(N_TREES, N_TREES // 10, replace=False)
     depths[cut] = rng.integers(0, DEPTH, cut.size)
-    return truncate_tree_depths(ens, depths)
+    return ens, truncate_tree_depths(ens, depths)
 
 
-def serve(ens, x_test: np.ndarray):
-    """The main path: single requests, a bulk batch, a pool, a staged
-    plan.  Returns (probas by path, phase stats, the server's plan, its
-    buckets)."""
+def serve(ens, x_test: np.ndarray, layout: str, n_requests: int):
+    """One serving path: single requests, a bulk batch, a pool, a staged
+    plan, all on `layout`.  Returns (probas by route, phase stats, the
+    server's fused plan, the staged plan, the buckets)."""
     import torch
     from repro_torch.core.predictor import Predictor
     from repro_torch.serving.engine import GBDTServer
 
-    server = GBDTServer(ens, device="cuda", max_batch=MAX_BATCH)
+    server = GBDTServer(ens, device="cuda", max_batch=MAX_BATCH,
+                        layout=layout)
+    check(server.metrics.layout == layout,
+          f"server reports layout {server.metrics.layout}, not {layout}")
     phases = {}
     try:
         # the first request pays the kernels' first launch on the card
@@ -141,10 +160,10 @@ def serve(ens, x_test: np.ndarray):
             return y, time.perf_counter() - t0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(N_CLIENTS) as pool:
-            replies = list(pool.map(request, range(N_REQUESTS)))
+            replies = list(pool.map(request, range(n_requests)))
         lat = np.array([dt for _, dt in replies]) * 1e3
         phases["requests"] = {
-            "rows": N_REQUESTS, "clients": N_CLIENTS,
+            "rows": n_requests, "clients": N_CLIENTS,
             "seconds": time.perf_counter() - t0,
             "p50_ms": float(np.percentile(lat, 50)),
             "p99_ms": float(np.percentile(lat, 99))}
@@ -166,15 +185,27 @@ def serve(ens, x_test: np.ndarray):
         fused = timed("predict_batch", lambda: server.predict_batch(x_test))
         pooled = timed("quantize+predict_pool", lambda: server.predict_pool(
             server.quantize(x_test)))
-        staged_plan = Predictor.build(ens, device="cuda", strategy="staged")
+        staged_plan = Predictor.build(ens, device="cuda", strategy="staged",
+                                      layout=layout)
         staged = timed("staged_proba", lambda: staged_plan.proba(x_test))
         phases["staged_proba"].pop("batch_p50_ms")
         phases["staged_proba"].pop("batch_p99_ms")
+        # the bulk call again: its first call also pays the first launch
+        # of the int32-bins kernels and the allocations of its (N, T) idx
+        repeats = []
+        for _ in range(STAGED_REPEATS):
+            t0 = time.perf_counter()
+            staged_plan.proba(x_test)
+            torch.cuda.synchronize()
+            repeats.append(time.perf_counter() - t0)
+        phases["staged_proba"].update(
+            repeat_seconds=repeats,
+            repeat_rows_per_s=len(x_test) / float(np.median(repeats)))
     finally:
         server.close()
     return ({"single": single, "fused": fused, "pool": pooled,
              "staged": staged.cpu().numpy()}, phases, server.predictor,
-            server.buckets)
+            staged_plan, server.buckets)
 
 
 def time_ms(fn, reps: int, flush) -> float:
@@ -384,6 +415,162 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
     return rows, control, tree_padding
 
 
+def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
+                                  launches, check_rows: tuple[int, ...]):
+    """Hold the depth_major and bitpacked kernels against their plain
+    versions on the card at each row count in `check_rows`, then time
+    them at the bulk shape and at the largest serving bucket.
+
+    `dm` and `bp` are the truncated model's depth_major and bitpacked
+    layouts (8 depth groups, uint8 threshold planes except the int32
+    group of the clamped depth-0 trees), `bp_one` the untruncated model's
+    bitpacked layout (one group).  leaf_index_bp runs on every group of
+    `bp` and on the one group with its planes as uint8 and widened to
+    int32, each from uint8 and int32 bins; fused_predict_bp on the one
+    group with both plane dtypes."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binarize import binarize
+    from repro_torch.kernels.fused_predict import (fused_predict_bp,
+                                                   fused_predict_dm)
+    from repro_torch.kernels.leaf_index import leaf_index_bp, leaf_index_dm
+
+    dev = dm.borders.device
+    x = torch.as_tensor(x_test, device=dev)
+    borders = dm.borders
+    one = bp_one.groups[0]
+    dm_planes = (dm.split_features_dm, dm.split_bins_dm, dm.pow2)
+    bp_planes = [(g.split_features_bp, g.split_bins_bp) for g in bp.groups]
+    bp_planes += [(one.split_features_bp, one.split_bins_bp),
+                  (one.split_features_bp, one.split_bins_bp.int())]
+    plane_dtypes = sorted({str(sb.dtype) for _, sb in bp_planes})
+    check(plane_dtypes == ["torch.int32", "torch.uint8"],
+          f"bitpacked planes cover {plane_dtypes}, not uint8 and int32")
+    bins8 = binarize(x, borders, out_dtype=torch.uint8)
+
+    errs = dict.fromkeys(("leaf_index_dm", "leaf_index_bp",
+                          "fused_predict_dm", "fused_predict_bp"), 0.0)
+    of_limit = {"fused_predict_dm": 0.0, "fused_predict_bp": 0.0}
+    for n in check_rows:
+        xn, b8 = x[:n], bins8[:n]
+        for bins in (b8, b8.int()):
+            kind = f"{str(bins.dtype)[6:]} bins at {n} rows"
+            check(torch.equal(leaf_index_dm(bins, *dm_planes),
+                              ref.leaf_index_depth_major(bins, *dm_planes)),
+                  f"leaf_index_dm ({kind}) differs from its plain version")
+            for sf, sb in bp_planes:
+                check(torch.equal(leaf_index_bp(bins, sf, sb),
+                                  ref.leaf_index_bitpacked(bins, sf, sb)),
+                      f"leaf_index_bp ({str(sb.dtype)[6:]} planes of "
+                      f"depth {sf.shape[0]}, {kind}) differs from its "
+                      "plain version")
+        idx = ref.leaf_index_depth_major(b8, *dm_planes)
+        err, share = compare_sums(
+            f"fused_predict_dm at {n} rows",
+            fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values),
+            ref.fused_predict_depth_major(xn, borders, *dm_planes,
+                                          dm.leaf_values),
+            sum_limit(idx, dm.leaf_values))
+        errs["fused_predict_dm"] = max(errs["fused_predict_dm"], err)
+        of_limit["fused_predict_dm"] = max(of_limit["fused_predict_dm"],
+                                           share)
+        idx = ref.leaf_index_bitpacked(b8, *bp_planes[-2])
+        for sf, sb in bp_planes[-2:]:
+            err, share = compare_sums(
+                f"fused_predict_bp ({str(sb.dtype)[6:]} planes) at {n} rows",
+                fused_predict_bp(xn, borders, sf, sb, one.leaf_values),
+                ref.fused_predict_bitpacked(xn, borders, sf, sb,
+                                            one.leaf_values),
+                sum_limit(idx, one.leaf_values))
+            errs["fused_predict_bp"] = max(errs["fused_predict_bp"], err)
+            of_limit["fused_predict_bp"] = max(
+                of_limit["fused_predict_bp"], share)
+        del idx
+    torch.cuda.synchronize()
+
+    n_feat, n_b = x.shape[1], borders.shape[0]
+    c = dm.leaf_values.shape[2]
+
+    def cases(n: int) -> dict:
+        """Kernel, plain version, bytes and operations of each kernel on
+        the first `n` rows: the dm kernels on the main path's model, the
+        bp kernels on the one-group model (uint8 planes)."""
+        xn, bn = x[:n], bins8[:n]
+        sf, sb = bp_planes[-2]
+        out = {}
+        for name, planes, lv, index_k, index_ref, fused_k, fused_ref in (
+                ("dm", dm_planes, dm.leaf_values, leaf_index_dm,
+                 ref.leaf_index_depth_major, fused_predict_dm,
+                 ref.fused_predict_depth_major),
+                ("bp", (sf, sb), one.leaf_values, leaf_index_bp,
+                 ref.leaf_index_bitpacked, fused_predict_bp,
+                 ref.fused_predict_bitpacked)):
+            d, t = planes[0].shape
+            plane_bytes = sum(p.numel() * p.element_size() for p in planes)
+            out[f"leaf_index_{name}"] = dict(
+                kernel=lambda k=index_k, p=planes: k(bn, *p),
+                plain=lambda k=index_ref, p=planes: k(bn, *p),
+                bytes=n * n_feat + plane_bytes + n * t * 4,
+                ops=n * t * d, n_trees=t)
+            out[f"fused_predict_{name}"] = dict(
+                kernel=lambda k=fused_k, p=planes, lv=lv:
+                    k(xn, borders, *p, lv),
+                plain=lambda k=fused_ref, p=planes, lv=lv:
+                    k(xn, borders, *p, lv),
+                bytes=n * n_feat * 4 + n_b * n_feat * 4 + plane_bytes
+                + lv.numel() * 4 + n * c * 4,
+                ops=n * n_feat * n_b + n * t * d + n * t * c, n_trees=t)
+        return out
+
+    sources = {
+        "leaf_index_dm": "src/repro/kernels/leaf_index.py:122",
+        "fused_predict_dm": "src/repro/kernels/fused_predict.py:210",
+        "leaf_index_bp": "src/repro/kernels/leaf_index.py:216",
+        "fused_predict_bp": "src/repro/kernels/fused_predict.py:329",
+    }
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bulk, bucket = cases(len(x)), cases(MAX_BATCH)
+    rows = []
+    for name in sources:
+        case, small = bulk[name], bucket[name]
+        bound_ms, bound_by = bound(case["bytes"], case["ops"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": sources[name],
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": time_ms(case["kernel"], 20, flush),
+            "plain_ms": time_ms(case["plain"], 5, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "n_rows": len(x), "n_trees": case["n_trees"],
+            "bucket_rows": MAX_BATCH,
+            "bucket_ms": time_ms(small["kernel"], 50, flush),
+            "bucket_plain_ms": time_ms(small["plain"], 5, flush),
+            "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
+        })
+    return rows, of_limit
+
+
+# The kernels each serving path launches, and no others.
+PATH_KERNELS = {
+    "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
+    "depth_major": {"binarize", "leaf_index_dm", "leaf_gather",
+                    "fused_predict_dm"},
+    "depth_grouped": {"binarize", "leaf_index", "leaf_gather"},
+    "bitpacked": {"binarize", "leaf_index_bp", "leaf_gather"},
+    "bitpacked_one_group": {"binarize", "leaf_index_bp", "leaf_gather",
+                            "fused_predict_bp"},
+}
+
+
+def routes_raw(plan, staged, x):
+    """Raw scores of a path's three routes at the bulk shape."""
+    return {"fused": plan.raw(x), "pool": plan.raw(plan.quantize(x)),
+            "staged": staged.raw(x)}
+
+
 def main() -> None:
     try:
         import torch
@@ -419,72 +606,162 @@ def main() -> None:
         print(f"  ptxas {line}")
 
     data = covertype(scale=1.0, seed=SEED)
-    ens = make_model(data.x_train, data.n_classes)
+    full, ens = make_model(data.x_train, data.n_classes)
     x_test = data.x_test
     print(f"model: T={ens.n_trees} D={ens.depth} C={ens.n_outputs} "
           f"F={ens.n_features} B={ens.borders.shape[0]}; "
           f"{len(x_test)} test rows")
 
-    ops.reset_launch_counts()
-    out, phases, plan, buckets = serve(ens, x_test)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    print(f"main-path launches: {launches}")
+    # --- the serving paths, each with the launch counts set to 0 before
+    # it and read after it
+    path_specs = {"soa": (ens, "soa", N_REQUESTS),
+                  "depth_major": (ens, "depth_major", N_LAYOUT_REQUESTS),
+                  "depth_grouped": (ens, "depth_grouped", N_LAYOUT_REQUESTS),
+                  "bitpacked": (ens, "bitpacked", N_LAYOUT_REQUESTS),
+                  "bitpacked_one_group": (full, "bitpacked",
+                                          N_LAYOUT_REQUESTS)}
+    paths, path_launches, buckets = {}, {}, None
+    for path, (model, layout, n_requests) in path_specs.items():
+        ops.reset_launch_counts()
+        out, phases, plan, staged, buckets = serve(model, x_test, layout,
+                                                   n_requests)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        print(f"{path} launches: {counts}", flush=True)
+        for name, count in counts.items():
+            check((count > 0) == (name in PATH_KERNELS[path]),
+                  f"the {path} path launched {name} {count} times; it "
+                  f"launches exactly {sorted(PATH_KERNELS[path])}")
+        paths[path] = dict(out=out, phases=phases, plan=plan, staged=staged,
+                           model=model, n_requests=n_requests)
+        path_launches[path] = counts
+    launches = {name: sum(c[name] for c in path_launches.values())
+                for name in ops.KERNELS}
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched by the main path")
+    n_groups = {p: len(paths[p]["plan"].lowered.groups)
+                for p in ("depth_grouped", "bitpacked", "bitpacked_one_group")}
+    print(f"depth groups: {n_groups}")
+    check(n_groups["depth_grouped"] == n_groups["bitpacked"] > 1
+          and n_groups["bitpacked_one_group"] == 1,
+          f"depth groups {n_groups}")
 
     n, c = len(x_test), ens.n_outputs
-    for name, proba in out.items():
-        rows = N_REQUESTS if name == "single" else n
-        check(proba.shape == (rows, c), f"{name} proba shape {proba.shape}")
-        check(bool(np.isfinite(proba).all()), f"{name} proba not finite")
-        check(bool(np.allclose(proba.sum(1), 1.0, atol=1e-5)),
-              f"{name} proba rows do not sum to 1")
-    classes = {k: v.argmax(1) for k, v in out.items()}
-    check(np.array_equal(classes["fused"], classes["pool"]),
-          "fused and pool paths classify differently")
-    check(np.array_equal(classes["fused"], classes["staged"]),
-          "fused and staged paths classify differently")
-    check(np.array_equal(classes["single"], classes["fused"][:N_REQUESTS]),
-          "single requests classify differently from the batch")
+    recompiles = {}
+    for path, rec in paths.items():
+        out = rec["out"]
+        for name, proba in out.items():
+            rows = rec["n_requests"] if name == "single" else n
+            check(proba.shape == (rows, c),
+                  f"{path} {name} proba shape {proba.shape}")
+            check(bool(np.isfinite(proba).all()),
+                  f"{path} {name} proba not finite")
+            check(bool(np.allclose(proba.sum(1), 1.0, atol=1e-5)),
+                  f"{path} {name} proba rows do not sum to 1")
+        classes = {k: v.argmax(1) for k, v in out.items()}
+        check(np.array_equal(classes["fused"], classes["pool"]),
+              f"{path}: fused and pool routes classify differently")
+        check(np.array_equal(classes["fused"], classes["staged"]),
+              f"{path}: fused and staged routes classify differently")
+        check(np.array_equal(classes["single"],
+                             classes["fused"][:rec["n_requests"]]),
+              f"{path}: single requests classify differently from the "
+              "batch")
+        recompiles[path] = rec["plan"].stats["traces"]
+        check(all(recompiles[path].get(e, 0) <= len(buckets)
+                  for e in ("proba", "proba_pool")),
+              f"{path}: more first calls than the {len(buckets)} buckets: "
+              f"{recompiles[path]}")
+    out = paths["soa"]["out"]
     path_diff = max(float(np.abs(out["fused"] - out[k]).max())
                     for k in ("pool", "staged"))
-    recompiles = plan.stats["traces"]
-    check(all(recompiles.get(e, 0) <= len(buckets)
-              for e in ("proba", "proba_pool")),
-          f"more first calls than the {len(buckets)} buckets: {recompiles}")
 
-    # the card against the plain plan on the CPU, on a small input
-    cpu_plan = Predictor.build(ens, device="cpu")
-    xs = x_test[:N_REFERENCE]
-    raw_cpu = cpu_plan.raw(xs)
-    raw_gpu = plan.raw(xs).cpu()
-    low = cpu_plan.lowered
-    idx_cpu = ops.leaf_index(cpu_plan.quantize(xs).bins, low.split_features,
-                             low.split_bins)
-    limit = sum_limit(idx_cpu, low.leaf_values, cpu_plan.ensemble.base_score)
-    ref_err, ref_share = compare_sums("card vs CPU raw scores", raw_gpu,
-                                      raw_cpu, limit)
-    top2 = raw_cpu.topk(2, dim=1).values
+    # --- agreement between layouts: the routes' raw scores at the bulk
+    # shape, and the served probabilities
+    raw = {p: routes_raw(rec["plan"], rec["staged"], x_test)
+           for p, rec in paths.items()}
+    for a, b in (("depth_major", "soa"), ("bitpacked", "depth_grouped")):
+        for route in ("fused", "pool", "staged"):
+            check(torch.equal(raw[a][route], raw[b][route]),
+                  f"{a} {route} scores differ from {b}'s")
+            check(np.array_equal(paths[a]["out"][route],
+                                 paths[b]["out"][route]),
+                  f"{a} served {route} probabilities differ from {b}'s")
+    soa_full = Predictor.build(full, device="cuda", layout="soa")
+    check(torch.equal(raw["bitpacked_one_group"]["fused"],
+                      soa_full.raw(x_test)),
+          "one-group bitpacked fused scores differ from soa fused")
+    low = paths["soa"]["plan"].lowered
+    x_dev = torch.as_tensor(x_test, device=paths["soa"]["plan"].device)
+    soa_idx = ops.leaf_index(ops.binarize_u8(x_dev, low.borders),
+                             low.split_features, low.split_bins)
+    limit = sum_limit(soa_idx, low.leaf_values, paths["soa"]["plan"]
+                      .ensemble.base_score)
+    del soa_idx
+    top2 = raw["soa"]["fused"].topk(2, dim=1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * limit.max(dim=1).values
-    agree = classify_from_raw(raw_gpu, c) == classify_from_raw(raw_cpu, c)
-    check(bool(agree[clear].all()), "card and CPU classify differently")
+    soa_class = classify_from_raw(raw["soa"]["fused"], c)
+    layout_err = {}
+    for path in ("depth_grouped", "bitpacked"):
+        for route in ("fused", "pool", "staged"):
+            err, share = compare_sums(f"{path} {route} vs soa",
+                                      raw[path][route], raw["soa"][route],
+                                      limit)
+            layout_err[f"{path}_{route}"] = {"max_abs_err": err,
+                                             "err_over_limit": share}
+            agree = classify_from_raw(raw[path][route], c) == soa_class
+            check(bool(agree[clear].all()),
+                  f"{path} {route} classifies differently from soa")
+    layout_err["rows_with_clear_margin"] = int(clear.sum())
+    del raw, limit, top2, clear, soa_class
 
+    # --- the card against the plain plan on the CPU, on a small input,
+    # on every layout
+    xs = x_test[:N_REFERENCE]
+    card_vs_cpu = {}
+    for path, rec in paths.items():
+        model = rec["model"]
+        cpu_plan = Predictor.build(model, device="cpu",
+                                   layout=rec["plan"].config.layout)
+        raw_cpu = cpu_plan.raw(xs)
+        raw_gpu = rec["plan"].raw(xs).cpu()
+        idx_cpu = ops.leaf_index(cpu_plan.quantize(xs).bins,
+                                 model.split_features, model.split_bins)
+        limit = sum_limit(idx_cpu, model.leaf_values, model.base_score)
+        ref_err, ref_share = compare_sums(f"{path}: card vs CPU raw scores",
+                                          raw_gpu, raw_cpu, limit)
+        top2 = raw_cpu.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * limit.max(dim=1).values
+        agree = classify_from_raw(raw_gpu, c) == classify_from_raw(raw_cpu,
+                                                                   c)
+        check(bool(agree[clear].all()),
+              f"{path}: card and CPU classify differently")
+        card_vs_cpu[path] = {"max_abs_err": ref_err,
+                             "err_over_limit": ref_share,
+                             "rows_compared": int(clear.sum())}
+
+    check_rows = (n, MAX_BATCH, buckets[0])
     kernels, control, tree_padding = check_and_time_kernels(
-        x_test, plan, launches, (n, MAX_BATCH, buckets[0]))
+        x_test, paths["soa"]["plan"], launches, check_rows)
+    layout_kernels, layout_of_limit = check_and_time_layout_kernels(
+        x_test, paths["depth_major"]["plan"].lowered,
+        paths["bitpacked"]["plan"].lowered,
+        paths["bitpacked_one_group"]["plan"].lowered, launches, check_rows)
+    kernels += layout_kernels
+    control["kernel_err_over_limit"].update(layout_of_limit)
     torch.cuda.synchronize()
 
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
-        "card_vs_cpu_max_abs_err": ref_err,
-        "card_vs_cpu_err_over_limit": ref_share,
-        "card_vs_cpu_rows_compared": int(clear.sum()),
-        "first_calls": recompiles, "kernel_rows_compared": [
-            n, MAX_BATCH, buckets[0]],
+        "layouts_vs_soa": layout_err,
+        "card_vs_cpu": card_vs_cpu,
+        "first_calls": recompiles, "kernel_rows_compared": list(check_rows),
         "float_limit": f"{K_SIGMA:g}*sqrt(T)*u*sum|leaf| per output",
         "tolerance_control": control, "tree_padding": tree_padding}}))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"serving": phases, "card": card,
+    print(json.dumps({"serving": {p: rec["phases"]
+                                  for p, rec in paths.items()},
+                      "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

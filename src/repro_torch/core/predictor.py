@@ -8,9 +8,10 @@ The port's counterpart of `src/repro/core/predictor.py`:
   plan.raw(pool)                              # no binarize
 
 `Predictor.build` resolves `auto` choices from the device (fused CUDA
-kernels on the card, the staged plain versions on the CPU), moves the
-model to the device and lowers it once.  PyTorch runs eagerly, so there
-is no jit cache; its trace counters become first-call counters per
+kernels on the card, the staged plain versions on the CPU) and the
+ensemble (the layout), moves the model to the device and lowers it once
+into one of the four layouts of `core.layout`.  PyTorch runs eagerly, so
+there is no jit cache; its trace counters become first-call counters per
 (entry, batch shape), which keep their meaning for serving: with bucketed
 batches they stay bounded by (entries used x buckets).
 """
@@ -24,11 +25,11 @@ from typing import Any, Callable, Literal, Optional
 import torch
 
 from repro_torch.core import layout as layout_mod
-from repro_torch.core.layout import SoaLayout
+from repro_torch.core.layout import LoweredEnsemble
 from repro_torch.core.quantize import (MAX_BINS, QuantizedPool,
                                        borders_fingerprint)
 from repro_torch.core.trees import ObliviousEnsemble
-from repro_torch.kernels import ops, registry
+from repro_torch.kernels import ops, registry, tuning
 
 Strategy = Literal["auto", "staged", "fused"]
 
@@ -43,8 +44,12 @@ class PredictConfig:
                  fused (one kernel) | auto: fused on CUDA, staged on CPU
       backend    a registry backend (`torch_ref` | `cuda`) or auto: the
                  cuda kernels on CUDA, the plain versions on the CPU
-      layout     soa | auto (= soa; the other layouts are not ported yet)
-      tree_block staged tree blocking; not ported yet, so only 0
+      layout     soa | depth_major | depth_grouped | bitpacked (see
+                 `core.layout`) | auto: `tuning.best_layout` on the
+                 ensemble's true depths (soa on CUDA for now)
+      tree_block staged-path tree blocking (CalcTreesBlockedImpl); 0 = off.
+                 soa only: an auto layout resolves to soa with it, and
+                 the fused strategy ignores it, as in the JAX package
     """
     strategy: Strategy = "auto"
     backend: str = "auto"
@@ -61,19 +66,25 @@ class PredictConfig:
                              f"got {self.backend!r}")
         layouts = ("auto",) + layout_mod.LAYOUT_NAMES
         if self.layout not in layouts:
-            raise ValueError(f"layout must be one of {layouts} (the other "
-                             f"layouts are not ported), got {self.layout!r}")
-        if self.tree_block != 0:
-            raise ValueError(f"tree_block is not ported; it must be 0, got "
-                             f"{self.tree_block!r}")
+            raise ValueError(f"layout must be one of {layouts}, "
+                             f"got {self.layout!r}")
+        if not isinstance(self.tree_block, int) or self.tree_block < 0:
+            raise ValueError(f"tree_block must be an int >= 0, "
+                             f"got {self.tree_block!r}")
+        if self.tree_block and self.layout not in ("auto", "soa"):
+            raise ValueError(
+                f"tree_block is a soa-layout feature (the depth layouts "
+                f"block by structure instead); got tree_block="
+                f"{self.tree_block} with layout={self.layout!r}")
 
     @property
     def is_resolved(self) -> bool:
         return "auto" not in (self.strategy, self.backend, self.layout)
 
-    def resolve(self, device: torch.device | str) -> "PredictConfig":
-        """Concretize every `auto` choice for plans on `device`; refuses
-        the plain backend for a CUDA device."""
+    def resolve(self, ensemble: ObliviousEnsemble,
+                device: torch.device | str) -> "PredictConfig":
+        """Concretize every `auto` choice for `ensemble` on `device`;
+        refuses the plain backend for a CUDA device."""
         on_cuda = torch.device(device).type == "cuda"
         strategy = self.strategy
         if strategy == "auto":
@@ -82,8 +93,13 @@ class PredictConfig:
         if backend == "auto":
             backend = registry.default_backend(device)
         registry.check_backend(backend, device)
+        layout = self.layout
+        if layout == "auto":
+            layout = "soa" if self.tree_block else tuning.best_layout(
+                ensemble.true_depths, ensemble.n_outputs,
+                ensemble.n_features, device=device)
         return dataclasses.replace(self, strategy=strategy, backend=backend,
-                                   layout="soa")
+                                   layout=layout)
 
 
 def proba_from_raw(raw: torch.Tensor, n_outputs: int) -> torch.Tensor:
@@ -121,13 +137,13 @@ class Predictor:
     """A prepared prediction plan for one ensemble on one device.
 
     Construct with `Predictor.build(...)`.  The plan owns a resolved
-    `PredictConfig`, the model on its device lowered once into the `soa`
+    `PredictConfig`, the model on its device lowered once into its
     layout, and the `raw` / `proba` / `classify` / `quantize` entries.
     Outputs are tensors on the plan's device.
     """
 
     def __init__(self, ensemble: ObliviousEnsemble, config: PredictConfig,
-                 lowered: SoaLayout, device: torch.device, *,
+                 lowered: LoweredEnsemble, device: torch.device, *,
                  on_trace: Optional[Callable[[], None]] = None,
                  lower_time_s: float = 0.0):
         if not config.is_resolved:
@@ -173,10 +189,13 @@ class Predictor:
             raise TypeError("pass either a PredictConfig or config kwargs, "
                             f"not both: {sorted(config_kw)}")
         device = _resolve_device(device)
-        resolved = config.resolve(device)
+        resolved = config.resolve(ensemble, device)
         t0 = time.perf_counter()
         on_device = ensemble.to(device)
-        lowered = layout_mod.lower(on_device, resolved.layout)
+        lowered = layout_mod.lower(
+            on_device, resolved.layout,
+            tree_block=(resolved.tree_block
+                        if resolved.strategy == "staged" else 0))
         return cls(on_device, resolved, lowered, device, on_trace=on_trace,
                    lower_time_s=time.perf_counter() - t0)
 

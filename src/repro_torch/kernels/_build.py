@@ -45,6 +45,16 @@ _SIGNATURES = {
     "repro_leaf_gather": (_PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT),
     "repro_fused_predict": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
                             _INT, _INT, _INT, _INT, _INT, _INT, _INT),
+    "repro_leaf_index_dm": (_PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT, _INT,
+                            _INT, _INT, _INT),
+    "repro_leaf_index_bp": (_PTR, _PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT,
+                            _INT, _INT, _INT, _INT),
+    "repro_fused_predict_dm": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                               _LONG, _INT, _INT, _INT, _INT, _INT, _INT,
+                               _INT, _INT),
+    "repro_fused_predict_bp": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG,
+                               _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                               _INT, _INT),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,78 @@
+// Fused prediction over one depth group of the bitpacked layout:
+//   pred[n, c] = sum_t lv[t, idx(bins[n], t), c],  bins = binarize(x),
+//   idx(b, t) = OR_d [b[sf_bp[d, t]] >= sb_bp[d, t]] << d.
+//
+// Replaces the TPU kernel src/repro/kernels/fused_predict.py:
+// fused_predict_bp (_fused_bp_kernel).  Its index stage is
+// leaf_index_bp.cu's: per level, the 32 rows of a warp put their compare
+// bits into one word with __ballot_sync (the TPU's 32-doc uint32 lane
+// word), and each row ors its own bit of the word into its index; bins and
+// thresholds meet in int32 registers, so an int32 plane's PAD_SPLIT_BIN
+// never goes right.  Its leaf stage is a direct gather where the TPU
+// kernel runs a one-hot matmul.  The kernel is fused_planes.cuh over int32
+// split features and uint8 or int32 thresholds (the bins tile uint8 or
+// int32: four instantiations); its design and what bounds it are
+// described there.  BitpackedLayout.fused_raw calls it for a model of one
+// depth group; with more it binarizes once and runs leaf_index_bp per
+// group, as the JAX package does.
+#include "fused_planes.cuh"
+
+namespace {
+
+template <typename BinT>
+void launch(unsigned blocks, int rows_per_block, cudaStream_t s,
+            const float* x, const float* borders, const int32_t* sf,
+            const void* sb, int planes_u8, const float* lv, float* out,
+            long long n_rows, int n_feat, int n_borders, int n_trees,
+            int depth, int n_out, int stride) {
+  if (planes_u8) {
+    launch_fused_planes<BinT, uint8_t, true>(
+        blocks, rows_per_block, s, x, borders, sf,
+        static_cast<const uint8_t*>(sb), nullptr, lv, out, n_rows, n_feat,
+        n_borders, n_trees, depth, n_out, stride);
+  } else {
+    launch_fused_planes<BinT, int32_t, true>(
+        blocks, rows_per_block, s, x, borders, sf,
+        static_cast<const int32_t*>(sb), nullptr, lv, out, n_rows, n_feat,
+        n_borders, n_trees, depth, n_out, stride);
+  }
+}
+
+}  // namespace
+
+// x (n_rows, n_feat) f32; borders (n_borders, n_feat) f32; sf_bp (depth,
+// n_trees) int32 with every sf in [0, n_feat) and depth <= kMaxDepth;
+// sb_bp (depth, n_trees) uint8 when planes_u8 else int32; lv (n_trees,
+// 2^depth, n_out) f32 with n_out <= 32; out (n_rows, n_out) f32.  The bins
+// tile is uint8 when bins_u8 (the caller guarantees n_borders <= 255) else
+// int32, with `stride` elements a row; rows_per_block is a multiple of 32
+// (whole warps for the ballots); with the staged planes it fits 48 KB.
+extern "C" int repro_fused_predict_bp(const void* x, const void* borders,
+                                      const void* sf_bp, const void* sb_bp,
+                                      const void* lv, void* out,
+                                      long long n_rows, int n_feat,
+                                      int n_borders, int n_trees, int depth,
+                                      int n_out, int bins_u8, int planes_u8,
+                                      int stride, int rows_per_block,
+                                      int device, void* stream) {
+  cudaError_t err = select_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>(
+      (n_rows + rows_per_block - 1) / rows_per_block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xp = static_cast<const float*>(x);
+  const float* bp = static_cast<const float*>(borders);
+  const int32_t* sfp = static_cast<const int32_t*>(sf_bp);
+  const float* lp = static_cast<const float*>(lv);
+  float* op = static_cast<float*>(out);
+  if (bins_u8) {
+    launch<uint8_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp, planes_u8,
+                    lp, op, n_rows, n_feat, n_borders, n_trees, depth, n_out,
+                    stride);
+  } else {
+    launch<int32_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp, planes_u8,
+                    lp, op, n_rows, n_feat, n_borders, n_trees, depth, n_out,
+                    stride);
+  }
+  return launch_status();
+}

@@ -1,8 +1,20 @@
 """Fused binarize -> leaf index -> leaf gather on Hopper.
 
-The kernel is `csrc/fused_predict.cu`; it replaces the TPU kernel
-`src/repro/kernels/fused_predict.py:fused_predict`.  Its plain version is
-`ref.fused_predict`.
+Three kernels, one for each way a layout holds its splits:
+
+  fused_predict     `csrc/fused_predict.cu`: (T, D) splits (soa);
+                    replaces `src/repro/kernels/fused_predict.py:
+                    fused_predict`.  Plain version `ref.fused_predict`.
+  fused_predict_dm  `csrc/fused_predict_dm.cu`: (D, T) planes and level
+                    weights (depth_major); replaces `fused_predict_dm`.
+                    Plain version `ref.fused_predict_depth_major`.
+  fused_predict_bp  `csrc/fused_predict_bp.cu`: (D, T) planes with uint8
+                    or int32 thresholds (bitpacked, one depth group);
+                    replaces `fused_predict_bp`.  Plain version
+                    `ref.fused_predict_bitpacked`.
+
+All three sum the trees in order, one add per tree, as `leaf_gather`
+does, so every route of one model gives bit-identical scores.
 """
 from __future__ import annotations
 
@@ -10,31 +22,49 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.leaf_gather import MAX_OUTPUTS
-from repro_torch.kernels.leaf_index import MAX_DEPTH, TILE_BYTES
+from repro_torch.kernels.leaf_index import (MAX_DEPTH, TILE_BYTES,
+                                           strided_tile)
 
 # One thread per row: 128 rows (4 warps) a block.  At Covertype's width
 # the uint8 bins tile is 7.5 KB, so 16 blocks (the SM's 2,048 threads)
 # fit one SM's shared memory, and N = 139,440 rows make 1,090 blocks,
 # about 8 for each of the 132 SMs.  Wide rows take fewer, in whole warps.
 ROWS_PER_BLOCK = 128
-WARP = 32
+# The depth-major and bitpacked kernels stage a chunk of trees' (D, T)
+# planes in 16 KB of static shared memory (csrc/fused_planes.cuh: 2,048
+# entries a plane) beside the level weights, which leaves the bins tile
+# the rest of the 48 KB.
+PLANE_BYTES = 16 * 1024 + 4 * MAX_DEPTH
 
 
-def tile_shape(n_features: int, u8: bool) -> tuple[int, int]:
-    """(rows a block, row stride in bins) of the shared bins tile.
+def tile_shape(n_features: int, u8: bool,
+               budget: int = TILE_BYTES) -> tuple[int, int]:
+    """(rows a block, row stride in bins) of the shared bins tile: at
+    most `ROWS_PER_BLOCK` rows in whole warps, odd-word row stride
+    (`leaf_index.strided_tile`)."""
+    return strided_tile(n_features, 1 if u8 else 4, budget, ROWS_PER_BLOCK)
 
-    The stride is an odd number of 4-byte words, so the 32 rows a warp
-    reads at one feature sit in 32 distinct shared-memory banks."""
-    bin_bytes = 1 if u8 else 4
-    words = (n_features * bin_bytes + 3) // 4 | 1
-    stride = words * 4 // bin_bytes
-    fit = TILE_BYTES // (stride * bin_bytes)
-    rows = min(ROWS_PER_BLOCK, fit // WARP * WARP)
-    if rows < WARP:
-        raise ValueError(f"fused_predict: {n_features} features leave no "
-                         f"room for {WARP} rows of bins in {TILE_BYTES} "
-                         "bytes of shared memory")
-    return rows, stride
+
+def _check_fused_args(name: str, x, borders, planes, leaf_values,
+                      n_trees: int, depth: int) -> None:
+    if x.ndim != 2 or borders.ndim != 2 or x.shape[1] != borders.shape[1] \
+            or any(p.ndim != 2 or p.shape != planes[0].shape
+                   for p in planes) \
+            or leaf_values.ndim != 3 or leaf_values.shape[0] != n_trees:
+        raise ValueError(
+            f"{name} takes x (N, F), borders (B, F), split arrays of one "
+            f"2-d shape and leaf values (T, L, C), got {tuple(x.shape)}, "
+            f"{tuple(borders.shape)}, {[tuple(p.shape) for p in planes]} "
+            f"and {tuple(leaf_values.shape)}")
+    if x.device.type == "cpu":
+        return
+    if depth > MAX_DEPTH or leaf_values.shape[1] != 1 << depth:
+        raise ValueError(f"{name} takes depth <= {MAX_DEPTH} with 2^depth "
+                         f"leaves, got depth {depth} and "
+                         f"{leaf_values.shape[1]} leaves")
+    if leaf_values.shape[2] > MAX_OUTPUTS:
+        raise ValueError(f"{name} takes <= {MAX_OUTPUTS} outputs, got "
+                         f"{leaf_values.shape[2]}")
 
 
 def fused_predict(x: torch.Tensor, borders: torch.Tensor,
@@ -46,16 +76,9 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     int32 otherwise.  A tensor on the CPU goes through the plain
     version; a CUDA tensor launches the kernel (and adds one to
     `fused_predict.launches`)."""
-    if x.ndim != 2 or borders.ndim != 2 or x.shape[1] != borders.shape[1] \
-            or split_features.ndim != 2 \
-            or split_features.shape != split_bins.shape \
-            or leaf_values.ndim != 3 \
-            or leaf_values.shape[0] != split_features.shape[0]:
-        raise ValueError(
-            f"fused_predict takes x (N, F), borders (B, F), splits (T, D) "
-            f"and leaf values (T, L, C), got {tuple(x.shape)}, "
-            f"{tuple(borders.shape)}, {tuple(split_features.shape)}, "
-            f"{tuple(split_bins.shape)} and {tuple(leaf_values.shape)}")
+    _check_fused_args("fused_predict", x, borders,
+                      (split_features, split_bins), leaf_values,
+                      *split_features.shape)
     if x.device.type == "cpu":
         return ref.fused_predict(x, borders, split_features, split_bins,
                                  leaf_values)
@@ -68,13 +91,6 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     n_borders = borders.shape[0]
     t, d = split_features.shape
     c = leaf_values.shape[2]
-    if d > MAX_DEPTH or leaf_values.shape[1] != 1 << d:
-        raise ValueError(f"fused_predict takes depth <= {MAX_DEPTH} with "
-                         f"2^depth leaves, got depth {d} and "
-                         f"{leaf_values.shape[1]} leaves")
-    if c > MAX_OUTPUTS:
-        raise ValueError(f"fused_predict takes <= {MAX_OUTPUTS} outputs, "
-                         f"got {c}")
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
         u8 = n_borders <= ref.MAX_U8_BORDERS
@@ -87,3 +103,86 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
 
 
 fused_predict.launches = 0
+
+
+def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
+                     split_features_dm: torch.Tensor,
+                     split_bins_dm: torch.Tensor, pow2: torch.Tensor,
+                     leaf_values: torch.Tensor) -> torch.Tensor:
+    """Fused GBDT predict over the depth-major (D, T) int32 planes and
+    (D, 1) f32 level weights -> (N, C) float32 raw tree sums.
+
+    A tensor on the CPU goes through the plain version; a CUDA tensor
+    launches the kernel (and adds one to `fused_predict_dm.launches`)."""
+    d, t = split_features_dm.shape
+    _check_fused_args("fused_predict_dm", x, borders,
+                      (split_features_dm, split_bins_dm), leaf_values, t, d)
+    if pow2.shape != (d, 1):
+        raise ValueError(f"pow2 must be (D, 1) = ({d}, 1), got "
+                         f"{tuple(pow2.shape)}")
+    if x.device.type == "cpu":
+        return ref.fused_predict_depth_major(x, borders, split_features_dm,
+                                             split_bins_dm, pow2,
+                                             leaf_values)
+    _build.check_cuda_tensors(
+        "fused_predict_dm", x=(x, torch.float32),
+        borders=(borders, torch.float32),
+        split_features_dm=(split_features_dm, torch.int32),
+        split_bins_dm=(split_bins_dm, torch.int32),
+        pow2=(pow2, torch.float32), leaf_values=(leaf_values, torch.float32))
+    n, f = x.shape
+    c = leaf_values.shape[2]
+    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    if n and c:
+        u8 = borders.shape[0] <= ref.MAX_U8_BORDERS
+        rows, stride = tile_shape(f, u8, TILE_BYTES - PLANE_BYTES)
+        _build.launch("repro_fused_predict_dm", x.device, x, borders,
+                      split_features_dm, split_bins_dm, pow2, leaf_values,
+                      out, n, f, borders.shape[0], t, d, c, int(u8), stride,
+                      rows)
+        fused_predict_dm.launches += 1
+    return out
+
+
+fused_predict_dm.launches = 0
+
+
+def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
+                     split_features_bp: torch.Tensor,
+                     split_bins_bp: torch.Tensor,
+                     leaf_values: torch.Tensor) -> torch.Tensor:
+    """Fused GBDT predict over the bitpacked (D, T) planes (int32 split
+    features, uint8 or int32 thresholds) -> (N, C) float32 raw tree sums.
+
+    A tensor on the CPU goes through the plain version; a CUDA tensor
+    launches the kernel (and adds one to `fused_predict_bp.launches`)."""
+    d, t = split_features_bp.shape
+    _check_fused_args("fused_predict_bp", x, borders,
+                      (split_features_bp, split_bins_bp), leaf_values, t, d)
+    if split_bins_bp.dtype not in (torch.int32, torch.uint8):
+        raise ValueError(f"split_bins_bp is int32 or uint8, not "
+                         f"{split_bins_bp.dtype}")
+    if x.device.type == "cpu":
+        return ref.fused_predict_bitpacked(x, borders, split_features_bp,
+                                           split_bins_bp, leaf_values)
+    _build.check_cuda_tensors(
+        "fused_predict_bp", x=(x, torch.float32),
+        borders=(borders, torch.float32),
+        split_features_bp=(split_features_bp, torch.int32),
+        split_bins_bp=(split_bins_bp, split_bins_bp.dtype),
+        leaf_values=(leaf_values, torch.float32))
+    n, f = x.shape
+    c = leaf_values.shape[2]
+    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    if n and c:
+        u8 = borders.shape[0] <= ref.MAX_U8_BORDERS
+        rows, stride = tile_shape(f, u8, TILE_BYTES - PLANE_BYTES)
+        _build.launch("repro_fused_predict_bp", x.device, x, borders,
+                      split_features_bp, split_bins_bp, leaf_values, out, n,
+                      f, borders.shape[0], t, d, c, int(u8),
+                      int(split_bins_bp.dtype == torch.uint8), stride, rows)
+        fused_predict_bp.launches += 1
+    return out
+
+
+fused_predict_bp.launches = 0

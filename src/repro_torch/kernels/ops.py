@@ -8,6 +8,11 @@ The port's counterpart of `src/repro/kernels/ops.py`.  Each op has a
 argument (int32, or uint8 for the one-byte quantized-pool stream).
 `backend="auto"` resolves from the device of the data (`registry.resolve`).
 
+`leaf_index` and `fused_predict` have siblings for the depth_major
+(`torch_ref_dm` / `cuda_dm`) and bitpacked (`torch_ref_bp` / `cuda_bp`)
+layouts, which take (D, T) split planes; the `_dm` / `_bp` ops route to
+them through `registry.resolve(..., layout=)`.
+
 The kernels mask their own ragged edges, so neither the data nor the model
 is padded.
 """
@@ -36,7 +41,18 @@ KERNELS = {
     "leaf_index": _index_k.leaf_index,
     "leaf_gather": _gather_k.leaf_gather,
     "fused_predict": _fused_k.fused_predict,
+    "leaf_index_dm": _index_k.leaf_index_dm,
+    "fused_predict_dm": _fused_k.fused_predict_dm,
+    "leaf_index_bp": _index_k.leaf_index_bp,
+    "fused_predict_bp": _fused_k.fused_predict_bp,
 }
+
+# The layouts each op's soa-array implementations take: depth_grouped
+# holds soa arrays group by group (its fused route binarizes once and
+# indexes each group instead); binarize and leaf_gather read no model
+# structure.
+ALL_LAYOUTS = ("soa", "depth_major", "depth_grouped", "bitpacked")
+SOA_LAYOUTS = ("soa", "depth_grouped")
 
 
 def launch_counts() -> dict[str, int]:
@@ -69,6 +85,7 @@ def _bins_dtype(bins: torch.Tensor) -> str:
 # Registered implementations
 # --------------------------------------------------------------------------
 @registry.register("binarize", "torch_ref", dtypes=("int32", "uint8"),
+                   layouts=ALL_LAYOUTS,
                    constraints="any shape; uint8 bins need <= 255 borders")
 def _binarize_ref(x, borders, out_dtype=torch.int32):
     if out_dtype == torch.uint8:
@@ -77,6 +94,7 @@ def _binarize_ref(x, borders, out_dtype=torch.int32):
 
 
 @registry.register("binarize", "cuda", dtypes=("int32", "uint8"),
+                   layouts=ALL_LAYOUTS,
                    constraints="uint8 bins need <= 255 borders; "
                                "csrc/binarize.cu")
 def _binarize_cuda(x, borders, out_dtype=torch.int32):
@@ -84,39 +102,103 @@ def _binarize_cuda(x, borders, out_dtype=torch.int32):
 
 
 @registry.register("leaf_index", "torch_ref", dtypes=("int32", "uint8"),
+                   layouts=SOA_LAYOUTS,
                    constraints="any shape; compares in int32")
 def _leaf_index_ref(bins, sf, sb):
     return _ref.leaf_index(bins, sf, sb)
 
 
 @registry.register("leaf_index", "cuda", dtypes=("int32", "uint8"),
+                   layouts=SOA_LAYOUTS,
                    constraints="depth <= 16; csrc/leaf_index.cu")
 def _leaf_index_cuda(bins, sf, sb):
     return _index_k.leaf_index(bins, sf, sb)
 
 
-@registry.register("leaf_gather", "torch_ref", constraints="any shape")
+@registry.register("leaf_gather", "torch_ref", layouts=ALL_LAYOUTS,
+                   constraints="any shape")
 def _leaf_gather_ref(idx, lv):
     return _ref.leaf_gather(idx, lv)
 
 
-@registry.register("leaf_gather", "cuda",
+@registry.register("leaf_gather", "cuda", layouts=ALL_LAYOUTS,
                    constraints="<= 32 outputs; csrc/leaf_gather.cu")
 def _leaf_gather_cuda(idx, lv):
     return _gather_k.leaf_gather(idx, lv)
 
 
-@registry.register("fused_predict", "torch_ref", constraints="any shape")
+@registry.register("fused_predict", "torch_ref", layouts=SOA_LAYOUTS,
+                   constraints="any shape")
 def _fused_ref(x, borders, sf, sb, lv):
     return _ref.fused_predict(x, borders, sf, sb, lv)
 
 
 @registry.register("fused_predict", "cuda", dtypes=("int32", "uint8"),
+                   layouts=SOA_LAYOUTS,
                    constraints="depth <= 16, <= 32 outputs; uint8 bins "
                                "tile when <= 255 borders; "
                                "csrc/fused_predict.cu")
 def _fused_cuda(x, borders, sf, sb, lv):
     return _fused_k.fused_predict(x, borders, sf, sb, lv)
+
+
+# Depth-major siblings: (D, T) int32 planes and (D, 1) f32 level weights.
+@registry.register("leaf_index", "torch_ref_dm", dtypes=("int32", "uint8"),
+                   layouts=("depth_major",),
+                   constraints="(D, T) planes; any shape")
+def _leaf_index_ref_dm(bins, sf_dm, sb_dm, pow2):
+    return _ref.leaf_index_depth_major(bins, sf_dm, sb_dm, pow2)
+
+
+@registry.register("leaf_index", "cuda_dm", dtypes=("int32", "uint8"),
+                   layouts=("depth_major",),
+                   constraints="depth <= 16; csrc/leaf_index_dm.cu")
+def _leaf_index_cuda_dm(bins, sf_dm, sb_dm, pow2):
+    return _index_k.leaf_index_dm(bins, sf_dm, sb_dm, pow2)
+
+
+@registry.register("fused_predict", "torch_ref_dm", layouts=("depth_major",),
+                   constraints="(D, T) planes; any shape")
+def _fused_ref_dm(x, borders, sf_dm, sb_dm, pow2, lv):
+    return _ref.fused_predict_depth_major(x, borders, sf_dm, sb_dm, pow2, lv)
+
+
+@registry.register("fused_predict", "cuda_dm", dtypes=("int32", "uint8"),
+                   layouts=("depth_major",),
+                   constraints="depth <= 16, <= 32 outputs; "
+                               "csrc/fused_predict_dm.cu")
+def _fused_cuda_dm(x, borders, sf_dm, sb_dm, pow2, lv):
+    return _fused_k.fused_predict_dm(x, borders, sf_dm, sb_dm, pow2, lv)
+
+
+# Bitpacked siblings: (D, T) planes, thresholds uint8 or int32.
+@registry.register("leaf_index", "torch_ref_bp", dtypes=("int32", "uint8"),
+                   layouts=("bitpacked",),
+                   constraints="(D, T) planes; any shape; integer only")
+def _leaf_index_ref_bp(bins, sf_bp, sb_bp):
+    return _ref.leaf_index_bitpacked(bins, sf_bp, sb_bp)
+
+
+@registry.register("leaf_index", "cuda_bp", dtypes=("int32", "uint8"),
+                   layouts=("bitpacked",),
+                   constraints="depth <= 16; 32-row ballot words; "
+                               "csrc/leaf_index_bp.cu")
+def _leaf_index_cuda_bp(bins, sf_bp, sb_bp):
+    return _index_k.leaf_index_bp(bins, sf_bp, sb_bp)
+
+
+@registry.register("fused_predict", "torch_ref_bp", layouts=("bitpacked",),
+                   constraints="(D, T) planes; any shape")
+def _fused_ref_bp(x, borders, sf_bp, sb_bp, lv):
+    return _ref.fused_predict_bitpacked(x, borders, sf_bp, sb_bp, lv)
+
+
+@registry.register("fused_predict", "cuda_bp", dtypes=("int32", "uint8"),
+                   layouts=("bitpacked",),
+                   constraints="depth <= 16, <= 32 outputs; "
+                               "csrc/fused_predict_bp.cu")
+def _fused_cuda_bp(x, borders, sf_bp, sb_bp, lv):
+    return _fused_k.fused_predict_bp(x, borders, sf_bp, sb_bp, lv)
 
 
 # --------------------------------------------------------------------------
@@ -159,6 +241,47 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
                              split_features, split_bins, leaf_values)
 
 
+def leaf_index_dm(bins: torch.Tensor, split_features_dm: torch.Tensor,
+                  split_bins_dm: torch.Tensor, pow2: torch.Tensor, *,
+                  backend: Backend = "auto") -> torch.Tensor:
+    """(N, F) i32|u8, (D, T) i32 planes, (D, 1) f32 weights -> (N, T)
+    int32 leaf ids (depth_major layout)."""
+    return registry.dispatch("leaf_index", backend, bins, split_features_dm,
+                             split_bins_dm, pow2, dtype=_bins_dtype(bins),
+                             layout="depth_major")
+
+
+def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
+                     split_features_dm: torch.Tensor,
+                     split_bins_dm: torch.Tensor, pow2: torch.Tensor,
+                     leaf_values: torch.Tensor, *,
+                     backend: Backend = "auto") -> torch.Tensor:
+    """Fused predict on the depth_major layout -> (N, C) f32."""
+    return registry.dispatch("fused_predict", backend, x, borders,
+                             split_features_dm, split_bins_dm, pow2,
+                             leaf_values, layout="depth_major")
+
+
+def leaf_index_bp(bins: torch.Tensor, split_features_bp: torch.Tensor,
+                  split_bins_bp: torch.Tensor, *,
+                  backend: Backend = "auto") -> torch.Tensor:
+    """(N, F) i32|u8, (D, T) i32 features, (D, T) u8|i32 thresholds ->
+    (N, T) int32 leaf ids (bitpacked layout)."""
+    return registry.dispatch("leaf_index", backend, bins, split_features_bp,
+                             split_bins_bp, dtype=_bins_dtype(bins),
+                             layout="bitpacked")
+
+
+def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
+                     split_features_bp: torch.Tensor,
+                     split_bins_bp: torch.Tensor, leaf_values: torch.Tensor,
+                     *, backend: Backend = "auto") -> torch.Tensor:
+    """Fused predict on one bitpacked depth group -> (N, C) f32."""
+    return registry.dispatch("fused_predict", backend, x, borders,
+                             split_features_bp, split_bins_bp, leaf_values,
+                             layout="bitpacked")
+
+
 # The plan's entries keep the JAX package's `_prepadded` names, so each
 # call site in `core.predictor` and `core.layout` maps to its counterpart
 # there.  The CUDA kernels mask their own edges, so a lowered model is
@@ -168,3 +291,7 @@ binarize_u8_prepadded = binarize_u8
 leaf_index_prepadded = leaf_index
 leaf_gather_prepadded = leaf_gather
 fused_predict_prepadded = fused_predict
+leaf_index_dm_prepadded = leaf_index_dm
+fused_predict_dm_prepadded = fused_predict_dm
+leaf_index_bp_prepadded = leaf_index_bp
+fused_predict_bp_prepadded = fused_predict_bp

@@ -12,6 +12,10 @@ Conventions (CatBoost's oblivious-tree model):
   split_bins     (T, D)  int32     border id; go right iff bins[f] >= split_bin
   leaf_values    (T, 2^D, C) float32
   leaf index     idx[n, t] = sum_d 2^d * [bins[n, sf[t, d]] >= sb[t, d]]
+
+The depth_major and bitpacked layouts hold the splits as (D, T) planes
+(row d = every tree's level-d split); their `_depth_major` / `_bitpacked`
+functions compute the same leaf index from them.
 """
 from __future__ import annotations
 
@@ -60,6 +64,78 @@ def leaf_index(bins: torch.Tensor, split_features: torch.Tensor,
     return idx
 
 
+def leaf_index_depth_major(bins: torch.Tensor,
+                           split_features_dm: torch.Tensor,
+                           split_bins_dm: torch.Tensor,
+                           pow2: torch.Tensor) -> torch.Tensor:
+    """`leaf_index` over the depth-major arrays -> (N, T) int32.
+
+    `split_features_dm` and `split_bins_dm` are the (D, T) int32 planes
+    (row d holds every tree's level-d split) and `pow2` the (D, 1) f32
+    per-level weights 2^d, summed as integers.  The JAX package gathers
+    with a (T, D, F) one-hot matmul instead; the port lowers no one-hot."""
+    d, t = split_features_dm.shape
+    weights = pow2[:, 0].to(torch.int32)
+    idx = torch.zeros((bins.shape[0], t), dtype=torch.int32,
+                      device=bins.device)
+    for level in range(d):
+        gathered = torch.index_select(bins, 1, split_features_dm[level].long())
+        go_right = gathered.to(torch.int32) >= split_bins_dm[level]
+        idx += go_right.to(torch.int32) * weights[level]
+    return idx
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a 0/1 plane along axis 0 into uint32 words -> (ceil(N/32), ...).
+
+    Bit k of word w is row 32*w + k; rows past N are 0 (the paper's
+    32-doc `vmsgeu` mask word).  Shifts run in int64: PyTorch has no
+    uint32 shift on the CPU."""
+    n = bits.shape[0]
+    words = -(-max(n, 1) // 32)
+    b = bits.to(torch.int64)
+    pad = torch.zeros((words * 32 - n,) + tuple(b.shape[1:]),
+                      dtype=torch.int64, device=b.device)
+    b = torch.cat([b, pad]).reshape((words, 32) + tuple(b.shape[1:]))
+    shifts = torch.arange(32, device=b.device).reshape(
+        (1, 32) + (1,) * (b.ndim - 2))
+    return (b << shifts).sum(dim=1).to(torch.uint32)
+
+
+def unpack_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of `pack_bits`: uint32 words -> the first `n` 0/1 rows
+    (int32)."""
+    shifts = torch.arange(32, device=words.device).reshape(
+        (1, 32) + (1,) * (words.ndim - 1))
+    bits = (words.to(torch.int64)[:, None] >> shifts) & 1
+    out = bits.reshape((words.shape[0] * 32,) + tuple(words.shape[1:]))
+    return out[:n].to(torch.int32)
+
+
+def leaf_index_bitpacked(bins: torch.Tensor, split_features_bp: torch.Tensor,
+                         split_bins_bp: torch.Tensor, *,
+                         via_words: bool = False) -> torch.Tensor:
+    """`leaf_index` over the bitpacked (D, T) planes -> (N, T) int32.
+
+    `split_bins_bp` is uint8 where every threshold fits a byte, else
+    int32.  uint8 bins compare against a uint8 plane as bytes; any int32
+    side makes the compare int32, so PAD_SPLIT_BIN never goes right.
+    Each level's compare is one bit per row, or'ed in at bit d.
+    `via_words=True` routes every level's bits through `pack_bits` /
+    `unpack_bits` (the 32-row word round trip the kernels make), which
+    is the identity."""
+    d, t = split_features_bp.shape
+    n = bins.shape[0]
+    idx = torch.zeros((n, t), dtype=torch.int32, device=bins.device)
+    for level in range(d):
+        gathered = torch.index_select(bins, 1, split_features_bp[level].long())
+        bit = gathered >= split_bins_bp[level]
+        if via_words:
+            bit = unpack_bits(pack_bits(bit), n)
+        idx |= bit.to(torch.int32) << level
+    return idx
+
+
 def leaf_gather(idx: torch.Tensor, leaf_values: torch.Tensor) -> torch.Tensor:
     """pred[n, c] = sum_t leaf_values[t, idx[n, t], c] -> (N, C) float32."""
     t, n_leaves, c = leaf_values.shape
@@ -74,4 +150,26 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     """binarize -> leaf_index -> leaf_gather as one function -> (N, C)."""
     bins = binarize(x, borders)
     return leaf_gather(leaf_index(bins, split_features, split_bins),
+                       leaf_values)
+
+
+def fused_predict_depth_major(x: torch.Tensor, borders: torch.Tensor,
+                              split_features_dm: torch.Tensor,
+                              split_bins_dm: torch.Tensor, pow2: torch.Tensor,
+                              leaf_values: torch.Tensor) -> torch.Tensor:
+    """`fused_predict` over the depth-major arrays -> (N, C)."""
+    bins = binarize(x, borders)
+    return leaf_gather(leaf_index_depth_major(bins, split_features_dm,
+                                              split_bins_dm, pow2),
+                       leaf_values)
+
+
+def fused_predict_bitpacked(x: torch.Tensor, borders: torch.Tensor,
+                            split_features_bp: torch.Tensor,
+                            split_bins_bp: torch.Tensor,
+                            leaf_values: torch.Tensor) -> torch.Tensor:
+    """`fused_predict` over the bitpacked planes -> (N, C)."""
+    bins = binarize(x, borders)
+    return leaf_gather(leaf_index_bitpacked(bins, split_features_bp,
+                                            split_bins_bp),
                        leaf_values)

@@ -10,6 +10,10 @@ registers named implementations with capability metadata:
   dtypes    bin-stream dtypes the implementation produces or consumes
             (binarize takes the output dtype as an argument)
   devices   the device type the implementation runs on
+  layouts   the physical model layouts (`core.layout`) whose arrays it
+            takes: the `_dm` / `_bp` implementations take the (D, T)
+            planes of depth_major / bitpacked, and `resolve(...,
+            layout=)` routes to them by name suffix
 
 The registry is the one place that picks the code for a device: `auto`
 resolves to `cuda` on a CUDA device and to `torch_ref` on the CPU, and a
@@ -41,6 +45,7 @@ class KernelImpl:
     family: str
     dtypes: tuple[str, ...]
     devices: tuple[str, ...]
+    layouts: tuple[str, ...]
     constraints: str
 
 
@@ -49,9 +54,12 @@ _CALL_STATS: dict[str, int] = {}
 
 
 def register(op: str, name: str, *, dtypes: tuple[str, ...] = ("int32",),
+             layouts: tuple[str, ...] = ("soa",),
              constraints: str = "") -> Callable:
     """Decorator: register `fn` as implementation `name` of `op`.  The
-    family is the name's prefix; registering a name twice is an error."""
+    family is the name's prefix; registering a name twice is an error.
+    `layouts` names the layouts whose arrays `fn` takes (ops that read
+    no model structure, binarize and leaf_gather, claim every layout)."""
     family = next((f for f in FAMILIES if name.startswith(f)), None)
     if family is None:
         raise ValueError(f"implementation {name!r} belongs to no family "
@@ -64,7 +72,7 @@ def register(op: str, name: str, *, dtypes: tuple[str, ...] = ("int32",),
         impls[name] = KernelImpl(
             op=op, name=name, fn=fn, family=family, dtypes=tuple(dtypes),
             devices=("cuda",) if family == "cuda" else ("cpu",),
-            constraints=constraints)
+            layouts=tuple(layouts), constraints=constraints)
         return fn
     return deco
 
@@ -117,12 +125,20 @@ def check_backend(backend: str, device: torch.device | str) -> None:
             "runs the plain versions (use backend='torch_ref' or 'auto')")
 
 
+# Layout -> suffix of the sibling implementation that takes that
+# layout's arrays, tried when the backend's own does not.
+_LAYOUT_SUFFIX = {"depth_major": "dm", "bitpacked": "bp"}
+
+
 def resolve(op: str, backend: str = "auto", *,
             device: torch.device | str = "cpu",
-            dtype: Optional[str] = None) -> str:
+            dtype: Optional[str] = None,
+            layout: Optional[str] = None) -> str:
     """Map a backend (`auto`, a family, or an exact implementation name)
-    to the implementation to run on `device`, refusing one that does not
-    handle `dtype` when that is given."""
+    to the implementation to run on `device`.  When `layout` is given and
+    that implementation does not take the layout's arrays, its
+    `<name>_dm` / `<name>_bp` sibling is taken instead; one that does
+    not handle `dtype`, when that is given, is refused."""
     name = default_backend(device) if backend == "auto" else backend
     check_backend(name, device)
     impls = implementations(op)
@@ -130,6 +146,15 @@ def resolve(op: str, backend: str = "auto", *,
         raise KeyError(f"op {op!r} has no implementation {name!r}; "
                        f"available: {sorted(impls)} (backends: "
                        f"{known_backends()} or 'auto')")
+    if layout is not None and layout not in impls[name].layouts:
+        alt = f"{name}_{_LAYOUT_SUFFIX[layout]}" \
+            if layout in _LAYOUT_SUFFIX else None
+        if alt not in impls or layout not in impls[alt].layouts:
+            raise ValueError(
+                f"op {op!r} implementation {name!r} does not take layout "
+                f"{layout!r} (takes {impls[name].layouts}) and has no "
+                f"{layout} sibling")
+        name = alt
     if dtype is not None and dtype not in impls[name].dtypes:
         raise ValueError(
             f"op {op!r} implementation {name!r} does not handle dtype "
@@ -138,11 +163,19 @@ def resolve(op: str, backend: str = "auto", *,
 
 
 def dispatch(op: str, backend: str, *args: Any,
-             dtype: Optional[str] = None, **kw: Any) -> Any:
+             dtype: Optional[str] = None, layout: Optional[str] = None,
+             **kw: Any) -> Any:
     """Resolve against the first argument's device, count, and call."""
-    impl = get(op, resolve(op, backend, device=args[0].device, dtype=dtype))
+    impl = get(op, resolve(op, backend, device=args[0].device, dtype=dtype,
+                           layout=layout))
     _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
     return impl.fn(*args, **kw)
+
+
+def impls_for_layout(op: str, layout: str) -> list[str]:
+    """Implementation names of `op` that take `layout`'s arrays."""
+    return sorted(name for name, impl in implementations(op).items()
+                  if layout in impl.layouts)
 
 
 def call_stats() -> dict[str, int]:
@@ -160,6 +193,7 @@ def table() -> list[dict[str, str]]:
     return [{"op": op, "impl": name, "family": impl.family,
              "dtypes": "/".join(impl.dtypes),
              "devices": "/".join(impl.devices),
+             "layouts": "/".join(impl.layouts),
              "constraints": impl.constraints}
             for op in ops()
             for name, impl in sorted(_REGISTRY[op].items())]

@@ -32,6 +32,10 @@ class GBDTServer:
 
     Quantized-first path: ``quantize(xs)`` binarizes a batch once into a
     `QuantizedPool`; ``predict_pool(pool)`` scores it with no binarize.
+
+    ``config_kw`` goes to `PredictConfig` (``layout="bitpacked"``,
+    ``strategy="staged"``, ...); ``metrics.layout`` reports the layout the
+    plan resolved to, and both paths score through that layout's kernels.
     """
 
     def __init__(self, ensemble: ObliviousEnsemble, *,

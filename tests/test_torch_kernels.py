@@ -1,8 +1,10 @@
 """The port's kernel ops against the JAX package, on the CPU.
 
-Each of the four kernel modules of the serving path (binarize,
-leaf_index, leaf_gather, fused_predict) is checked three ways on the
-"mixed" and "edge" scenarios of tests/test_differential.py:
+Each of the eight kernels of the serving path (binarize, leaf_index,
+leaf_gather, fused_predict, and the depth_major and bitpacked siblings
+leaf_index_dm, fused_predict_dm, leaf_index_bp, fused_predict_bp) is
+checked three ways on the "mixed" and "edge" scenarios of
+tests/test_differential.py:
 
   * its plain PyTorch version against the JAX reference (`repro.kernels.ref`);
   * its kernel wrapper, called on CPU tensors (where it takes the plain
@@ -22,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import layout as jlayout  # noqa: E402
 from repro.core import trees as jtrees  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import registry as jregistry  # noqa: E402
@@ -305,6 +308,267 @@ def test_nonzero_launch_status_raises(monkeypatch):
 def test_build_hash_covers_every_source():
     sources = {p.name for p in _build.CSRC.glob("*.cu*")}
     assert {"binarize.cu", "leaf_index.cu", "leaf_gather.cu",
-            "fused_predict.cu", "common.cuh"} <= sources
+            "fused_predict.cu", "common.cuh", "leaf_index_dm.cu",
+            "leaf_index_bp.cu", "fused_predict_dm.cu", "fused_predict_bp.cu",
+            "fused_planes.cuh", "leaf_index.cuh"} <= sources
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
+
+
+# --------------------------------------------------------------------------
+# The depth_major and bitpacked kernels
+# --------------------------------------------------------------------------
+NEW_OPS = ("leaf_index_dm", "fused_predict_dm", "leaf_index_bp",
+           "fused_predict_bp")
+
+
+def _layouts(scenario):
+    """(x, JAX depth_major and bitpacked lowerings, the port's) of a
+    scenario's model; the JAX ones from `lower(..., backend="ref")`."""
+    x, borders, sf, sb, lv = _scenario(scenario)
+    jens = jtrees.ObliviousEnsemble(
+        jnp.asarray(sf), jnp.asarray(sb), jnp.asarray(lv),
+        jnp.asarray(borders), jnp.full((borders.shape[1],),
+                                       borders.shape[0], jnp.int32))
+    tens = ttrees.ObliviousEnsemble(*_t(sf, sb, lv, borders),
+                                    torch.full((borders.shape[1],),
+                                               borders.shape[0]))
+    return x, {name: (jlayout.lower(jens, name, backend="ref"),
+                      tlayout.lower(tens, name))
+               for name in ("depth_major", "bitpacked")}
+
+
+def _j(t):
+    return jnp.asarray(np.asarray(t))
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+@pytest.mark.parametrize("op", NEW_OPS + ("pack_bits",))
+def test_new_plain_versions_match_jax_ref(op, scenario):
+    x, lows = _layouts(scenario)
+    xt = torch.from_numpy(x)
+    jdm, dm = lows["depth_major"]
+    jbp, bp = lows["bitpacked"]
+    bins = ref.binarize(xt, dm.borders)
+    jbins = jref.binarize(jnp.asarray(x), jdm.borders)
+    if op == "leaf_index_dm":
+        want = jref.leaf_index_depth_major(jbins, jdm.onehot,
+                                           jdm.split_bins_dm, jdm.pow2)
+        for b in (bins, bins.to(torch.uint8)):
+            got = ref.leaf_index_depth_major(b, dm.split_features_dm,
+                                             dm.split_bins_dm, dm.pow2)
+            assert got.dtype == torch.int32
+            _int_equal(got, want)
+    elif op == "fused_predict_dm":
+        _close(ref.fused_predict_depth_major(
+            xt, dm.borders, dm.split_features_dm, dm.split_bins_dm, dm.pow2,
+            dm.leaf_values), jref.fused_predict_depth_major(
+            jnp.asarray(x), jdm.borders, jdm.onehot, jdm.split_bins_dm,
+            jdm.pow2, jdm.leaf_values))
+    elif op == "leaf_index_bp":
+        for jg, g in zip(jbp.groups, bp.groups):
+            want = jref.leaf_index_bitpacked(jbins, jg.split_features_bp,
+                                             jg.split_bins_bp)
+            for b in (bins, bins.to(torch.uint8)):
+                got = ref.leaf_index_bitpacked(b, g.split_features_bp,
+                                               g.split_bins_bp)
+                assert got.dtype == torch.int32
+                _int_equal(got, want)
+    elif op == "fused_predict_bp":
+        for jg, g in zip(jbp.groups, bp.groups):
+            _close(ref.fused_predict_bitpacked(
+                xt, bp.borders, g.split_features_bp, g.split_bins_bp,
+                g.leaf_values), jref.fused_predict_bitpacked(
+                jnp.asarray(x), jbp.borders, jg.split_features_bp,
+                jg.split_bins_bp, jg.leaf_values))
+    else:
+        bits = (bins > 2).to(torch.int32)
+        words = ref.pack_bits(bits)
+        assert words.dtype == torch.uint32
+        assert words.shape == (-(-bits.shape[0] // 32), bits.shape[1])
+        _int_equal(words, jref.pack_bits(_j(bits)))
+        _int_equal(ref.unpack_bits(words, bits.shape[0]), bits)
+
+
+def _pallas_new(op, jlow, jgroup, x, bins):
+    """The JAX Pallas kernel of a new op, in interpret mode off-TPU, on
+    the JAX lowering's arrays."""
+    if op == "leaf_index_dm":
+        fn = jregistry.get("leaf_index", "pallas_dm").fn
+        return fn(bins, jlow.onehot, jlow.split_bins_dm, jlow.pow2,
+                  block_t=jlow.onehot.shape[0])
+    if op == "fused_predict_dm":
+        fn = jregistry.get("fused_predict", "pallas_dm").fn
+        return fn(x, jlow.borders, jlow.onehot, jlow.split_bins_dm,
+                  jlow.pow2, jlow.leaf_values)
+    if op == "leaf_index_bp":
+        fn = jregistry.get("leaf_index", "pallas_bp").fn
+        return fn(bins, jgroup.split_features_bp, jgroup.split_bins_bp)
+    fn = jregistry.get("fused_predict", "pallas_bp").fn
+    return fn(x, jlow.borders, jgroup.split_features_bp,
+              jgroup.split_bins_bp, jgroup.leaf_values)
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+@pytest.mark.parametrize("op", NEW_OPS)
+def test_new_plain_versions_match_pallas_interpret(op, scenario):
+    x, lows = _layouts(scenario)
+    x = x[:8]                            # tiny: Pallas interprets on CPU
+    xt = torch.from_numpy(x)
+    layout = "depth_major" if op.endswith("_dm") else "bitpacked"
+    jlow, low = lows[layout]
+    bins = ref.binarize(xt, low.borders).to(torch.uint8)
+    groups = (list(zip(jlow.groups, low.groups)) if layout == "bitpacked"
+              else [(None, None)])
+    for jg, g in groups:
+        want = _pallas_new(op, jlow, jg, jnp.asarray(x), _j(bins))
+        if op == "leaf_index_dm":
+            _int_equal(ref.leaf_index_depth_major(
+                bins, low.split_features_dm, low.split_bins_dm, low.pow2),
+                want)
+        elif op == "fused_predict_dm":
+            _close(ref.fused_predict_depth_major(
+                xt, low.borders, low.split_features_dm, low.split_bins_dm,
+                low.pow2, low.leaf_values), want)
+        elif op == "leaf_index_bp":
+            _int_equal(ref.leaf_index_bitpacked(
+                bins, g.split_features_bp, g.split_bins_bp, via_words=True),
+                want)
+        else:
+            _close(ref.fused_predict_bitpacked(
+                xt, low.borders, g.split_features_bp, g.split_bins_bp,
+                g.leaf_values), want)
+
+
+def _new_kernel_calls(x, lows):
+    """(wrapper, args, plain version) for each new kernel on the port's
+    lowered arrays: every bitpacked group, uint8 and int32 bins."""
+    dm = lows["depth_major"][1]
+    bp = lows["bitpacked"][1]
+    bins = ref.binarize(x, dm.borders)
+    calls = []
+    for b in (bins, bins.to(torch.uint8)):
+        calls.append((index_k.leaf_index_dm,
+                      (b, dm.split_features_dm, dm.split_bins_dm, dm.pow2),
+                      ref.leaf_index_depth_major))
+        for g in bp.groups:
+            calls.append((index_k.leaf_index_bp,
+                          (b, g.split_features_bp, g.split_bins_bp),
+                          ref.leaf_index_bitpacked))
+    calls.append((fused_k.fused_predict_dm,
+                  (x, dm.borders, dm.split_features_dm, dm.split_bins_dm,
+                   dm.pow2, dm.leaf_values), ref.fused_predict_depth_major))
+    for g in bp.groups:
+        calls.append((fused_k.fused_predict_bp,
+                      (x, bp.borders, g.split_features_bp, g.split_bins_bp,
+                       g.leaf_values), ref.fused_predict_bitpacked))
+    return calls
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS)
+def test_new_cuda_entries_on_cpu_tensors_take_plain_versions(scenario):
+    x, lows = _layouts(scenario)
+    x = torch.from_numpy(x)
+    ops.reset_launch_counts()
+    for wrapper, args, plain in _new_kernel_calls(x, lows):
+        got, want = wrapper(*args), plain(*args)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want), wrapper.__name__
+    # CPU tensors take the plain versions: no kernel was launched
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    dm = lows["depth_major"][1]
+    g = lows["bitpacked"][1].groups[0]
+    bins = ref.binarize_u8(x, dm.borders)
+    for call in (lambda: dm.leaf_sum(bins, backend="cuda"),
+                 lambda: dm.fused_raw(x, backend="cuda"),
+                 lambda: ops.leaf_index_bp(bins, g.split_features_bp,
+                                           g.split_bins_bp, backend="cuda"),
+                 lambda: ops.fused_predict_bp(
+                     x, dm.borders, g.split_features_bp, g.split_bins_bp,
+                     g.leaf_values, backend="cuda")):
+        with pytest.raises(ValueError, match="CPU"):
+            call()
+
+
+def _meta(args):
+    return tuple(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+@pytest.mark.parametrize("op", NEW_OPS)
+def test_new_wrappers_on_cuda_typed_tensors_launch_or_raise(op,
+                                                            monkeypatch):
+    # Off the CPU a wrapper never takes its plain version: a tensor that
+    # is not on the card is refused, and one that passes the device check
+    # goes to the kernel's launcher (stubbed here) and is counted.
+    x, lows = _layouts("mixed")
+    calls = [c for c in _new_kernel_calls(torch.from_numpy(x), lows)
+             if c[0].__name__ == op]
+    wrapper, args, _ = calls[-1]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*_meta(args))
+    assert wrapper.launches == 0
+    launched = []
+    monkeypatch.setattr(_build, "check_cuda_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, device, *a: launched.append(name))
+    out = wrapper(*_meta(args))
+    assert out.device.type == "meta"
+    assert launched == [f"repro_{op}"]
+    assert ops.launch_counts() == {k: int(k == op) for k in ops.KERNELS}
+
+
+def test_registry_routes_by_layout():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for layout, suffix in (("depth_major", "dm"), ("bitpacked", "bp")):
+        for op in ("leaf_index", "fused_predict"):
+            assert registry.resolve(op, "auto", device=cuda,
+                                    layout=layout) == f"cuda_{suffix}"
+            assert registry.resolve(op, "torch_ref", device=cpu,
+                                    layout=layout) == f"torch_ref_{suffix}"
+            assert registry.impls_for_layout(op, layout) == \
+                [f"cuda_{suffix}", f"torch_ref_{suffix}"]
+        assert registry.resolve("leaf_index", "cuda", device=cuda,
+                                dtype="uint8", layout=layout) == \
+            f"cuda_{suffix}"
+        assert registry.resolve("leaf_gather", "cuda", device=cuda,
+                                layout=layout) == "cuda"
+        with pytest.raises(ValueError, match="plain"):
+            registry.resolve("leaf_index", "torch_ref", device=cuda,
+                             layout=layout)
+    assert registry.resolve("leaf_index", "cuda", device=cuda,
+                            layout="depth_grouped") == "cuda"
+    with pytest.raises(ValueError, match="layout"):
+        registry.resolve("fused_predict", "cuda_dm", device=cuda,
+                         layout="bitpacked")
+    assert registry.known_backends() == ("cuda", "torch_ref")
+    assert set(ops.KERNELS) == {"binarize", "leaf_index", "leaf_gather",
+                                "fused_predict", *NEW_OPS}
+
+
+def test_new_kernel_tiles_fit_shared_memory():
+    # the bitpacked index kernel's bins tile beside its 32 x 33 transpose
+    # tiles, the plane kernels' beside their staged planes: 48 KB a block
+    for n_feat in (1, 3, 54, 200, 2000):
+        for bin_bytes in (1, 4):
+            budget = index_k.TILE_BYTES - index_k.BP_TRANSPOSE_BYTES
+            if n_feat * bin_bytes > budget // 32:
+                with pytest.raises(ValueError):
+                    index_k.strided_tile(n_feat, bin_bytes, budget)
+                continue
+            rows, stride = index_k.strided_tile(n_feat, bin_bytes, budget)
+            assert rows % 32 == 0 and 32 <= rows <= 128
+            assert (stride * bin_bytes // 4) % 2 == 1
+            assert rows * stride * bin_bytes + \
+                index_k.BP_TRANSPOSE_BYTES <= index_k.TILE_BYTES
+            rows, stride = fused_k.tile_shape(
+                n_feat, bin_bytes == 1,
+                index_k.TILE_BYTES - fused_k.PLANE_BYTES)
+            assert rows * stride * bin_bytes + fused_k.PLANE_BYTES <= \
+                index_k.TILE_BYTES
+    # Covertype width: 128 rows of a uint8 pool for both
+    assert index_k.strided_tile(54, 1, index_k.TILE_BYTES
+                                - index_k.BP_TRANSPOSE_BYTES)[0] == 128
+    assert fused_k.tile_shape(54, True, index_k.TILE_BYTES
+                              - fused_k.PLANE_BYTES) == (128, 60)

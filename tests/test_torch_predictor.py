@@ -23,6 +23,7 @@ from repro_torch.core import trees as ttrees  # noqa: E402
 from repro_torch.core.predictor import (PredictConfig,  # noqa: E402
                                         Predictor)
 from repro_torch.data import synthetic as tsynthetic  # noqa: E402
+from repro_torch.serving.engine import GBDTServer  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -255,23 +256,31 @@ def test_first_calls_count_entry_and_batch_shape(models):
     assert stats["layout"] == "soa"
 
 
-def test_config_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="tree_block"):
-        PredictConfig(tree_block=8)
+def test_config_refuses_what_is_not_ported(models):
+    # tree_block belongs to soa, as in the JAX package
     for layout in ("depth_major", "depth_grouped", "bitpacked"):
-        with pytest.raises(ValueError, match="layout"):
-            PredictConfig(layout=layout)
+        with pytest.raises(ValueError, match="tree_block"):
+            PredictConfig(layout=layout, tree_block=8)
+    with pytest.raises(ValueError, match="tree_block"):
+        PredictConfig(tree_block=-1)
+    with pytest.raises(ValueError, match="layout"):
+        PredictConfig(layout="blocked")
     for backend in ("pallas", "ref"):
         with pytest.raises(ValueError, match="backend"):
             PredictConfig(backend=backend)
+    tens = models[1]
     with pytest.raises(ValueError, match="plain"):
-        PredictConfig(backend="torch_ref").resolve("cuda")
-    cfg = PredictConfig().resolve("cuda")
+        PredictConfig(backend="torch_ref").resolve(tens, "cuda")
+    cfg = PredictConfig().resolve(tens, "cuda")
     assert (cfg.strategy, cfg.backend, cfg.layout) == ("fused", "cuda",
                                                        "soa")
+    assert PredictConfig(tree_block=8).resolve(tens, "cpu").layout == "soa"
     with pytest.raises(TypeError):
         Predictor.build(None, PredictConfig(), device="cpu",
                         strategy="fused")
+    # mesh serving is still to port
+    with pytest.raises(NotImplementedError, match="mesh"):
+        GBDTServer(tens, device="cpu", mesh=object())
 
 
 def test_wrong_width_input_raises(models):
