@@ -1,51 +1,70 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on an H100 and check it.
+"""Drive the PyTorch/CUDA port's training and serving paths once on an
+H100 and check them.
 
 Run from the root of a checkout, on a machine with one Hopper card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`,
-serves a random-weight oblivious-tree model at the full width of the
-paper's Covertype workload (54 features, 7 classes, depth 8, 63 borders,
-1,000 trees, a tenth of them truncated: 8 depth groups) through
-`GBDTServer` on each layout in turn (soa, depth_major, depth_grouped,
-bitpacked), then the same model untruncated (one depth group) on
-bitpacked, whose fused route is its own kernel.  Each of these serving
-paths runs single requests, `predict_batch` over the test split,
-`quantize` + `predict_pool` and one staged `proba` call, with the kernel
-launch counts set to 0 before it and read after it.  It checks:
+It builds the port's nine CUDA kernels from `src/repro_torch/kernels/csrc/`
+and then, with the kernel launch counts set to 0 before each path and
+read after it:
 
-  * each path launched exactly the kernels of its layout, and every one
-    of the eight kernels was launched;
-  * the fused, pool and staged routes of each path classify the same;
-  * depth_major gives soa's scores bit for bit on every route, bitpacked
-    gives depth_grouped's, and one-group bitpacked fused gives soa fused's
-    on the untruncated model (the same trees summed in the same order);
-    depth_grouped and bitpacked agree with soa within `sum_limit` (the
-    group sums reassociate) and in class on rows with a clear margin;
-  * the card's scores agree with the plain PyTorch plan on the CPU, on
-    every layout;
-  * each kernel agrees with its plain version on the card at every row
-    count the main path gives it (the whole test split, the largest and
-    the smallest serving bucket): integers exactly, float sums within the
-    rounding limit of `sum_limit`, which a bf16 leaf table must fail.
+  * trains `boosting.fit` on the card at the full width of the paper's
+    Covertype workload (325,360 rows, 54 features, 7 classes, MultiClass,
+    depth 8, lr 0.5, 63 borders, 1,000 trees) and prints its
+    `TrainingMetrics`;
+  * serves the trained model from a pool on soa (`GBDTServer`) over the
+    139,440-row test split: rows/s and test accuracy;
+  * serves the trained model, with a tenth of its trees truncated (8 depth
+    groups), on each layout in turn (soa, depth_major, depth_grouped,
+    bitpacked), then the untruncated model on bitpacked (one group, whose
+    fused route is its own kernel): single requests, `predict_batch` over
+    the test split, `quantize` + `predict_pool` and a staged `proba` call.
 
-Then it times each kernel at the serving path's bulk shape and at the
-1,024-row bucket beside its plain version, one PyTorch library call where
-one computes the same function, and the least time the card could take
-(`bound_ms`), and times the soa tree-looping kernels once more on a model
-padded to a multiple of 32 trees.  The last three lines of output are the
-`kernels` JSON, the serving JSON and the result line.  Any failed check
-exits non-zero before the result line.
+It checks:
+
+  * each path launched exactly its kernels, and every kernel was launched;
+  * training: the loss decreases; `history["final_raw"]` equals a fresh
+    staged soa plan's `raw(pool)` bit for bit; no binarize dispatch while
+    boosting; at most 8 first calls of a level histogram shape; a 20-tree
+    run equals a 10-tree run checkpointed and resumed to 20 trees, and the
+    first 20 trees of the full run, bit for bit; on the first 5 trees each
+    level's split from the kernel's histogram equals the split from the
+    plain histogram, unless their gains lie within the gains' rounding
+    bound (counted);
+  * the histogram kernel at every level shape of a depth-8 tree (uint8,
+    plus int32 at the deepest level and the first 1,000 and 17 rows) gives
+    the same bits on two launches and lies within `hist_limits` of its
+    plain version;
+  * serving: the fused, pool and staged routes of each path classify the
+    same; depth_major gives soa's scores bit for bit on every route,
+    bitpacked gives depth_grouped's, and one-group bitpacked fused gives
+    soa fused's on the untruncated model; depth_grouped and bitpacked agree
+    with soa within `sum_limit` and in class on rows with a clear margin;
+    the card agrees with the plain PyTorch plan on the CPU, on every
+    layout; each serving kernel agrees with its plain version at every row
+    count the main path gives it, within `sum_limit`, which a bf16 leaf
+    table must fail.
+
+Then it times each kernel beside its plain version, one PyTorch library
+call where one computes the same function, and the least time the card
+could take (`bound_ms`): the serving kernels at the bulk shape and the
+1,024-row bucket, the histogram at each level; profiles 10 training trees;
+and times the soa tree-looping kernels once more on a model padded to a
+multiple of 32 trees.  The last three lines of output are the `kernels`
+JSON, the serving and training JSON and the result line.  Any failed
+check exits non-zero before the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -72,6 +91,9 @@ U = 2.0 ** -24          # unit roundoff of float32
 K_SIGMA = 8.0           # width of the float limit, in rounding walks
 TREE_TILE = 32          # the padding the tree-padding timings try
 PAIR_ROUNDS = 7         # alternating rounds when timing two versions
+RESUME_TREES, RESUME_AT = 20, 10   # a run checkpointed at 10 and resumed
+SPLIT_CHECK_TREES = 5   # trees whose splits are checked level by level
+HIST_SMALL_ROWS = (1000, 17)       # partial row chunks and blocks
 
 
 def fail(message: str) -> None:
@@ -113,26 +135,17 @@ def compare_sums(name: str, got, want, limit) -> tuple[float, float]:
     return float(err.max()), worst
 
 
-def make_model(x_train: np.ndarray, n_outputs: int):
-    """Covertype-width ensemble with numpy-seeded splits and leaves: the
-    uniform depth-8 model and the same model with a tenth of its trees
-    truncated (so PAD_SPLIT_BIN is on the path, and depth groups are)."""
-    from repro_torch.core.quantize import compute_borders
-    from repro_torch.core.trees import ObliviousEnsemble, truncate_tree_depths
-    borders, n_borders = compute_borders(x_train, MAX_BINS)
+def truncated(full):
+    """The trained model with a tenth of its trees truncated to shallower
+    depths (numpy-seeded), so PAD_SPLIT_BIN is on the path and the model
+    lowers to several depth groups."""
+    from repro_torch.core.trees import truncate_tree_depths
     rng = np.random.default_rng(SEED)
-    n_feat = borders.shape[1]
-    sf = rng.integers(0, n_feat, (N_TREES, DEPTH))
-    # split bins in [1, n_borders[f]]: every split can go either way
-    width = np.maximum(n_borders.numpy()[sf], 1)
-    sb = 1 + (rng.random((N_TREES, DEPTH)) * width).astype(np.int64)
-    lv = rng.normal(scale=0.1, size=(N_TREES, 1 << DEPTH, n_outputs))
-    base = rng.normal(scale=0.1, size=(n_outputs,))
-    ens = ObliviousEnsemble(sf, sb, lv, borders, n_borders, base)
-    depths = np.full(N_TREES, DEPTH)
-    cut = rng.choice(N_TREES, N_TREES // 10, replace=False)
-    depths[cut] = rng.integers(0, DEPTH, cut.size)
-    return ens, truncate_tree_depths(ens, depths)
+    t = full.n_trees
+    depths = np.full(t, full.depth)
+    cut = rng.choice(t, t // 10, replace=False)
+    depths[cut] = rng.integers(0, full.depth, cut.size)
+    return truncate_tree_depths(full, depths)
 
 
 def serve(ens, x_test: np.ndarray, layout: str, n_requests: int):
@@ -553,6 +566,489 @@ def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
     return rows, of_limit
 
 
+# --------------------------------------------------------------------------
+# The training path
+# --------------------------------------------------------------------------
+def train_model(data):
+    """`boosting.fit` on the card at full width: Covertype, MultiClass,
+    depth 8, lr 0.5, 64 bins, N_TREES trees.  Returns the ensemble, the
+    history, the params and the wall seconds."""
+    import torch
+    from repro_torch.core import boosting
+    from repro_torch.core.losses import MultiClass
+    params = dataclasses.replace(data.params, n_trees=N_TREES,
+                                 max_bins=MAX_BINS, seed=SEED)
+    t0 = time.perf_counter()
+    ens, history = boosting.fit(
+        data.x_train, data.y_train, params=params, device="cuda",
+        loss=MultiClass(n_classes=data.n_classes))
+    torch.cuda.synchronize()
+    return ens, history, params, time.perf_counter() - t0
+
+
+def check_training(ens, history, params, x_train):
+    """The trainer's own contracts; returns the training pool, quantized
+    again by a fresh plan."""
+    from repro_torch.core.predictor import Predictor
+    loss = history["train_loss"]
+    check(len(loss) == params.n_trees and bool(np.isfinite(loss).all()),
+          f"train loss has {len(loss)} values, not {params.n_trees} finite")
+    check(loss[-1] < loss[0], f"train loss did not decrease: {loss[0]} -> "
+          f"{loss[-1]}")
+    plan = Predictor.build(ens, device="cuda", strategy="staged",
+                           layout="soa")
+    pool = plan.quantize(x_train)
+    check(np.array_equal(plan.raw(pool).cpu().numpy(), history["final_raw"]),
+          "final_raw differs from a fresh staged soa plan's raw(pool)")
+    check(history["dispatch_delta"].get("binarize", 0) == 0,
+          f"binarize dispatched while boosting: {history['dispatch_delta']}")
+    # eager code: the level shapes a fit launches, `depth` by construction
+    check(0 < history["hist_first_calls"] <= params.depth,
+          f"{history['hist_first_calls']} first calls of a level histogram "
+          f"shape, more than depth {params.depth}")
+    return pool, {"loss_rises": int((np.diff(loss) > 0).sum()),
+                  "first_loss": float(loss[0]), "last_loss": float(loss[-1]),
+                  "serve_drift": check_serve_drift(ens, pool, history),
+                  "dispatch_delta": history["dispatch_delta"],
+                  "hist_first_calls": history["hist_first_calls"]}
+
+
+DRIFT_ROWS = 65536      # rows of the training pool replayed at a time
+
+
+def check_serve_drift(ens, pool, history):
+    """The trainer's `final_raw` (the leaf_index and leaf_gather kernels
+    on the training pool) against the plain accumulation the trainer
+    carries, raw0 + w_t[leaf_t] tree by tree, replayed here from the
+    ensemble with the plain leaf index: within `sum_limit` per output,
+    widened for the base the trainer adds first (so each of its T
+    roundings is up to u * (S + |base|)).  The replay must give the
+    trainer's own `serve_drift`, the largest difference, exactly."""
+    import torch
+    from repro_torch.kernels import ref
+    dev = pool.bins.device
+    on_dev = ens.to(dev)
+    base = on_dev.base_score
+    final = torch.from_numpy(history["final_raw"]).to(dev)
+    n_trees = on_dev.n_trees
+    drift, worst = 0.0, 0.0
+    for lo in range(0, final.shape[0], DRIFT_ROWS):
+        bins = pool.bins[lo:lo + DRIFT_ROWS]
+        idx = ref.leaf_index(bins, on_dev.split_features, on_dev.split_bins)
+        raw = base[None, :].expand(bins.shape[0], -1).clone()
+        for t in range(n_trees):
+            raw = raw + on_dev.leaf_values[t][idx[:, t].long()]
+        limit = sum_limit(idx, on_dev.leaf_values, base) \
+            + K_SIGMA * math.sqrt(n_trees) * U * base.abs()[None, :]
+        err, share = compare_sums(
+            "final_raw against the trainer's accumulated raw",
+            final[lo:lo + DRIFT_ROWS], raw, limit)
+        drift, worst = max(drift, err), max(worst, share)
+        del idx, raw, limit
+    check(drift == history["serve_drift"],
+          f"replayed serve drift {drift} is not the trainer's "
+          f"{history['serve_drift']}")
+    return {"max_abs": drift, "of_limit": worst}
+
+
+def check_resume(pool, y, full, params):
+    """A RESUME_TREES-tree run equals a RESUME_AT-tree run checkpointed
+    and resumed to RESUME_TREES, bit for bit, and both equal the first
+    trees of the full run."""
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.gbdt import GBDTTrainer
+
+    def fit(n_trees, **kw):
+        trainer = GBDTTrainer(MultiClass(n_classes=full.n_outputs),
+                              dataclasses.replace(params, n_trees=n_trees))
+        return trainer.fit_pool(pool, y, borders=full.borders,
+                                n_borders=full.n_borders, **kw)
+
+    ens, hist = fit(RESUME_TREES)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ck = CheckpointManager(tmp)
+        fit(RESUME_AT, checkpoint=ck, checkpoint_every=RESUME_AT // 2)
+        check(ck.latest() == RESUME_AT, f"checkpoint at {ck.latest()}")
+        resumed, hist_r = fit(RESUME_TREES, checkpoint=ck, resume_from=-1)
+    head = full.slice_trees(0, RESUME_TREES)
+    for field in ("split_features", "split_bins", "leaf_values"):
+        check(torch_equal(getattr(resumed, field), getattr(ens, field)),
+              f"resumed run's {field} differ from the uninterrupted run's")
+        check(torch_equal(getattr(ens, field), getattr(head, field)),
+              f"{RESUME_TREES}-tree run's {field} differ from the first "
+              f"trees of the {full.n_trees}-tree run")
+    for key in ("train_loss", "final_raw"):
+        check(np.array_equal(hist_r[key], hist[key]),
+              f"resumed run's {key} differs from the uninterrupted run's")
+    return {"trees": RESUME_TREES, "checkpointed_at": RESUME_AT,
+            "bit_identical": True}
+
+
+PROFILE_TREES = 10      # trees of the profiled training window
+
+
+def profile_training(pool, y, full, params):
+    """Device time by kernel over PROFILE_TREES training trees
+    (`torch.profiler`, after one warm-up run; the window includes the
+    fit's closing serve-plan handoff), and the device's busy share of the
+    window's wall time: the sum of every kernel's, copy's and memset's own
+    device time over the host clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.training.gbdt import GBDTTrainer
+
+    def fit():
+        GBDTTrainer(MultiClass(n_classes=full.n_outputs),
+                    dataclasses.replace(params, n_trees=PROFILE_TREES)) \
+            .fit_pool(pool, y, borders=full.borders, n_borders=full.n_borders)
+
+    fit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = {}
+    for e in prof.key_averages():
+        # the kernels, copies and memsets themselves, not the host ops
+        # that launched them (those report their children's time again)
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            device[e.key[:80]] = device.get(e.key[:80], 0.0) \
+                + e.self_device_time_total / 1e3
+    busy = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:12]
+    return {"trees": PROFILE_TREES, "wall_ms": wall_ms,
+            "device_ms": busy, "busy_share": busy / wall_ms if busy else None,
+            "top_kernels_ms": dict(top)}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def fixed_point_quantum(gh):
+    """(S,) f64 quantum of the histogram kernel's fixed point per stat:
+    2^-e with e = 62 - lg - ex (csrc/histogram.cu stat_exponent)."""
+    import torch
+    m = gh.abs().amax(0).double()
+    _, ex = torch.frexp(m)
+    lg = int(gh.shape[0]).bit_length()
+    q = torch.ldexp(torch.ones_like(m), (lg + ex - 62).double())
+    return torch.where(m > 0, q, torch.zeros_like(q))
+
+
+def hist_limits(bins_t, leaf, gh, n_bins, n_leaves):
+    """Per-cell limits on how far the kernel may lie from the plain
+    version: from its f64 evaluation, the §2 rule 8*sqrt(n)*u*sum|gh| over
+    the cell's n rows plus n half-quanta of the kernel's fixed point; from
+    the f32 plain version, that plus the f32 version's own worst case,
+    (n + 1)*u*sum|gh| (with 5% for the u^2 terms): float atomics of
+    constant addends round with a bias, so its error grows as n, not
+    sqrt(n)."""
+    import torch
+    from repro_torch.kernels import ref
+    ones = torch.ones((gh.shape[0], 1), dtype=torch.float64,
+                      device=gh.device)
+    count = ref.histogram(bins_t, leaf, ones, n_bins=n_bins,
+                          n_leaves=n_leaves)
+    abs_sum = ref.histogram(bins_t, leaf, gh.abs().double(), n_bins=n_bins,
+                            n_leaves=n_leaves)
+    quantum = fixed_point_quantum(gh)
+    lim64 = 8 * count.clamp(min=1).sqrt() * U * abs_sum + count * quantum / 2
+    lim32 = lim64 + 1.05 * (count + 1) * U * abs_sum
+    return lim64, lim32
+
+
+def over_limit(err, limit) -> float:
+    """Largest err / limit; a cell with a zero limit must be exact."""
+    import torch
+    exact = (limit == 0) & (err > 0)
+    if bool(exact.any()):
+        return math.inf
+    return float((err / limit.clamp(min=1e-300)).max())
+
+
+def split_gains(hist, lim, valid, n_bins, l2):
+    """f64 gains (F, B) of a level histogram as `_split_level` computes
+    them (invalid splits -inf), and a bound on how far a gain can move
+    when each cell moves by at most `lim`, the f32 cumsum and the f32
+    gain arithmetic included."""
+    import torch
+    import torch.nn.functional as F
+    n_feat, segments, c2 = hist.shape
+    n_leaves, c = segments // n_bins, c2 // 2
+    h = hist.double().view(n_feat, n_leaves, n_bins, c2)
+    e = lim.double().view(n_feat, n_leaves, n_bins, c2)
+    inc = h.cumsum(2)
+    einc = e.cumsum(2) + n_bins * U * h.abs().cumsum(2)
+    left = F.pad(inc[:, :, :-1], (0, 0, 1, 0))
+    eleft = F.pad(einc[:, :, :-1], (0, 0, 1, 0))
+    right, eright = inc[:, :, -1:] - left, einc[:, :, -1:] + eleft
+
+    def term(side, err):
+        g, hs, eg, eh = side[..., :c], side[..., c:], err[..., :c], \
+            err[..., c:]
+        d = hs + l2
+        d_low = (d - eh).clamp(min=l2)    # true hessian sums are >= 0
+        return g * g / d, (2 * g.abs() + eg) * eg / d_low \
+            + g * g * eh / (d_low * d)
+
+    tl, el = term(left, eleft)
+    tr, er = term(right, eright)
+    gain = (tl + tr).sum((1, 3))
+    bound = (el + er).sum((1, 3)) + 2 * (n_leaves * c + 4) * U * gain
+    nonempty = (left[..., c:].sum((1, 3)) > 0) \
+        & (right[..., c:].sum((1, 3)) > 0)
+    return torch.where(valid & nonempty, gain, -math.inf), bound
+
+
+def replay_splits(full, pool, y, params):
+    """Grow the first SPLIT_CHECK_TREES trees again with the trainer's
+    stage functions, taking each level's split from the kernel's
+    histogram as the trainer does, beside the split the f64 plain
+    histogram of the same (leaf, gh) gives.  They must agree, except
+    where the two gains lie within the bound the kernel's per-cell limit
+    puts on them (counted).  Each tree's leaf sums are held against their
+    plain version too.  The replayed trees must equal the trained ones
+    bit for bit.  Returns the first tree's leaf ids per level, its gh,
+    and the counts."""
+    import torch
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.training import gbdt
+
+    dev = pool.bins.device
+    bins_t = pool.bins.t().contiguous()
+    n = bins_t.shape[1]
+    n_bins = full.borders.shape[0] + 1
+    b = torch.arange(n_bins, device=dev)
+    valid = (b[None, :] >= 1) & (b[None, :] <= full.n_borders.to(dev)[:, None])
+    loss = MultiClass(n_classes=full.n_outputs)
+    yt = torch.as_tensor(y, device=dev)
+    raw = loss.init_raw(yt)
+    leaf_bins = torch.zeros((1, n), dtype=torch.uint8, device=dev)
+    n_leaves = 1 << params.depth
+    c = full.n_outputs
+    levels, first_gh = [], None
+    stats = {"levels": 0, "differ_within_bound": 0,
+             "top_two_within_bound": 0, "max_gap_over_bound": 0.0,
+             "leaf_sums_over_limit": 0.0}
+    for t in range(SPLIT_CHECK_TREES):
+        gh = gbdt._grad_stack(raw, yt, loss=loss)
+        first_gh = gh if t == 0 else first_gh
+        leaf = torch.zeros((n,), dtype=torch.int32, device=dev)
+        sf, sb = [], []
+        for d in range(params.depth):
+            if t == 0:
+                levels.append(leaf)
+            kw = dict(n_bins=n_bins, n_leaves=1 << d)
+            hk = histogram(bins_t, leaf, gh, **kw)
+            # the plain split and the true gains from the f64 plain
+            # histogram, bounded by the kernel's own limit against it
+            hp = ref.histogram(bins_t, leaf, gh.double(), **kw)
+            fk, bk, new_leaf = gbdt._split_level(
+                hk, valid, bins_t, leaf, n_bins=n_bins, d=d, l2=params.l2_reg)
+            fp, bp, _ = gbdt._split_level(
+                hp, valid, bins_t, leaf, n_bins=n_bins, d=d, l2=params.l2_reg)
+            gains, bound = split_gains(
+                hp, hist_limits(bins_t, leaf, gh, **kw)[0], valid, n_bins,
+                params.l2_reg)
+            flat, flat_b = gains.reshape(-1), bound.reshape(-1)
+            top = int(torch.argmax(flat))
+            below = torch.where(flat < flat[top], flat, -math.inf)
+            second = int(torch.argmax(below))
+            if float(flat[top] - below[second]) <= float(flat_b[top]
+                                                        + flat_b[second]):
+                stats["top_two_within_bound"] += 1
+            k = int(fk) * n_bins + int(bk)
+            p = int(fp) * n_bins + int(bp)
+            if k != p:
+                gap = float(flat[p] - flat[k])
+                share = gap / float(flat_b[p] + flat_b[k])
+                stats["max_gap_over_bound"] = max(stats["max_gap_over_bound"],
+                                                  share)
+                check(share <= 1.0,
+                      f"tree {t} level {d}: the kernel's split ({int(fk)}, "
+                      f"{int(bk)}) differs from the plain split ({int(fp)}, "
+                      f"{int(bp)}) by {gap}, {share:.3g} times the gains' "
+                      "rounding bound")
+                stats["differ_within_bound"] += 1
+            stats["levels"] += 1
+            leaf = new_leaf
+            sf.append(fk)
+            sb.append(bk)
+        # the leaf sums: the kernel at one all-zero feature and one bin,
+        # bit-identical across launches and within its limit of the f64
+        # plain version; the trained tree's leaf values come from them
+        kw = dict(n_bins=1, n_leaves=n_leaves)
+        sums = histogram(leaf_bins, leaf, gh, **kw)
+        check(torch.equal(sums, histogram(leaf_bins, leaf, gh, **kw)),
+              f"tree {t}: leaf sums differ between two launches")
+        share = over_limit(
+            (sums.double() - ref.histogram(leaf_bins, leaf, gh.double(),
+                                           **kw)).abs(),
+            hist_limits(leaf_bins, leaf, gh, **kw)[0])
+        check(share <= 1.0, f"tree {t}: leaf sums differ from their plain "
+              f"version, {share:.3g} times the limit")
+        stats["leaf_sums_over_limit"] = max(stats["leaf_sums_over_limit"],
+                                            share)
+        raw, w, _ = gbdt._finish_plain(
+            raw, yt, gh, leaf, leaf_bins, loss=loss, n_leaves=n_leaves,
+            lr=params.learning_rate, l2=params.l2_reg, backend="cuda")
+        check(torch.equal(w, -params.learning_rate * sums[0, :, :c]
+                          / (sums[0, :, c:] + params.l2_reg)),
+              f"tree {t}: leaf values are not the checked leaf sums'")
+        check(torch_equal(torch.stack(sf), full.split_features[t])
+              and torch_equal(torch.stack(sb), full.split_bins[t])
+              and torch_equal(w, full.leaf_values[t]),
+              f"replayed tree {t} differs from the trained one")
+    return levels, first_gh, stats
+
+
+def check_and_time_histogram(bins_t, levels, gh, n_bins, launches):
+    """Hold the histogram kernel against its plain version at every level
+    shape of a depth-8 tree (the first tree's leaf ids and gh) on the full
+    uint8 pool, on int32 bins at the deepest level and on the first
+    HIST_SMALL_ROWS rows; two launches on the same inputs must give the
+    same bits.  Then time kernel, plain version and the `index_add_`
+    library call at each level.  Returns the kernels row."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.histogram import histogram
+
+    dev = bins_t.device
+    n_feat, n = bins_t.shape
+    c2 = gh.shape[1]
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    per_level = []
+
+    def held(name, bt, leaf, g, n_leaves):
+        """The kernel's output at one case, its shares of the limits, its
+        largest difference from the f32 plain version, the f64 plain
+        version and the limit from an f32 sum."""
+        kw = dict(n_bins=n_bins, n_leaves=n_leaves)
+        a, b = histogram(bt, leaf, g, **kw), histogram(bt, leaf, g, **kw)
+        check(torch.equal(a, b), f"histogram ({name}) differs between two "
+              "launches on the same inputs")
+        p32 = ref.histogram(bt, leaf, g, **kw)
+        p64 = ref.histogram(bt, leaf, g.double(), **kw)
+        lim64, lim32 = hist_limits(bt, leaf, g, **kw)
+        e64 = (a.double() - p64).abs()
+        e32 = (a.double() - p32.double()).abs()
+        shares = {"over_limit_f64": over_limit(e64, lim64),
+                  "over_limit_f32": over_limit(e32, lim32),
+                  # the f32 plain version against the §2 rule alone
+                  "plain_f32_over_rule": over_limit(
+                      (p32.double() - p64).abs(), lim64)}
+        check(shares["over_limit_f64"] <= 1.0 and
+              shares["over_limit_f32"] <= 1.0,
+              f"histogram ({name}) differs from its plain version: "
+              f"{shares}")
+        return a, shares, float(e32.max()), p64, lim32
+
+    for d, leaf in enumerate(levels):
+        n_leaves = 1 << d
+        segments = n_leaves * n_bins
+        a, shares, err, p64, lim32 = held(f"uint8, level {d}", bins_t,
+                                          leaf, gh, n_leaves)
+        small_err = max(held(f"uint8, {rows} rows, level {d}",
+                             bins_t[:, :rows].contiguous(), leaf[:rows],
+                             gh[:rows].contiguous(), n_leaves)[2]
+                        for rows in HIST_SMALL_ROWS)
+        ids = (torch.arange(n_feat, device=dev)[:, None] * segments
+               + leaf.long()[None, :] * n_bins + bins_t.long()).reshape(-1)
+        gh_rep = gh.repeat(n_feat, 1)
+        library = torch.zeros((n_feat * segments, c2), device=dev) \
+            .index_add_(0, ids, gh_rep).view(a.shape)
+        check(over_limit((library.double() - p64).abs(), lim32) <= 1.0,
+              "index_add_ yardstick computes another histogram")
+        del library, p64, lim32
+        kw = dict(n_bins=n_bins, n_leaves=n_leaves)
+        bound_ms, bound_by = bound(
+            n_feat * n + n * 4 + n * c2 * 4 + n_feat * segments * c2 * 4,
+            n_feat * n * c2)
+        per_level.append({
+            "d": d, "leaves": n_leaves,
+            "ms": time_ms(lambda: histogram(bins_t, leaf, gh, **kw), 20,
+                          flush),
+            "plain_ms": time_ms(lambda: ref.histogram(bins_t, leaf, gh, **kw),
+                                5, flush),
+            "library_ms": time_ms(
+                lambda: torch.zeros((n_feat * segments, c2), device=dev)
+                .index_add_(0, ids, gh_rep), 10, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "small_rows_max_abs_err": small_err,
+            **shares})
+        del a, ids, gh_rep
+    deepest = len(levels) - 1
+    wide = bins_t.int()
+    a32, shares32, err32, _, _ = held("int32 bins, deepest level", wide,
+                                      levels[deepest], gh, 1 << deepest)
+    check(torch.equal(a32, histogram(bins_t, levels[deepest], gh,
+                                     n_bins=n_bins,
+                                     n_leaves=1 << deepest)),
+          "histogram differs between int32 and uint8 bins")
+    int32_ms = time_ms(lambda: histogram(wide, levels[deepest], gh,
+                                         n_bins=n_bins,
+                                         n_leaves=1 << deepest), 20, flush)
+    del wide, a32
+    total = {k: sum(lv[k] for lv in per_level)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "name": "histogram", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/histogram.cu",
+        "replaces": "src/repro/kernels/histogram.py:85",
+        "launches": launches,
+        "max_abs_err": max([err32] + [max(lv["max_abs_err"],
+                                          lv["small_rows_max_abs_err"])
+                                      for lv in per_level]),
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": ("bytes" if all(lv["bound_by"] == "bytes"
+                                    for lv in per_level) else "operations"),
+        "library_ms": total["library_ms"],
+        "per": f"one tree: the sum over its {len(levels)} level launches",
+        "library_call": "torch.zeros + index_add_ over prebuilt flat "
+                        "(feature, leaf, bin) ids and a per-feature copy "
+                        "of gh",
+        "n_rows": n, "n_features": n_feat, "n_stats": c2,
+        "levels": per_level, "int32_deepest_ms": int32_ms,
+        "int32_over_limit": shares32,
+        "small_rows_checked": list(HIST_SMALL_ROWS)}
+
+
+def serve_trained(ens, x_test, y_test):
+    """The trained model behind `GBDTServer(layout="soa")`: the test split
+    quantized once and scored through `predict_pool`."""
+    import torch
+    from repro_torch.serving.engine import GBDTServer
+    server = GBDTServer(ens, device="cuda", max_batch=MAX_BATCH, layout="soa")
+    try:
+        t0 = time.perf_counter()
+        proba = server.predict_pool(server.quantize(x_test))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        snap = server.metrics.snapshot()
+    finally:
+        server.close()
+    check(proba.shape == (len(x_test), ens.n_outputs)
+          and bool(np.isfinite(proba).all()), "trained model's proba")
+    return {"rows": len(x_test), "seconds": secs,
+            "rows_per_s": len(x_test) / secs,
+            "batch_p50_ms": snap["batch_p50_ms"],
+            "batch_p99_ms": snap["batch_p99_ms"],
+            "test_accuracy": float((proba.argmax(1) == y_test).mean())}
+
+
 # The kernels each serving path launches, and no others.
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
@@ -562,6 +1058,8 @@ PATH_KERNELS = {
     "bitpacked": {"binarize", "leaf_index_bp", "leaf_gather"},
     "bitpacked_one_group": {"binarize", "leaf_index_bp", "leaf_gather",
                             "fused_predict_bp"},
+    "training": {"binarize", "histogram", "leaf_index", "leaf_gather"},
+    "trained_soa_pool": {"binarize", "leaf_index", "leaf_gather"},
 }
 
 
@@ -606,8 +1104,57 @@ def main() -> None:
         print(f"  ptxas {line}")
 
     data = covertype(scale=1.0, seed=SEED)
-    full, ens = make_model(data.x_train, data.n_classes)
     x_test = data.x_test
+
+    def path_launch_counts(path: str) -> dict:
+        """Launches since the counts were set to 0, which must be exactly
+        the path's kernels."""
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        print(f"{path} launches: {counts}", flush=True)
+        for name, count in counts.items():
+            check((count > 0) == (name in PATH_KERNELS[path]),
+                  f"the {path} path launched {name} {count} times; it "
+                  f"launches exactly {sorted(PATH_KERNELS[path])}")
+        return counts
+
+    # --- the training path, with the launch counts set to 0 before it
+    # and read after it
+    ops.reset_launch_counts()
+    full, history, params, train_s = train_model(data)
+    path_launches = {"training": path_launch_counts("training")}
+    snapshot = history["metrics"]
+    print(f"trained {full.n_trees} trees of depth {full.depth} on "
+          f"{len(data.x_train)} rows in {train_s:.1f} s: " + json.dumps(
+              {k: snapshot[k] for k in (
+                  "iter_p50_ms", "iter_p99_ms", "hist_p50_ms",
+                  "split_p50_ms", "leaf_p50_ms", "hist_frac", "split_frac",
+                  "leaf_frac", "rows_per_s", "first_train_loss",
+                  "final_train_loss")}), flush=True)
+    pool, training_checks = check_training(full, history, params,
+                                           data.x_train)
+    training_checks["resume"] = check_resume(pool, data.y_train, full,
+                                             params)
+    levels, gh0, training_checks["splits"] = replay_splits(
+        full, pool, data.y_train, params)
+    training_profile = profile_training(pool, data.y_train, full, params)
+    print(f"training profile: {json.dumps(training_profile)}", flush=True)
+    print(f"training checks: {json.dumps(training_checks)}", flush=True)
+    hist_row = check_and_time_histogram(
+        pool.bins.t().contiguous(), levels, gh0, full.borders.shape[0] + 1,
+        path_launches["training"]["histogram"])
+    del pool, levels, gh0
+    torch.cuda.empty_cache()
+
+    # --- the trained model served from a pool on soa
+    ops.reset_launch_counts()
+    trained_serving = serve_trained(full, x_test, data.y_test)
+    path_launches["trained_soa_pool"] = path_launch_counts(
+        "trained_soa_pool")
+    print(f"trained model served: {json.dumps(trained_serving)}",
+          flush=True)
+
+    ens = truncated(full)
     print(f"model: T={ens.n_trees} D={ens.depth} C={ens.n_outputs} "
           f"F={ens.n_features} B={ens.borders.shape[0]}; "
           f"{len(x_test)} test rows")
@@ -620,21 +1167,14 @@ def main() -> None:
                   "bitpacked": (ens, "bitpacked", N_LAYOUT_REQUESTS),
                   "bitpacked_one_group": (full, "bitpacked",
                                           N_LAYOUT_REQUESTS)}
-    paths, path_launches, buckets = {}, {}, None
+    paths, buckets = {}, None
     for path, (model, layout, n_requests) in path_specs.items():
         ops.reset_launch_counts()
         out, phases, plan, staged, buckets = serve(model, x_test, layout,
                                                    n_requests)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        print(f"{path} launches: {counts}", flush=True)
-        for name, count in counts.items():
-            check((count > 0) == (name in PATH_KERNELS[path]),
-                  f"the {path} path launched {name} {count} times; it "
-                  f"launches exactly {sorted(PATH_KERNELS[path])}")
+        path_launches[path] = path_launch_counts(path)
         paths[path] = dict(out=out, phases=phases, plan=plan, staged=staged,
                            model=model, n_requests=n_requests)
-        path_launches[path] = counts
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in ops.KERNELS}
     for name, count in launches.items():
@@ -747,7 +1287,7 @@ def main() -> None:
         x_test, paths["depth_major"]["plan"].lowered,
         paths["bitpacked"]["plan"].lowered,
         paths["bitpacked_one_group"]["plan"].lowered, launches, check_rows)
-    kernels += layout_kernels
+    kernels += layout_kernels + [hist_row]
     control["kernel_err_over_limit"].update(layout_of_limit)
     torch.cuda.synchronize()
 
@@ -757,10 +1297,19 @@ def main() -> None:
         "card_vs_cpu": card_vs_cpu,
         "first_calls": recompiles, "kernel_rows_compared": list(check_rows),
         "float_limit": f"{K_SIGMA:g}*sqrt(T)*u*sum|leaf| per output",
-        "tolerance_control": control, "tree_padding": tree_padding}}))
+        "histogram_limit": f"{K_SIGMA:g}*sqrt(n)*u*sum|gh| + n*quantum/2 "
+                           "per cell from the f64 plain version; plus "
+                           "1.05*(n+1)*u*sum|gh| from the f32 one",
+        "tolerance_control": control, "tree_padding": tree_padding,
+        "training": training_checks}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {p: rec["phases"]
                                   for p, rec in paths.items()},
+                      "trained_soa_pool": trained_serving,
+                      "training": {"seconds": train_s, "trees": full.n_trees,
+                                   "rows": len(data.x_train),
+                                   "metrics": snapshot,
+                                   "profile": training_profile},
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {

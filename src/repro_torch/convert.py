@@ -1,20 +1,27 @@
-"""Carry a model across from the JAX package.
+"""Carry a model, or a training run, across from the JAX package.
 
 `ensemble_from_numpy` takes the JAX ensemble's fields as numpy arrays
 (`{k: np.asarray(v)}` over `split_features`, `split_bins`, `leaf_values`,
 `borders`, `n_borders` and optionally `base_score`);
 `ensemble_from_jax_npz` reads the `.npz` its `ObliviousEnsemble.save`
-writes.  Both give an `ObliviousEnsemble` on the CPU.
+writes.  Both give an `ObliviousEnsemble` on the CPU; `ensemble_to_numpy`
+is their inverse.
+
+`train_state_from_jax` reads a JAX trainer's `TrainState.tree()`, or a
+checkpoint it wrote, into the port's `TrainState`: both packages write the
+same keys, dtypes and files.
 """
 from __future__ import annotations
 
 import pathlib
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.trees import ObliviousEnsemble
+from repro_torch.training.checkpoint import CheckpointManager, load_step
+from repro_torch.training.gbdt import TrainState
 
 FIELDS = ("split_features", "split_bins", "leaf_values", "borders",
           "n_borders", "base_score")
@@ -30,5 +37,29 @@ def ensemble_from_numpy(arrays: Mapping[str, np.ndarray]
                                 for k, v in arrays.items()})
 
 
+def ensemble_to_numpy(ensemble: ObliviousEnsemble) -> dict[str, np.ndarray]:
+    """Every field as a numpy array, the dict `ensemble_from_numpy`
+    takes (and the JAX `ObliviousEnsemble(**...)` takes after
+    `jnp.asarray`)."""
+    return {k: getattr(ensemble, k).detach().cpu().numpy() for k in FIELDS}
+
+
 def ensemble_from_jax_npz(path: str | pathlib.Path) -> ObliviousEnsemble:
     return ObliviousEnsemble.load(path)
+
+
+def train_state_from_jax(source: Mapping[str, np.ndarray] | str
+                         | pathlib.Path, step: Optional[int] = None
+                         ) -> TrainState:
+    """The port's `TrainState` from a JAX `TrainState.tree()` (numpy or
+    JAX arrays), a checkpoint directory (its step `step`, else the
+    latest) or one `step_N` directory of it."""
+    if isinstance(source, Mapping):
+        return TrainState.from_tree({k: np.asarray(v)
+                                     for k, v in source.items()})
+    path = pathlib.Path(source)
+    if (path / "leaves.npz").exists():
+        return TrainState.from_tree(load_step(path))
+    if not path.is_dir():
+        raise FileNotFoundError(f"no checkpoint directory at {path}")
+    return TrainState.from_tree(CheckpointManager(path).restore(step))

@@ -1,1 +1,2 @@
-"""Model structure, quantization, layout and prediction plans."""
+"""Model structure, quantization, layout, prediction plans, losses and
+boosting."""

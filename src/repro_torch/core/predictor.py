@@ -119,7 +119,7 @@ def classify_from_raw(raw: torch.Tensor, n_outputs: int) -> torch.Tensor:
     return torch.argmax(raw, dim=-1).to(torch.int32)
 
 
-def _resolve_device(device: torch.device | str) -> torch.device:
+def resolve_device(device: torch.device | str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -188,7 +188,7 @@ class Predictor:
         elif config_kw:
             raise TypeError("pass either a PredictConfig or config kwargs, "
                             f"not both: {sorted(config_kw)}")
-        device = _resolve_device(device)
+        device = resolve_device(device)
         resolved = config.resolve(ensemble, device)
         t0 = time.perf_counter()
         on_device = ensemble.to(device)

@@ -126,3 +126,11 @@ def quantize_pool(x, borders: torch.Tensor, *,
     x = torch.as_tensor(x, dtype=torch.float32, device=borders.device)
     bins = ops.binarize_u8(x.contiguous(), borders, backend=backend)
     return QuantizedPool(bins, borders_fingerprint(borders))
+
+
+def binarize_matrix(x: torch.Tensor, borders: torch.Tensor, *,
+                    backend: str = "auto") -> torch.Tensor:
+    """(N, F) float32 -> (N, F) int32 bin ids on the device of `x`: the
+    escape hatch for more than 255 borders, where no uint8 pool exists
+    (the JAX package's shim over `ops.binarize`)."""
+    return ops.binarize(x, borders, backend=backend)

@@ -1,4 +1,4 @@
-"""Synthetic Covertype workload (the paper's Table 1 row), numpy only.
+"""Synthetic Covertype workload (the paper's Table 1 row), made with numpy.
 
 The port's copy of `Dataset`, `_class_mixture` and `covertype` from
 `src/repro/data/synthetic.py`: the same seed gives bit-identical arrays.
@@ -13,19 +13,7 @@ import dataclasses
 
 import numpy as np
 
-
-@dataclasses.dataclass(frozen=True)
-class BoostingParams:
-    """The training parameters a workload names; the port's copy of
-    `repro.core.boosting.BoostingParams` (training is a later slice)."""
-    n_trees: int = 100
-    depth: int = 6
-    learning_rate: float = 0.1
-    l2_reg: float = 3.0
-    max_bins: int = 64
-    rsm: float = 1.0
-    ordered: bool = False
-    seed: int = 0
+from repro_torch.core.boosting import BoostingParams
 
 
 @dataclasses.dataclass

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "repro_fused_predict_bp": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG,
                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                _INT, _INT),
+    "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
+                        _INT, _INT, _INT, _INT, _INT, _INT),
 }
 
 _lock = threading.Lock()

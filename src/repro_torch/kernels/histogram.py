@@ -1,0 +1,62 @@
+"""Gradient histogram of one tree level (the training hot loop) on Hopper.
+
+The kernel is `csrc/histogram.cu`; it replaces the TPU kernel
+`src/repro/kernels/histogram.py:histogram`.  Its plain version is
+`ref.histogram`.  The kernel accumulates in 64-bit fixed point, so it
+gives the same bits on every launch; its tiling comes from
+`tuning.hist_plan`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref, tuning
+
+
+def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
+              n_bins: int, n_leaves: int) -> torch.Tensor:
+    """(F, N) uint8|int32 feature-major bins, (N,) int32 leaf ids in
+    [0, n_leaves), (N, S) f32 finite stats -> (F, n_leaves * n_bins, S)
+    f32 sums per (feature, leaf, bin).
+
+    A tensor on the CPU goes through the plain version; a CUDA tensor
+    launches the kernel (and adds one to `histogram.launches`)."""
+    if bins_t.ndim != 2 or leaf.ndim != 1 or g.ndim != 2 \
+            or leaf.shape[0] != bins_t.shape[1] \
+            or g.shape[0] != bins_t.shape[1]:
+        raise ValueError(f"histogram takes bins_t (F, N), leaf (N,) and g "
+                         f"(N, S), got {tuple(bins_t.shape)}, "
+                         f"{tuple(leaf.shape)} and {tuple(g.shape)}")
+    if bins_t.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"bins are uint8 or int32, not {bins_t.dtype}")
+    if n_bins < 1 or n_leaves < 1:
+        raise ValueError(f"need n_bins >= 1 and n_leaves >= 1, got "
+                         f"{n_bins} and {n_leaves}")
+    if bins_t.device.type == "cpu":
+        return ref.histogram(bins_t, leaf, g, n_bins=n_bins,
+                             n_leaves=n_leaves)
+    _build.check_cuda_tensors("histogram", bins_t=(bins_t, bins_t.dtype),
+                              leaf=(leaf, torch.int32),
+                              g=(g, torch.float32))
+    f, n = bins_t.shape
+    s = g.shape[1]
+    plan = tuning.hist_plan(f, n, n_leaves, n_bins, s)
+    if f > 65535 or plan.n_tiles > 65535:
+        raise ValueError(f"histogram grid too large: {f} features x "
+                         f"{plan.n_tiles} tiles (each <= 65,535)")
+    dev = bins_t.device
+    out = torch.empty((f, n_leaves * n_bins, s), dtype=torch.float32,
+                      device=dev)
+    if not (f and n):
+        return out.zero_()
+    max_bits = torch.empty((s,), dtype=torch.int32, device=dev)
+    acc = torch.empty((out.numel(),), dtype=torch.int64, device=dev)
+    _build.launch("repro_histogram", dev, bins_t, leaf, g, max_bits, acc,
+                  out, n, f, n_bins, n_leaves, s,
+                  int(bins_t.dtype == torch.uint8), plan.seg_tile,
+                  plan.row_chunks)
+    histogram.launches += 1
+    return out
+
+
+histogram.launches = 0

@@ -4,8 +4,8 @@ CUDA kernels and their plain PyTorch versions.
 The port's counterpart of `src/repro/kernels/ops.py`.  Each op has a
 `torch_ref` implementation (the plain versions in `kernels.ref`) and a
 `cuda` one (the kernel wrappers in `kernels.binarize`, `leaf_index`,
-`leaf_gather` and `fused_predict`); binarize takes its output dtype as an
-argument (int32, or uint8 for the one-byte quantized-pool stream).
+`leaf_gather`, `fused_predict` and `histogram`); binarize takes its output
+dtype as an argument (int32, or uint8 for the one-byte quantized-pool stream).
 `backend="auto"` resolves from the device of the data (`registry.resolve`).
 
 `leaf_index` and `fused_predict` have siblings for the depth_major
@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import binarize as _binarize_k
 from repro_torch.kernels import fused_predict as _fused_k
+from repro_torch.kernels import histogram as _hist_k
 from repro_torch.kernels import leaf_gather as _gather_k
 from repro_torch.kernels import leaf_index as _index_k
 from repro_torch.kernels import ref as _ref
@@ -45,6 +46,7 @@ KERNELS = {
     "fused_predict_dm": _fused_k.fused_predict_dm,
     "leaf_index_bp": _index_k.leaf_index_bp,
     "fused_predict_bp": _fused_k.fused_predict_bp,
+    "histogram": _hist_k.histogram,
 }
 
 # The layouts each op's soa-array implementations take: depth_grouped
@@ -201,6 +203,25 @@ def _fused_cuda_bp(x, borders, sf_bp, sb_bp, lv):
     return _fused_k.fused_predict_bp(x, borders, sf_bp, sb_bp, lv)
 
 
+# The training histogram reads no model structure: every layout.  Bins
+# are uint8 (a pool) or int32 (`fit_bins`).
+@registry.register("histogram", "torch_ref", dtypes=("int32", "uint8"),
+                   layouts=ALL_LAYOUTS,
+                   constraints="any shape; segment-sum by index_add_")
+def _histogram_ref(bins_t, leaf, g, *, n_bins, n_leaves):
+    return _ref.histogram(bins_t, leaf, g, n_bins=n_bins, n_leaves=n_leaves)
+
+
+@registry.register("histogram", "cuda", dtypes=("int32", "uint8"),
+                   layouts=ALL_LAYOUTS,
+                   constraints="<= 64 stats, finite; int64 fixed point, "
+                               "the same bits every launch; "
+                               "csrc/histogram.cu")
+def _histogram_cuda(bins_t, leaf, g, *, n_bins, n_leaves):
+    return _hist_k.histogram(bins_t, leaf, g, n_bins=n_bins,
+                             n_leaves=n_leaves)
+
+
 # --------------------------------------------------------------------------
 # Public ops
 # --------------------------------------------------------------------------
@@ -280,6 +301,20 @@ def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
     return registry.dispatch("fused_predict", backend, x, borders,
                              split_features_bp, split_bins_bp, leaf_values,
                              layout="bitpacked")
+
+
+def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
+              n_bins: int, n_leaves: int,
+              backend: Backend = "auto") -> torch.Tensor:
+    """(F, N) i32|u8 feature-major bins, (N,) i32 leaf ids, (N, S) f32
+    per-sample stats -> (F, n_leaves * n_bins, S) f32 histogram.
+
+    The training hot loop (one call per tree level): stats accumulate per
+    (feature, leaf, bin) cell.  `g` usually holds gradients and hessians
+    side by side, so both histograms cost one pass."""
+    return registry.dispatch("histogram", backend, bins_t, leaf, g,
+                             dtype=_bins_dtype(bins_t), n_bins=n_bins,
+                             n_leaves=n_leaves)
 
 
 # The plan's entries keep the JAX package's `_prepadded` names, so each

@@ -16,6 +16,12 @@ Conventions (CatBoost's oblivious-tree model):
 The depth_major and bitpacked layouts hold the splits as (D, T) planes
 (row d = every tree's level-d split); their `_depth_major` / `_bitpacked`
 functions compute the same leaf index from them.
+
+Training (`histogram`):
+  bins_t         (F, N)  int32 | uint8  feature-major bins
+  leaf           (N,)    int32     current leaf id of each sample
+  g              (N, S)  float32   per-sample stats (gradients, hessians)
+  hist[f, l * n_bins + b, s] = sum_n g[n, s] [leaf[n] = l] [bins_t[f, n] = b]
 """
 from __future__ import annotations
 
@@ -173,3 +179,22 @@ def fused_predict_bitpacked(x: torch.Tensor, borders: torch.Tensor,
     return leaf_gather(leaf_index_bitpacked(bins, split_features_bp,
                                             split_bins_bp),
                        leaf_values)
+
+
+def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
+              n_bins: int, n_leaves: int) -> torch.Tensor:
+    """Segment-sum of `g` over (feature, leaf, bin) -> (F, n_leaves *
+    n_bins, S) in g's dtype (float32 on the training path).
+
+    Segment ids are `leaf * n_bins + bins_t[f]`, widened to int64 for
+    `index_add_`.  On the CPU `index_add_` adds the rows in sample order,
+    as the JAX package's `segment_sum` does, so both give the same bits;
+    on the card it adds with float atomics, in no fixed order."""
+    f, _ = bins_t.shape
+    segments = n_leaves * n_bins
+    out = torch.zeros((f, segments, g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    base = leaf.long() * n_bins
+    for j in range(f):
+        out[j].index_add_(0, base + bins_t[j].long(), g)
+    return out

@@ -30,9 +30,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
-# The ops every backend family covers.  This slice ports the four ops of
-# the serving path; later slices add theirs.
-CORE_OPS = ("binarize", "leaf_index", "leaf_gather", "fused_predict")
+# The ops every backend family covers: the four of the serving path and
+# the training histogram; later slices add theirs.
+CORE_OPS = ("binarize", "leaf_index", "leaf_gather", "fused_predict",
+            "histogram")
 FAMILIES = ("torch_ref", "cuda")
 
 

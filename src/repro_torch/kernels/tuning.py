@@ -1,4 +1,5 @@
-"""Physical-layout selection for `PredictConfig(layout="auto")`.
+"""Physical-layout selection for `PredictConfig(layout="auto")`, and the
+shared-memory plan of the training histogram kernel.
 
 The port's copy of the layout rule in `src/repro/kernels/tuning.py`: the
 leaf-table and lowered-array byte costs of each layout, from the
@@ -16,6 +17,8 @@ the bulk shape and at the 1,024-row serving bucket, which `chip_smoke.py`
 measures on the card, are the evidence a card rule is to be set from.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -69,3 +72,66 @@ def best_layout(true_depths, n_outputs: int, n_features: int, *,
                 return "bitpacked"
             return "depth_grouped"
     return "soa"
+
+
+# --------------------------------------------------------------------------
+# Training histogram plan (csrc/histogram.cu) on sm_90
+# --------------------------------------------------------------------------
+# The JAX package sizes its histogram grid against the TPU's 96 MiB VMEM
+# (`src/repro/kernels/tuning.py` hist_footprint, VMEM_BUDGET): the one-hot
+# selector panel it feeds the MXU.  The CUDA kernel builds no one-hot.  A
+# block holds a tile of (leaf, bin) segments of one feature, every stat of
+# each, as int64 fixed-point cells in shared memory, and the plan picks
+# the tile and the row chunks.
+SM_COUNT = 132                     # H100 SXM
+SMEM_PER_SM = 228 * 1024           # shared memory of one SM
+SMEM_OPTIN_LIMIT = 232_448         # the most one block may opt in to
+SMEM_RESERVED_PER_BLOCK = 1024     # the runtime's own share of each block
+HIST_CELL_BYTES = 8                # int64 fixed-point accumulator
+HIST_MAX_STATS = 64                # csrc/histogram.cu kMaxStats (2C, C <= 32)
+HIST_STATIC_BYTES = HIST_MAX_STATS * 8   # the per-stat double scales
+# Two blocks an SM: each tile within half the SM, less the statics.
+HIST_TILE_BYTES = (SMEM_PER_SM // 2 - SMEM_RESERVED_PER_BLOCK
+                   - HIST_STATIC_BYTES)
+HIST_BLOCKS_PER_SM = 4             # blocks in flight the row chunks aim at
+HIST_MIN_CHUNK_ROWS = 2048         # rows a block scans at least
+
+
+@dataclasses.dataclass(frozen=True)
+class HistPlan:
+    """The grid of one histogram launch: `n_tiles` tiles of `seg_tile`
+    segments per feature, `row_chunks` chunks of rows, and the dynamic
+    shared memory of a block (`tile_bytes`)."""
+    seg_tile: int
+    n_tiles: int
+    row_chunks: int
+    tile_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic plus static shared memory of one block."""
+        return self.tile_bytes + HIST_STATIC_BYTES
+
+
+def hist_plan(n_features: int, n_rows: int, n_leaves: int, n_bins: int,
+              n_stats: int) -> HistPlan:
+    """Tile the (leaf, bin) segment axis so one tile of int64 cells fits
+    `HIST_TILE_BYTES`, in tiles of equal size; then cut the rows into
+    chunks until there are `HIST_BLOCKS_PER_SM` blocks an SM, but no chunk
+    under `HIST_MIN_CHUNK_ROWS` rows.
+
+    At Covertype width (54 features, 64 bins, 14 stats) a tile holds up
+    to 1,028 segments: one tile a feature at d <= 4, 8 at d = 7, each of
+    at most 114,688 bytes."""
+    if not 1 <= n_stats <= HIST_MAX_STATS:
+        raise ValueError(f"the histogram kernel takes 1..{HIST_MAX_STATS} "
+                         f"stats (2C for C <= 32 outputs), got {n_stats}")
+    n_segs = max(n_leaves * n_bins, 1)
+    fit = HIST_TILE_BYTES // (n_stats * HIST_CELL_BYTES)
+    n_tiles = -(-n_segs // fit)
+    seg_tile = -(-n_segs // n_tiles)
+    target = HIST_BLOCKS_PER_SM * SM_COUNT
+    chunks = -(-target // max(n_features * n_tiles, 1))
+    chunks = max(1, min(chunks, -(-n_rows // HIST_MIN_CHUNK_ROWS)))
+    return HistPlan(seg_tile, n_tiles, chunks,
+                    seg_tile * n_stats * HIST_CELL_BYTES)

@@ -31,8 +31,10 @@ from repro.kernels import registry as jregistry  # noqa: E402
 from repro_torch.core import layout as tlayout  # noqa: E402
 from repro_torch.core import trees as ttrees  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
+from repro_torch.kernels import tuning  # noqa: E402
 from repro_torch.kernels import binarize as binarize_k  # noqa: E402
 from repro_torch.kernels import fused_predict as fused_k  # noqa: E402
+from repro_torch.kernels import histogram as hist_k  # noqa: E402
 from repro_torch.kernels import leaf_gather as gather_k  # noqa: E402
 from repro_torch.kernels import leaf_index as index_k  # noqa: E402
 
@@ -310,7 +312,7 @@ def test_build_hash_covers_every_source():
     assert {"binarize.cu", "leaf_index.cu", "leaf_gather.cu",
             "fused_predict.cu", "common.cuh", "leaf_index_dm.cu",
             "leaf_index_bp.cu", "fused_predict_dm.cu", "fused_predict_bp.cu",
-            "fused_planes.cuh", "leaf_index.cuh"} <= sources
+            "fused_planes.cuh", "leaf_index.cuh", "histogram.cu"} <= sources
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
 
@@ -544,7 +546,7 @@ def test_registry_routes_by_layout():
                          layout="bitpacked")
     assert registry.known_backends() == ("cuda", "torch_ref")
     assert set(ops.KERNELS) == {"binarize", "leaf_index", "leaf_gather",
-                                "fused_predict", *NEW_OPS}
+                                "fused_predict", *NEW_OPS, "histogram"}
 
 
 def test_new_kernel_tiles_fit_shared_memory():
@@ -572,3 +574,82 @@ def test_new_kernel_tiles_fit_shared_memory():
                                 - index_k.BP_TRANSPOSE_BYTES)[0] == 128
     assert fused_k.tile_shape(54, True, index_k.TILE_BYTES
                               - fused_k.PLANE_BYTES) == (128, 60)
+
+
+# --------------------------------------------------------------------------
+# The training histogram
+# --------------------------------------------------------------------------
+def test_histogram_is_a_core_op_of_both_families():
+    assert "histogram" in registry.CORE_OPS
+    impls = registry.implementations("histogram")
+    assert {name: impl.family for name, impl in impls.items()} == \
+        {"cuda": "cuda", "torch_ref": "torch_ref"}
+    for impl in impls.values():
+        assert impl.dtypes == ("int32", "uint8")
+        assert impl.layouts == ops.ALL_LAYOUTS
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for dtype in ("uint8", "int32"):
+        assert registry.resolve("histogram", "auto", device=cuda,
+                                dtype=dtype) == "cuda"
+        assert registry.resolve("histogram", "auto", device=cpu,
+                                dtype=dtype) == "torch_ref"
+    assert ops.KERNELS["histogram"] is hist_k.histogram
+
+
+def _hist_args(device="cpu", f=3, n=40, c=4):
+    rng = np.random.default_rng(1)
+    return (torch.from_numpy(rng.integers(0, 6, (f, n)).astype(np.uint8)),
+            torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)),
+            torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)))
+
+
+def test_histogram_cuda_family_refuses_cpu_tensors():
+    bins_t, leaf, g = _hist_args()
+    with pytest.raises(ValueError, match="CPU"):
+        ops.histogram(bins_t, leaf, g, n_bins=6, n_leaves=2, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        hist_k.histogram(*(a.to("meta") for a in (bins_t, leaf, g)),
+                         n_bins=6, n_leaves=2)
+    with pytest.raises(ValueError):
+        hist_k.histogram(bins_t.float(), leaf, g, n_bins=6, n_leaves=2)
+    with pytest.raises(ValueError):
+        hist_k.histogram(bins_t, leaf[:-1], g, n_bins=6, n_leaves=2)
+
+
+def test_histogram_launch_counter_ticks(monkeypatch):
+    bins_t, leaf, g = _hist_args()
+    ops.reset_launch_counts()
+    launched = []
+    monkeypatch.setattr(_build, "check_cuda_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, device, *a: launched.append((name, a)))
+    out = hist_k.histogram(*(a.to("meta") for a in (bins_t, leaf, g)),
+                           n_bins=6, n_leaves=2)
+    assert out.shape == (3, 12, 4) and out.device.type == "meta"
+    name, args = launched[0]
+    assert name == "repro_histogram" and len(launched) == 1
+    plan = tuning.hist_plan(3, 40, 2, 6, 4)
+    assert args[6:] == (40, 3, 6, 2, 4, 1, plan.seg_tile, plan.row_chunks)
+    assert ops.launch_counts() == {k: int(k == "histogram")
+                                   for k in ops.KERNELS}
+
+
+def test_histogram_plan_fits_shared_memory_at_every_level():
+    # Covertype width: 54 features, 325,360 rows, 64 bins, 2C = 14
+    for d in range(8):
+        plan = tuning.hist_plan(54, 325_360, 1 << d, 64, 14)
+        assert plan.smem_bytes < 227 * 1024
+        assert 2 * (plan.smem_bytes + tuning.SMEM_RESERVED_PER_BLOCK) \
+            <= tuning.SMEM_PER_SM                   # two blocks an SM
+        assert plan.tile_bytes == plan.seg_tile * 14 * 8
+        assert plan.n_tiles * plan.seg_tile >= (1 << d) * 64
+        assert (plan.n_tiles - 1) * plan.seg_tile < (1 << d) * 64
+        assert 54 * plan.n_tiles * plan.row_chunks >= tuning.SM_COUNT
+    assert tuning.hist_plan(54, 325_360, 1, 64, 14).n_tiles == 1
+    assert tuning.hist_plan(54, 325_360, 128, 64, 14).n_tiles == 8
+    # few rows: one chunk; the widest stats and bins still fit
+    assert tuning.hist_plan(54, 17, 128, 64, 14).row_chunks == 1
+    assert tuning.hist_plan(1, 10, 1 << 12, 256, 64).smem_bytes \
+        < 227 * 1024
+    with pytest.raises(ValueError):
+        tuning.hist_plan(54, 100, 2, 64, 65)
