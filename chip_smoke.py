@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's training and serving paths once on an
-H100 and check them.
+"""Drive the PyTorch/CUDA port's training, serving and kNN paths once on
+an H100 and check them.
 
 Run from the root of a checkout, on a machine with one Hopper card:
 
     python3 chip_smoke.py
 
-It builds the port's nine CUDA kernels from `src/repro_torch/kernels/csrc/`
-and then, with the kernel launch counts set to 0 before each path and
-read after it:
+It builds the port's eleven CUDA kernels from
+`src/repro_torch/kernels/csrc/` and then, with the kernel launch counts set
+to 0 before each path and read after it:
 
   * trains `boosting.fit` on the card at the full width of the paper's
     Covertype workload (325,360 rows, 54 features, 7 classes, MultiClass,
@@ -20,7 +20,13 @@ read after it:
     groups), on each layout in turn (soa, depth_major, depth_grouped,
     bitpacked), then the untruncated model on bitpacked (one group, whose
     fused route is its own kernel): single requests, `predict_batch` over
-    the test split, `quantize` + `predict_pool` and a staged `proba` call.
+    the test split, `quantize` + `predict_pool` and a staged `proba` call;
+  * runs the paper's image-embeddings workload (2,808 train and 2,841 test
+    embeddings of K = 512, 20 classes): kNN features (k = 16) of both
+    splits with the `l2sq_matrix` kernel, of the test split again with one
+    `l2sq_rowwise` launch a query, a 1,000-tree MultiClass head (depth 4,
+    lr 0.05) trained on the 533 augmented columns with `boosting.fit`, and
+    `EmbeddingGBDTPipeline.predict` on the test split: accuracy and rows/s.
 
 It checks:
 
@@ -45,12 +51,24 @@ It checks:
     the card agrees with the plain PyTorch plan on the CPU, on every
     layout; each serving kernel agrees with its plain version at every row
     count the main path gives it, within `sum_limit`, which a bf16 leaf
-    table must fail.
+    table must fail;
+  * kNN: each distance kernel gives the same bits on two launches, no
+    negative value, and lies within the distance rule of its plain version
+    (`l2dist.matrix_limit` / `rowwise_limit`) on both splits and every test
+    query; the two routes within the sum of their limits; each route's
+    features obey the feature rule against the plain distances' (exempt
+    queries counted); the head's training contracts as above, its first 5
+    trees' splits, and the histogram at 533 features x 40 stats for depths
+    0-3; the fused kernel at C = 20 and F = 533 within `sum_limit`; the
+    pipeline's class ids equal to a CPU pipeline's on 1,024 test rows
+    where the rows bin alike and the margin is clear.
 
 Then it times each kernel beside its plain version, one PyTorch library
 call where one computes the same function, and the least time the card
 could take (`bound_ms`): the serving kernels at the bulk shape and the
-1,024-row bucket, the histogram at each level; profiles 10 training trees;
+1,024-row bucket, the histogram at each level, the distance kernels at the
+test split's shape (the matrix also at 4,096 x 22,464; TF32 off for its
+`addmm` yardstick); profiles 10 training trees;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
 JSON, the serving and training JSON and the result line.  Any failed
@@ -1049,6 +1067,323 @@ def serve_trained(ens, x_test, y_test):
             "test_accuracy": float((proba.argmax(1) == y_test).mean())}
 
 
+# --------------------------------------------------------------------------
+# The kNN path: embeddings -> kNN features -> GBDT head
+# --------------------------------------------------------------------------
+KNN_K = 16              # neighbours (examples/embeddings_knn.py): 21 features
+KNN_BULK_SCALE = 8      # image_embeddings(scale=8): 22,464 references
+KNN_BULK_QUERIES = 4096  # KNNFeaturizer.transform's default chunk
+KNN_SMALL_ROWS = 17     # a ragged row count for the C = 20 fused kernel
+KNN_PREDICT_REPEATS = 3  # pipeline calls timed after the path's own
+
+
+def run_knn_path(data):
+    """The paper's image-embeddings workload through the port's entry
+    points, on the card: featurize the train split (matrix kernel) and the
+    test split (matrix kernel, then the rowwise kernel one query at a
+    time), train the N_TREES-tree MultiClass head on the 533 augmented
+    columns with `boosting.fit`, and classify the test split with
+    `EmbeddingGBDTPipeline.predict`.  Returns what the checks read and the
+    wall seconds of each phase."""
+    import torch
+    from repro_torch.core import boosting
+    from repro_torch.core.knn import KNNFeaturizer, augment_with_knn
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.serving.engine import EmbeddingGBDTPipeline
+
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    feat = KNNFeaturizer(data.emb_train, data.y_train, data.n_classes,
+                         k=KNN_K, device="cuda")
+    x_train = timed("featurize_train", lambda: augment_with_knn(
+        data.x_train, data.emb_train, feat))
+    feats = timed("featurize_test", lambda: feat.transform(data.emb_test))
+    feats_rw = timed("featurize_test_rowwise", lambda: feat.transform(
+        data.emb_test, rowwise=True))
+    params = dataclasses.replace(data.params, n_trees=N_TREES,
+                                 max_bins=MAX_BINS, seed=SEED)
+    ens, history = timed("train", lambda: boosting.fit(
+        x_train, data.y_train, params=params, device="cuda",
+        loss=MultiClass(n_classes=data.n_classes)))
+    pipeline = EmbeddingGBDTPipeline(feat, ens)
+    pred = timed("predict", lambda: pipeline.predict(data.emb_test))
+    return {"feat": feat, "x_train": x_train, "feats": feats,
+            "feats_rw": feats_rw, "ens": ens, "history": history,
+            "params": params, "pipeline": pipeline, "pred": pred,
+            "seconds": seconds}
+
+
+def feature_rule(feat, got_feats, got_d, want_d, limit, what):
+    """The feature rule of PERF.md §2, on the card: a query whose plain
+    distances have a gap between the k-th and (k+1)-th smallest wider than
+    twice its largest limit must have the plain neighbour set, the plain
+    class fractions bit for bit and a mean distance within that limit.
+    `got_feats` must be the features of `got_d` exactly.  Returns the
+    count of exempt queries, and of those whose neighbours or fractions
+    did differ."""
+    import torch
+    c = feat.n_classes
+    check(torch.equal(got_feats, feat._features_from_dists(got_d)),
+          f"{what}: the path's features are not those of the kernel's "
+          "distances")
+    srt = torch.sort(want_d.double(), dim=1).values
+    row_limit = limit.max(dim=1).values
+    checked = srt[:, feat.k] - srt[:, feat.k - 1] > 2 * row_limit
+    want = feat._features_from_dists(want_d)
+    gi = feat.neighbours(got_d)[1].sort(dim=1).values
+    wi = feat.neighbours(want_d)[1].sort(dim=1).values
+    same_set = (gi == wi).all(dim=1)
+    same_frac = (got_feats[:, :c] == want[:, :c]).all(dim=1)
+    mean_ok = (got_feats[:, c].double() - want[:, c].double()).abs() \
+        <= row_limit
+    bad = checked & ~(same_set & same_frac & mean_ok)
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} queries outside "
+          "the exemption differ from the plain features")
+    return {"queries": len(checked), "exempt": int((~checked).sum()),
+            "exempt_and_differ": int((~checked & ~(same_set & same_frac))
+                                     .sum())}
+
+
+def check_and_time_knn(data, run, flush):
+    """Hold the kNN path against its plain versions on the card, then time
+    the two distance kernels.  Returns (the kernels rows without their
+    launch counts, the checks)."""
+    import torch
+    from repro_torch.core.knn import KNNFeaturizer
+    from repro_torch.data.synthetic import image_embeddings
+    from repro_torch.kernels import l2dist, ref
+    from repro_torch.kernels.fused_predict import fused_predict
+    from repro_torch.serving.engine import EmbeddingGBDTPipeline
+
+    feat = run["feat"]
+    refs = feat.train_embeddings
+    dev = refs.device
+    c = data.n_classes
+    checks, errs = {}, {"l2sq_matrix": 0.0, "l2sq_rowwise": 0.0}
+    of_limit = {"l2sq_matrix": 0.0, "l2sq_rowwise": 0.0}
+
+    def held(kernel, case, got, again, want, limit):
+        """Same bits on two launches, non-negative, within the rule of the
+        plain version."""
+        name = f"{kernel} ({case})"
+        check(torch.equal(got, again),
+              f"{name} differs between two launches on the same inputs")
+        check(bool((got >= 0).all()), f"{name} has a negative distance")
+        err = (got.double() - want.double()).abs()
+        share = float((err / limit).max())
+        check(share <= 1.0, f"{name} differs from its plain version by "
+              f"{float(err.max())}, {share:.3g} times its limit")
+        errs[kernel] = max(errs[kernel], float(err.max()))
+        of_limit[kernel] = max(of_limit[kernel], share)
+
+    # --- the matrix kernel on both splits, the rowwise kernel on every
+    # test query, and the features each route gave the path
+    q_test = torch.as_tensor(data.emb_test, device=dev)
+    x_train = torch.as_tensor(run["x_train"], device=dev)
+    check(torch.equal(x_train[:, :refs.shape[1]], refs),
+          "the augmented train pool does not start with the embeddings")
+    exempt = {}
+    for split, q, got_feats in (("train", refs, x_train[:, refs.shape[1]:]),
+                                ("test", q_test, run["feats"])):
+        got = l2dist.l2sq_matrix(q, refs)
+        want = ref.l2sq_matrix(q, refs)
+        limit = l2dist.matrix_limit(q, refs)
+        held("l2sq_matrix", f"{split} split", got,
+             l2dist.l2sq_matrix(q, refs), want, limit)
+        exempt[f"matrix_{split}"] = feature_rule(
+            feat, got_feats, got, want, limit, f"{split} features")
+        if split == "test":
+            mat, mat_limit = got, limit
+        del got, want
+    rw = torch.stack([l2dist.l2sq_rowwise(q, refs) for q in q_test])
+    again = torch.stack([l2dist.l2sq_rowwise(q, refs) for q in q_test])
+    rw_want = torch.stack([ref.l2sq_rowwise(q, refs) for q in q_test])
+    rw_limit = torch.stack([l2dist.rowwise_limit(q, refs) for q in q_test])
+    held("l2sq_rowwise", "every test query", rw, again, rw_want, rw_limit)
+    exempt["rowwise_test"] = feature_rule(
+        feat, run["feats_rw"], rw, rw_want, rw_limit, "rowwise features")
+    routes = (mat.double() - rw.double()).abs()
+    share = float((routes / (mat_limit + rw_limit)).max())
+    check(share <= 1.0, f"matrix and rowwise kernels differ by "
+          f"{float(routes.max())}, {share:.3g} times the sum of their limits")
+    checks["features"] = exempt
+    checks["matrix_vs_rowwise"] = {"max_abs": float(routes.max()),
+                                   "of_limits": share}
+    del again, rw_want, routes
+
+    # --- the fused kernel at C = 20 outputs and F = 533 columns (its
+    # 32-output instance), as the pipeline's plan runs it
+    plan = run["pipeline"].predictor
+    low = plan.lowered
+    x_aug = torch.cat([q_test, run["feats"]], dim=1)
+    fused = {}
+    for n in (len(x_aug), KNN_SMALL_ROWS):
+        xn = x_aug[:n]
+        idx = ref.leaf_index(ref.binarize(xn, low.borders),
+                             low.split_features, low.split_bins)
+        err, share = compare_sums(
+            f"fused_predict (C = {c}, F = {x_aug.shape[1]}) at {n} rows",
+            fused_predict(xn, low.borders, low.split_features,
+                          low.split_bins, low.leaf_values),
+            ref.fused_predict(xn, low.borders, low.split_features,
+                              low.split_bins, low.leaf_values),
+            sum_limit(idx, low.leaf_values))
+        fused[f"rows_{n}"] = {"max_abs_err": err, "of_limit": share}
+    fused["ms"] = time_ms(lambda: fused_predict(
+        x_aug, low.borders, low.split_features, low.split_bins,
+        low.leaf_values), 20, flush)
+    checks["fused_predict_c20"] = fused
+
+    # --- the card's pipeline against the plain one on the CPU, on the
+    # first N_REFERENCE test rows: class ids equal where the augmented rows
+    # bin alike and the top two raw scores clear twice the tree-sum limit
+    ens = run["ens"]
+    xs = data.emb_test[:N_REFERENCE]
+    cpu_feat = KNNFeaturizer(data.emb_train, data.y_train, c, k=KNN_K,
+                             device="cpu")
+    cpu_pipe = EmbeddingGBDTPipeline(cpu_feat, ens, device="cpu")
+    cpu_pred = cpu_pipe.predict(xs)
+    x_cpu = torch.cat([torch.from_numpy(xs), cpu_feat.transform(xs)], dim=1)
+    cpu_low = cpu_pipe.predictor.lowered
+    bins = ref.binarize(x_cpu, cpu_low.borders)
+    same_bins = (bins == ref.binarize(x_aug[:N_REFERENCE].cpu(),
+                                      cpu_low.borders)).all(dim=1)
+    raw = cpu_pipe.predictor.raw(x_cpu)
+    limit = sum_limit(ref.leaf_index(bins, cpu_low.split_features,
+                                     cpu_low.split_bins),
+                      cpu_low.leaf_values, cpu_pipe.predictor.ensemble
+                      .base_score)
+    top2 = raw.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * limit.max(dim=1).values
+    ok = (same_bins & clear).numpy()
+    check(np.array_equal(run["pred"][:N_REFERENCE][ok], cpu_pred[ok]),
+          "the card's pipeline classifies differently from the CPU's")
+    checks["card_vs_cpu"] = {"rows": len(xs), "compared": int(ok.sum()),
+                             "bins_differ": int((~same_bins).sum()),
+                             "agree_all": bool(np.array_equal(
+                                 run["pred"][:N_REFERENCE], cpu_pred))}
+
+    # --- timing: the test split's matrix (the path's shape), a bulk
+    # matrix, and one rowwise query against the train split, each beside
+    # its plain version and a library call (TF32 off)
+    a_sq, b_sq = (q_test * q_test).sum(1), (refs * refs).sum(1)
+
+    def addmm(a, b, a_sq, b_sq):
+        return torch.addmm(a_sq[:, None] + b_sq[None, :], a, b.T,
+                           alpha=-2).clamp_min_(0)
+
+    check(bool(((addmm(q_test, refs, a_sq, b_sq).double()
+                 - ref.l2sq_matrix(q_test, refs).double()).abs()
+                <= 2 * mat_limit).all()),
+          "addmm yardstick computes other distances")
+    m, k = q_test.shape
+    n = refs.shape[0]
+
+    def matrix_bound(m, n, k):
+        return bound(4 * (m + n) * k + 4 * (m + n) + 4 * m * n,
+                     2 * m * n * k + 2 * (m + n) * k + 3 * m * n)
+
+    bound_ms, bound_by = matrix_bound(m, n, k)
+    bulk = image_embeddings(scale=KNN_BULK_SCALE)
+    bq = torch.as_tensor(bulk.emb_test[:KNN_BULK_QUERIES], device=dev)
+    br = torch.as_tensor(bulk.emb_train, device=dev)
+    del bulk
+    bq_sq, br_sq = (bq * bq).sum(1), (br * br).sum(1)
+    bulk_bound = matrix_bound(len(bq), len(br), k)[0]
+    matrix_row = {
+        "name": "l2sq_matrix", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/l2sq_matrix.cu",
+        "replaces": "src/repro/kernels/l2dist.py:100",
+        "max_abs_err": errs["l2sq_matrix"],
+        "ms": time_ms(lambda: l2dist.l2sq_matrix(q_test, refs), 20, flush),
+        "plain_ms": time_ms(lambda: ref.l2sq_matrix(q_test, refs), 10,
+                            flush),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: addmm(q_test, refs, a_sq, b_sq), 10,
+                              flush),
+        "library_call": "torch.addmm(a_sq + b_sq, a, b.T, alpha=-2)"
+                        ".clamp_min_(0), norms precomputed, TF32 off",
+        "shape": [m, n, k], "err_over_limit": of_limit["l2sq_matrix"],
+        "bulk_shape": [len(bq), len(br), k],
+        "bulk_ms": time_ms(lambda: l2dist.l2sq_matrix(bq, br), 10, flush),
+        "bulk_plain_ms": time_ms(lambda: ref.l2sq_matrix(bq, br), 5, flush),
+        "bulk_library_ms": time_ms(lambda: addmm(bq, br, bq_sq, br_sq), 5,
+                                   flush),
+        "bulk_bound_ms": bulk_bound}
+    del bq, br, bq_sq, br_sq
+    q0 = q_test[0]
+
+    def cdist(q):
+        return torch.cdist(q[None, :], refs,
+                           compute_mode="donot_use_mm_for_euclid_dist"
+                           )[0].square_()
+
+    check(bool(((cdist(q0).double() - ref.l2sq_rowwise(q0, refs).double())
+                .abs() <= 2 * l2dist.rowwise_limit(q0, refs)).all()),
+          "cdist yardstick computes other distances")
+    rw_bound, rw_by = bound(4 * n * k + 4 * k + 4 * n, 3 * n * k)
+    # the path's own pattern: every test query back to back, refs in L2
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for q in q_test:
+        l2dist.l2sq_rowwise(q, refs)
+    end.record()
+    end.synchronize()
+    rowwise_row = {
+        "name": "l2sq_rowwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/l2sq_rowwise.cu",
+        "replaces": "src/repro/kernels/l2dist.py:50",
+        "max_abs_err": errs["l2sq_rowwise"],
+        "ms": time_ms(lambda: l2dist.l2sq_rowwise(q0, refs), 50, flush),
+        "plain_ms": time_ms(lambda: ref.l2sq_rowwise(q0, refs), 20, flush),
+        "bound_ms": rw_bound, "bound_by": rw_by,
+        "library_ms": time_ms(lambda: cdist(q0), 20, flush),
+        "library_call": "torch.cdist(q[None], refs, compute_mode="
+                        "'donot_use_mm_for_euclid_dist').square_()",
+        "shape": [n, k], "err_over_limit": of_limit["l2sq_rowwise"],
+        "back_to_back_ms_per_query": start.elapsed_time(end) / len(q_test),
+        "per": "one query against the train split"}
+    return [matrix_row, rowwise_row], checks
+
+
+def knn_phases(run, data):
+    """The kNN path's wall seconds, its head's training metrics, the
+    pipeline's test accuracy and rows/s (the path's own first call and the
+    median of KNN_PREDICT_REPEATS more)."""
+    snap = run["history"]["metrics"]
+    pred = run["pred"]
+    check(pred.shape == (len(data.emb_test),) and pred.dtype == np.int32
+          and bool(((pred >= 0) & (pred < data.n_classes)).all()),
+          f"pipeline class ids {pred.dtype} {pred.shape}")
+    repeats = []
+    for _ in range(KNN_PREDICT_REPEATS):
+        t0 = time.perf_counter()
+        again = run["pipeline"].predict(data.emb_test)
+        repeats.append(time.perf_counter() - t0)
+        check(np.array_equal(again, pred), "the pipeline classifies "
+              "differently on a second call")
+    n = len(data.emb_test)
+    return {"rows": n, "train_rows": len(data.emb_train),
+            "features": run["x_train"].shape[1], "k": KNN_K,
+            "seconds": run["seconds"],
+            "rows_per_s": n / run["seconds"]["predict"],
+            "repeat_rows_per_s": n / float(np.median(repeats)),
+            "test_accuracy": float((pred == data.y_test).mean()),
+            "trees": run["ens"].n_trees, "depth": run["ens"].depth,
+            "training": {k: snap[k] for k in (
+                "iter_p50_ms", "iter_p99_ms", "hist_p50_ms", "hist_frac",
+                "split_frac", "leaf_frac", "first_train_loss",
+                "final_train_loss")}}
+
+
 # The kernels each serving path launches, and no others.
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
@@ -1060,6 +1395,8 @@ PATH_KERNELS = {
                             "fused_predict_bp"},
     "training": {"binarize", "histogram", "leaf_index", "leaf_gather"},
     "trained_soa_pool": {"binarize", "leaf_index", "leaf_gather"},
+    "knn": {"l2sq_matrix", "l2sq_rowwise", "binarize", "histogram",
+            "leaf_index", "leaf_gather", "fused_predict"},
 }
 
 
@@ -1083,7 +1420,7 @@ def main() -> None:
         fail("run from a checkout: src/repro_torch is not next to this file")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.predictor import Predictor, classify_from_raw
-    from repro_torch.data.synthetic import covertype
+    from repro_torch.data.synthetic import covertype, image_embeddings
     from repro_torch.kernels import _build, ops
 
     smi = subprocess.run(
@@ -1175,6 +1512,15 @@ def main() -> None:
         path_launches[path] = path_launch_counts(path)
         paths[path] = dict(out=out, phases=phases, plan=plan, staged=staged,
                            model=model, n_requests=n_requests)
+    # --- the kNN path, with the launch counts set to 0 before it and read
+    # after it
+    emb_data = image_embeddings(scale=1.0)
+    ops.reset_launch_counts()
+    knn_run = run_knn_path(emb_data)
+    path_launches["knn"] = path_launch_counts("knn")
+    knn_serving = knn_phases(knn_run, emb_data)
+    print(f"knn path: {json.dumps(knn_serving)}", flush=True)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in ops.KERNELS}
     for name, count in launches.items():
@@ -1287,8 +1633,28 @@ def main() -> None:
         x_test, paths["depth_major"]["plan"].lowered,
         paths["bitpacked"]["plan"].lowered,
         paths["bitpacked_one_group"]["plan"].lowered, launches, check_rows)
+    hist_row["launches"] = launches["histogram"]
     kernels += layout_kernels + [hist_row]
     control["kernel_err_over_limit"].update(layout_of_limit)
+
+    # --- the kNN path's checks: its training contracts and the histogram
+    # at 533 features x 40 stats, then its kernels
+    knn_pool, knn_checks = check_training(
+        knn_run["ens"], knn_run["history"], knn_run["params"],
+        knn_run["x_train"])
+    levels, gh0, knn_checks["splits"] = replay_splits(
+        knn_run["ens"], knn_pool, emb_data.y_train, knn_run["params"])
+    knn_checks["histogram"] = check_and_time_histogram(
+        knn_pool.bins.t().contiguous(), levels, gh0,
+        knn_run["ens"].borders.shape[0] + 1, launches["histogram"])
+    del knn_pool, levels, gh0
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    knn_kernels, knn_checks["path"] = check_and_time_knn(emb_data, knn_run,
+                                                         flush)
+    del flush
+    for row in knn_kernels:
+        row["launches"] = launches[row["name"]]
+    kernels += knn_kernels
     torch.cuda.synchronize()
 
     print(json.dumps({"checks": {
@@ -1301,7 +1667,10 @@ def main() -> None:
                            "per cell from the f64 plain version; plus "
                            "1.05*(n+1)*u*sum|gh| from the f32 one",
         "tolerance_control": control, "tree_padding": tree_padding,
-        "training": training_checks}}))
+        "training": training_checks, "knn": knn_checks,
+        "distance_limit": f"matrix {K_SIGMA:g}*sqrt(K)*u*(|a|^2 + |b|^2 + "
+                          f"2*sum|a_k*b_k|), rowwise {K_SIGMA:g}*sqrt(K)*u*"
+                          "sum(r_k - q_k)^2 per distance"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {p: rec["phases"]
                                   for p, rec in paths.items()},
@@ -1310,6 +1679,7 @@ def main() -> None:
                                    "rows": len(data.x_train),
                                    "metrics": snapshot,
                                    "profile": training_profile},
+                      "knn": knn_serving,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {

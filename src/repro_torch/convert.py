@@ -7,6 +7,9 @@
 writes.  Both give an `ObliviousEnsemble` on the CPU; `ensemble_to_numpy`
 is their inverse.
 
+`knn_featurizer_from_numpy` carries a JAX `KNNFeaturizer`'s state (its
+reference embeddings and labels, as numpy) into the port's.
+
 `train_state_from_jax` reads a JAX trainer's `TrainState.tree()`, or a
 checkpoint it wrote, into the port's `TrainState`: both packages write the
 same keys, dtypes and files.
@@ -19,6 +22,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.knn import KNNFeaturizer
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.training.checkpoint import CheckpointManager, load_step
 from repro_torch.training.gbdt import TrainState
@@ -46,6 +50,20 @@ def ensemble_to_numpy(ensemble: ObliviousEnsemble) -> dict[str, np.ndarray]:
 
 def ensemble_from_jax_npz(path: str | pathlib.Path) -> ObliviousEnsemble:
     return ObliviousEnsemble.load(path)
+
+
+def knn_featurizer_from_numpy(train_embeddings: np.ndarray,
+                              train_labels: np.ndarray, n_classes: int,
+                              k: int = 16,
+                              device: torch.device | str = "cuda"
+                              ) -> KNNFeaturizer:
+    """The port's featurizer over a JAX featurizer's reference set
+    (`np.asarray(feat.train_embeddings)`, `np.asarray(feat.train_labels)`),
+    on `device`."""
+    return KNNFeaturizer(
+        torch.from_numpy(np.array(train_embeddings, np.float32)),
+        torch.from_numpy(np.array(train_labels, np.int32)),
+        n_classes=n_classes, k=k, device=device)
 
 
 def train_state_from_jax(source: Mapping[str, np.ndarray] | str

@@ -1,2 +1,3 @@
-"""Model structure, quantization, layout, prediction plans, losses and
-boosting."""
+"""Model structure, quantization, layout, prediction plans, losses,
+boosting, and the kNN embedding featurizer (`knn`)."""
+from repro_torch.core import knn  # noqa: F401

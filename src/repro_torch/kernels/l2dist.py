@@ -1,0 +1,129 @@
+"""Squared L2 distances (paper: L2SqrDistance) on Hopper.
+
+Two kernels, one for each form the kNN featurizer uses:
+
+  l2sq_rowwise  `csrc/l2sq_rowwise.cu`: one query against many reference
+                rows, a warp a row (the paper-faithful form); replaces
+                `src/repro/kernels/l2dist.py:l2sq_rowwise`.  Plain
+                version `ref.l2sq_rowwise`.
+  l2sq_matrix   `csrc/l2sq_matrix.cu`: the (M, N) matrix
+                max(||a||^2 + ||b||^2 - 2 a.b^T, 0) with the cross term as
+                a hand-tiled fp32 FFMA product (no TF32); replaces
+                `src/repro/kernels/l2dist.py:l2sq_matrix`.  Plain version
+                `ref.l2sq_matrix`.  The norms are plain sums outside the
+                kernel, as the JAX package takes them outside its
+                `pallas_call`.
+
+Both sum each output in a fixed order, so two launches give the same
+bits.  `rowwise_limit` and `matrix_limit` are the distance rule of
+PERF.md §2: how far two float32 evaluations of the same distances, summed
+in different orders, may lie apart.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref, tuning
+
+# csrc/l2sq_matrix.cu: a block of 256 threads owns a 128 x 128 output
+# tile, an 8 x 8 micro-tile a thread, and walks K in slabs of 8.  On
+# sm_90 that is 64 accumulators plus 16 operands and 8 prefetched values a
+# thread (about 128 of the 255 registers, so two blocks fill an SM's
+# 65,536), and two double-buffered 8 x 132-float slabs of a and b, 16.5 KB
+# of static shared memory a block, well inside the default 48 KB.
+MATRIX_TILE = 128
+MATRIX_SLAB = 8
+MATRIX_THREADS = 256
+# csrc/l2sq_rowwise.cu stages q in dynamic shared memory: K floats, within
+# what one block may opt in to.
+ROWWISE_MAX_K = (tuning.SMEM_OPTIN_LIMIT
+                 - tuning.SMEM_RESERVED_PER_BLOCK) // 4
+_GRID_LIMIT = 65535                # gridDim.y of the matrix kernel
+
+U = 2.0 ** -24            # unit roundoff of float32
+K_SIGMA = 8.0             # width of the limit, in rounding walks
+
+
+def rowwise_limit(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+    """(N,) float64 limit of the rowwise form: 8 sqrt(K) u sum_k (r_k -
+    q_k)^2.  K non-negative terms summed in any order walk about sqrt(K)
+    roundings of u times their sum apart."""
+    d = refs.double() - q.double()[None, :]
+    return K_SIGMA * math.sqrt(refs.shape[1]) * U * (d * d).sum(dim=1)
+
+
+def matrix_limit(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, N) float64 limit of the matrix form: 8 sqrt(K) u (||a||^2 +
+    ||b||^2 + 2 sum_k |a_k b_k|).  The result cancels down from those
+    magnitudes (a self-distance lands near 0, not at it), so the limit
+    scales with them and not with the distance."""
+    a64, b64 = a.double(), b.double()
+    mag = (a64 * a64).sum(dim=1)[:, None] + (b64 * b64).sum(dim=1)[None, :] \
+        + 2.0 * (a64.abs() @ b64.abs().T)
+    return K_SIGMA * math.sqrt(a.shape[1]) * U * mag
+
+
+def _vec_ok(k: int, *tensors: torch.Tensor) -> bool:
+    """float4 loads: K a multiple of 4 and every row 16-byte aligned."""
+    return k % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+    """out[n] = sum_k (refs[n, k] - q[k])^2 -> (N,) float32.
+
+    A tensor on the CPU goes through the plain version; a CUDA tensor
+    launches the kernel (and adds one to `l2sq_rowwise.launches`)."""
+    if q.ndim != 1 or refs.ndim != 2 or refs.shape[1] != q.shape[0]:
+        raise ValueError(f"l2sq_rowwise takes q (K,) and refs (N, K), got "
+                         f"{tuple(q.shape)} and {tuple(refs.shape)}")
+    if q.device.type == "cpu":
+        return ref.l2sq_rowwise(q, refs)
+    _build.check_cuda_tensors("l2sq_rowwise", q=(q, torch.float32),
+                              refs=(refs, torch.float32))
+    n, k = refs.shape
+    if k > ROWWISE_MAX_K:
+        raise ValueError(f"l2sq_rowwise stages q in shared memory: K <= "
+                         f"{ROWWISE_MAX_K}, got {k}")
+    out = torch.empty((n,), dtype=torch.float32, device=q.device)
+    if n and not k:
+        return out.zero_()
+    if n:
+        _build.launch("repro_l2sq_rowwise", q.device, q, refs, out, n, k,
+                      int(_vec_ok(k, refs)))
+        l2sq_rowwise.launches += 1
+    return out
+
+
+l2sq_rowwise.launches = 0
+
+
+def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """out[m, n] = max(||a[m]||^2 + ||b[n]||^2 - 2 a[m].b[n], 0) -> (M, N)
+    float32, the cross term in full fp32.
+
+    A tensor on the CPU goes through the plain version; a CUDA tensor
+    launches the kernel (and adds one to `l2sq_matrix.launches`)."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"l2sq_matrix takes a (M, K) and b (N, K), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return ref.l2sq_matrix(a, b)
+    _build.check_cuda_tensors("l2sq_matrix", a=(a, torch.float32),
+                              b=(b, torch.float32))
+    m, k = a.shape
+    n = b.shape[0]
+    if -(-m // MATRIX_TILE) > _GRID_LIMIT or n >= 2 ** 31:
+        raise ValueError(f"l2sq_matrix grid too large: {m} x {n}")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m and n:
+        a_sq = (a * a).sum(dim=1)
+        b_sq = (b * b).sum(dim=1)
+        _build.launch("repro_l2sq_matrix", a.device, a, b, a_sq, b_sq, out,
+                      m, n, k, int(_vec_ok(k, a, b)))
+        l2sq_matrix.launches += 1
+    return out
+
+
+l2sq_matrix.launches = 0

@@ -4,8 +4,10 @@ CUDA kernels and their plain PyTorch versions.
 The port's counterpart of `src/repro/kernels/ops.py`.  Each op has a
 `torch_ref` implementation (the plain versions in `kernels.ref`) and a
 `cuda` one (the kernel wrappers in `kernels.binarize`, `leaf_index`,
-`leaf_gather`, `fused_predict` and `histogram`); binarize takes its output
-dtype as an argument (int32, or uint8 for the one-byte quantized-pool stream).
+`leaf_gather`, `fused_predict`, `histogram` and `l2dist`); binarize takes
+its output dtype as an argument (int32, or uint8 for the one-byte
+quantized-pool stream).  `l2sq` dispatches on the query's rank: rowwise
+for a (K,) query, the matrix form for (M, K) queries.
 `backend="auto"` resolves from the device of the data (`registry.resolve`).
 
 `leaf_index` and `fused_predict` have siblings for the depth_major
@@ -23,6 +25,7 @@ import torch
 from repro_torch.kernels import binarize as _binarize_k
 from repro_torch.kernels import fused_predict as _fused_k
 from repro_torch.kernels import histogram as _hist_k
+from repro_torch.kernels import l2dist as _l2_k
 from repro_torch.kernels import leaf_gather as _gather_k
 from repro_torch.kernels import leaf_index as _index_k
 from repro_torch.kernels import ref as _ref
@@ -47,6 +50,8 @@ KERNELS = {
     "leaf_index_bp": _index_k.leaf_index_bp,
     "fused_predict_bp": _fused_k.fused_predict_bp,
     "histogram": _hist_k.histogram,
+    "l2sq_rowwise": _l2_k.l2sq_rowwise,
+    "l2sq_matrix": _l2_k.l2sq_matrix,
 }
 
 # The layouts each op's soa-array implementations take: depth_grouped
@@ -222,6 +227,25 @@ def _histogram_cuda(bins_t, leaf, g, *, n_bins, n_leaves):
                              n_leaves=n_leaves)
 
 
+# The kNN distances read no model structure: every layout.  The op
+# dispatches on the query's rank, as the JAX package's `l2sq` does.
+@registry.register("l2sq", "torch_ref", dtypes=("float32",),
+                   layouts=ALL_LAYOUTS,
+                   constraints="rowwise (K,)x(N,K) or matrix (M,K)x(N,K)")
+def _l2sq_ref(a, b):
+    return _ref.l2sq_rowwise(a, b) if a.ndim == 1 else _ref.l2sq_matrix(a, b)
+
+
+@registry.register("l2sq", "cuda", dtypes=("float32",), layouts=ALL_LAYOUTS,
+                   constraints="rowwise (K,)x(N,K), q in shared memory: "
+                               "csrc/l2sq_rowwise.cu; matrix (M,K)x(N,K), "
+                               "fp32 FFMA: csrc/l2sq_matrix.cu")
+def _l2sq_cuda(a, b):
+    if a.ndim == 1:
+        return _l2_k.l2sq_rowwise(a, b)
+    return _l2_k.l2sq_matrix(a, b)
+
+
 # --------------------------------------------------------------------------
 # Public ops
 # --------------------------------------------------------------------------
@@ -315,6 +339,18 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
     return registry.dispatch("histogram", backend, bins_t, leaf, g,
                              dtype=_bins_dtype(bins_t), n_bins=n_bins,
                              n_leaves=n_leaves)
+
+
+def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor, *,
+                 backend: Backend = "auto") -> torch.Tensor:
+    """(K,), (N, K) -> (N,) squared L2 distances."""
+    return registry.dispatch("l2sq", backend, q, refs, dtype="float32")
+
+
+def l2sq_matrix(a: torch.Tensor, b: torch.Tensor, *,
+                backend: Backend = "auto") -> torch.Tensor:
+    """(M, K), (N, K) -> (M, N) squared L2 distance matrix."""
+    return registry.dispatch("l2sq", backend, a, b, dtype="float32")
 
 
 # The plan's entries keep the JAX package's `_prepadded` names, so each

@@ -22,6 +22,9 @@ Training (`histogram`):
   leaf           (N,)    int32     current leaf id of each sample
   g              (N, S)  float32   per-sample stats (gradients, hessians)
   hist[f, l * n_bins + b, s] = sum_n g[n, s] [leaf[n] = l] [bins_t[f, n] = b]
+
+kNN features (`l2sq_rowwise`, `l2sq_matrix`): squared L2 distances in
+float32, the paper's L2SqrDistance, one query at a time or as a matrix.
 """
 from __future__ import annotations
 
@@ -198,3 +201,19 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
     for j in range(f):
         out[j].index_add_(0, base + bins_t[j].long(), g)
     return out
+
+
+def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+    """Paper-faithful L2SqrDistance: out[n] = sum_k (refs[n, k] - q[k])^2
+    -> (N,) float32."""
+    d = refs - q[None, :]
+    return (d * d).sum(dim=-1)
+
+
+def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise distances (M, N): max(||a||^2 + ||b||^2 - 2 a.b^T, 0), the
+    cross term as one float32 `a @ b.T`."""
+    a_sq = (a * a).sum(dim=-1)[:, None]
+    b_sq = (b * b).sum(dim=-1)[None, :]
+    cross = a @ b.T
+    return torch.clamp_min(a_sq + b_sq - 2.0 * cross, 0.0)

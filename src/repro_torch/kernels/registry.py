@@ -30,10 +30,11 @@ from typing import Any, Callable, Optional
 
 import torch
 
-# The ops every backend family covers: the four of the serving path and
-# the training histogram; later slices add theirs.
-CORE_OPS = ("binarize", "leaf_index", "leaf_gather", "fused_predict",
-            "histogram")
+# The ops every backend family covers: the four of the serving path, the
+# training histogram and the kNN distances (`l2sq`, rowwise for a 1-d
+# query, the matrix form for 2-d queries).
+CORE_OPS = ("binarize", "leaf_index", "leaf_gather", "l2sq",
+            "fused_predict", "histogram")
 FAMILIES = ("torch_ref", "cuda")
 
 

@@ -1,20 +1,23 @@
 """GBDT serving engine over a prepared prediction plan.
 
-The port's counterpart of `GBDTServer` in `src/repro/serving/engine.py`.
-Request aggregation and bucket padding live in `serving.batching`,
-per-model counters in `serving.metrics`.  Mesh serving, replica groups,
-the model registry and bulk scoring are not ported yet.
+The port's counterpart of `GBDTServer` and `EmbeddingGBDTPipeline` in
+`src/repro/serving/engine.py`.  Request aggregation and bucket padding
+live in `serving.batching`, per-model counters in `serving.metrics`.
+Mesh serving, replica groups, the model registry and bulk scoring are not
+ported yet.
 """
 from __future__ import annotations
 
 import queue
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.predictor import PredictConfig, Predictor
+from repro_torch.core.knn import KNNFeaturizer
+from repro_torch.core.predictor import (PredictConfig, Predictor,
+                                        resolve_device)
 from repro_torch.core.quantize import QuantizedPool
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.serving.batching import BucketedBatcher, bucket_for, chunks
@@ -132,3 +135,36 @@ class GBDTServer:
 
     def close(self):
         self.batcher.close()
+
+
+class EmbeddingGBDTPipeline:
+    """backbone embeddings -> kNN features -> GBDT (the paper's
+    image-embeddings workload, generalized to any backbone).
+
+    The plan is built on the featurizer's device, which must be `device`
+    (the card unless the caller passes "cpu"), with `config`'s choices
+    (all `auto` by default: the cuda kernels on the card)."""
+
+    def __init__(self, featurizer: KNNFeaturizer,
+                 ensemble: ObliviousEnsemble,
+                 embed_fn: Optional[Callable] = None,
+                 config: Optional[PredictConfig] = None,
+                 device: torch.device | str = "cuda"):
+        device = resolve_device(device)
+        if featurizer.device != device:
+            raise ValueError(f"the featurizer is on {featurizer.device}, "
+                             f"the pipeline on {device}")
+        self.featurizer = featurizer
+        self.ensemble = ensemble
+        self.embed_fn = embed_fn          # raw input -> embedding (stub ok)
+        self.predictor = Predictor.build(ensemble, config, device=device)
+
+    def predict(self, inputs) -> np.ndarray:
+        """Raw inputs (embeddings when there is no `embed_fn`) -> (N,)
+        int32 class ids, as numpy."""
+        emb = self.embed_fn(inputs) if self.embed_fn is not None else inputs
+        emb = torch.as_tensor(emb, dtype=torch.float32,
+                              device=self.featurizer.device)
+        feats = self.featurizer.transform(emb)
+        x = torch.cat([emb, feats], dim=1)
+        return self.predictor.classify(x).cpu().numpy()
