@@ -40,9 +40,11 @@ It checks:
     plain histogram, unless their gains lie within the gains' rounding
     bound (counted);
   * the histogram kernel at every level shape of a depth-8 tree (uint8,
-    plus int32 at the deepest level and the first 1,000 and 17 rows) gives
-    the same bits on two launches and lies within `hist_limits` of its
-    plain version;
+    plus int32 at the deepest level and the first 1,000 and 17 rows) and
+    at the leaf sums (one bin, 256 leaves) equals the plain fixed-point
+    version `ref.histogram_fixed` bit for bit, in both of its variants,
+    gives the same bits on two launches and lies within `hist_limits` of
+    its f32 and f64 plain versions;
   * serving: the fused, pool and staged routes of each path classify the
     same; depth_major gives soa's scores bit for bit on every route,
     bitpacked gives depth_grouped's, and one-group bitpacked fused gives
@@ -51,7 +53,9 @@ It checks:
     the card agrees with the plain PyTorch plan on the CPU, on every
     layout; each serving kernel agrees with its plain version at every row
     count the main path gives it, within `sum_limit`, which a bf16 leaf
-    table must fail;
+    table must fail; binarize equals its plain versions exactly there, also
+    on a border table with a shuffled column, duplicate borders and a NaN
+    border, against x holding NaN, +inf, -inf and values equal to borders;
   * kNN: each distance kernel gives the same bits on two launches, no
     negative value, and lies within the distance rule of its plain version
     (`l2dist.matrix_limit` / `rowwise_limit`) on both splits and every test
@@ -320,6 +324,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
             of_limit[name] = max(of_limit[name], share)
         del got, plain
         del b8, b32, want_idx, want, limit
+    odd_tables = check_binarize_odd_tables(x, borders, check_rows)
     torch.cuda.synchronize()
 
     # --- the control: the same sums over a bf16-rounded leaf table must
@@ -415,6 +420,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
             "bucket_rows": MAX_BATCH,
             "bucket_ms": time_ms(small["kernel"], 50, flush),
             "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
+            **({"odd_tables": odd_tables} if name == "binarize" else {}),
         })
 
     # --- the tree axis padded to a multiple of TREE_TILE (always-left,
@@ -444,6 +450,74 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
                 "unpadded_range_ms": [min(unpadded), max(unpadded)],
                 "padded_range_ms": [min(padded_ms), max(padded_ms)]}
     return rows, control, tree_padding
+
+
+def check_binarize_odd_tables(x, borders, check_rows):
+    """The binarize kernel on border tables that the port never builds,
+    against both plain versions at each row count: column 0 shuffled
+    (counted with the compare loop), column 1 with runs of duplicate
+    borders, column 2 with a NaN border, and x holding NaN, +inf, -inf
+    and values equal to borders; also on a misaligned slice, a row count
+    with N * F % 4 != 0, and tables too large for shared memory (972
+    features; 60,000 borders, one column shuffled).  Returns the cases
+    and the columns made unsorted by construction."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binarize import binarize
+    rng = np.random.default_rng(SEED)
+    odd = borders.clone()
+    odd[:, 0] = odd[torch.as_tensor(rng.permutation(odd.shape[0]),
+                                    device=odd.device), 0]
+    dup = torch.as_tensor(np.sort(rng.choice(odd.shape[0] - 1, 20,
+                                             replace=False)),
+                          device=odd.device)
+    odd[dup + 1, 1] = odd[dup, 1]
+    odd[odd.shape[0] // 2, 2] = float("nan")
+    xo = x.clone()
+    n, f = xo.shape
+    pick = torch.as_tensor(rng.integers(0, n, (4, 2048)), device=xo.device)
+    cols = torch.as_tensor(rng.integers(0, f, (4, 2048)), device=xo.device)
+    xo[pick[0], cols[0]] = float("nan")
+    xo[pick[1], cols[1]] = float("inf")
+    xo[pick[2], cols[2]] = -float("inf")
+    at = torch.as_tensor(rng.integers(0, odd.shape[0], 2048),
+                         device=xo.device)
+    xo[pick[3], cols[3]] = odd[at, cols[3]]
+    # the first rows carry every kind of odd value in the odd columns
+    for j, v in enumerate((float("nan"), float("inf"), -float("inf"))):
+        xo[j, :3] = v
+    xo[3:3 + odd.shape[0], :3] = odd[:, :3]
+    # a slice one row in (x not aligned for 16-byte loads: one element a
+    # step) and N * F % 4 != 0 (the tail after the 4-element steps)
+    cases = [(f"{rows} rows", xo[:rows], odd) for rows in check_rows]
+    cases += [("1,023 rows from row 1", xo[1:1024], odd),
+              ("1,023 rows", xo[:1023], odd)]
+    # tables past a block's shared memory, read from global memory:
+    # 18 copies of the columns (972 features), and 60,000 borders
+    wide = odd.repeat(1, 18)
+    cases += [(f"{rows:,} rows x {wide.shape[1]} features",
+               xo[:rows].repeat(1, 18), wide) for rows in (1024, 17)]
+    long_col = torch.as_tensor(
+        np.sort(rng.normal(size=(60_000, 2)), axis=0).astype(np.float32),
+        device=xo.device)
+    long_col[:, 1] = long_col[torch.as_tensor(rng.permutation(60_000),
+                                              device=xo.device), 1]
+    cases.append(("257 rows x 60,000 borders",
+                  torch.as_tensor(rng.normal(size=(257, 2)).astype(
+                      np.float32), device=xo.device), long_col))
+    for what, xn, table in cases:
+        check(torch.equal(binarize(xn, table, out_dtype=torch.int32),
+                          ref.binarize(xn, table)),
+              f"binarize (int32) differs from its plain version on an odd "
+              f"border table at {what}")
+        if table.shape[0] <= ref.MAX_U8_BORDERS:
+            check(torch.equal(binarize(xn, table, out_dtype=torch.uint8),
+                              ref.binarize_u8(xn, table)),
+                  f"binarize (uint8) differs from its plain version on an "
+                  f"odd border table at {what}")
+    return {"cases": [what for what, _, _ in cases], "shuffled_column": 0,
+            "duplicate_column": 1, "duplicates": int(dup.numel()),
+            "nan_border_column": 2}
 
 
 def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
@@ -754,12 +828,12 @@ def torch_equal(a, b) -> bool:
 
 def fixed_point_quantum(gh):
     """(S,) f64 quantum of the histogram kernel's fixed point per stat:
-    2^-e with e = 62 - lg - ex (csrc/histogram.cu stat_exponent)."""
+    2^-e with e from `ref.stat_exponent`; 0 for an all-zero stat."""
     import torch
-    m = gh.abs().amax(0).double()
-    _, ex = torch.frexp(m)
-    lg = int(gh.shape[0]).bit_length()
-    q = torch.ldexp(torch.ones_like(m), (lg + ex - 62).double())
+    from repro_torch.kernels import ref
+    m = gh.abs().amax(0)
+    q = torch.tensor([math.ldexp(1.0, -e) for e in ref.stat_exponent(gh)],
+                     dtype=torch.float64, device=gh.device)
     return torch.where(m > 0, q, torch.zeros_like(q))
 
 
@@ -859,7 +933,7 @@ def replay_splits(full, pool, y, params):
     levels, first_gh = [], None
     stats = {"levels": 0, "differ_within_bound": 0,
              "top_two_within_bound": 0, "max_gap_over_bound": 0.0,
-             "leaf_sums_over_limit": 0.0}
+             "leaf_sums_over_limit": 0.0, "leaf_sums_fixed_identical": 0}
     for t in range(SPLIT_CHECK_TREES):
         gh = gbdt._grad_stack(raw, yt, loss=loss)
         first_gh = gh if t == 0 else first_gh
@@ -911,6 +985,11 @@ def replay_splits(full, pool, y, params):
         sums = histogram(leaf_bins, leaf, gh, **kw)
         check(torch.equal(sums, histogram(leaf_bins, leaf, gh, **kw)),
               f"tree {t}: leaf sums differ between two launches")
+        check(torch.equal(sums, ref.histogram_fixed(leaf_bins, leaf, gh,
+                                                    **kw)),
+              f"tree {t}: leaf sums differ from the plain fixed-point "
+              "version")
+        stats["leaf_sums_fixed_identical"] += 1
         share = over_limit(
             (sums.double() - ref.histogram(leaf_bins, leaf, gh.double(),
                                            **kw)).abs(),
@@ -933,14 +1012,15 @@ def replay_splits(full, pool, y, params):
 
 
 def check_and_time_histogram(bins_t, levels, gh, n_bins, launches):
-    """Hold the histogram kernel against its plain version at every level
-    shape of a depth-8 tree (the first tree's leaf ids and gh) on the full
-    uint8 pool, on int32 bins at the deepest level and on the first
-    HIST_SMALL_ROWS rows; two launches on the same inputs must give the
-    same bits.  Then time kernel, plain version and the `index_add_`
-    library call at each level.  Returns the kernels row."""
+    """Hold the histogram kernel against its plain versions at every level
+    shape of a tree (the first tree's leaf ids and gh) on the full uint8
+    pool, on int32 bins at the deepest level and on the first
+    HIST_SMALL_ROWS rows: it equals `ref.histogram_fixed` bit for bit, two
+    launches give the same bits, and it lies within `hist_limits` of the
+    f32 and f64 plain versions.  Then time kernel, plain version and the
+    `index_add_` library call at each level.  Returns the kernels row."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, tuning
     from repro_torch.kernels.histogram import histogram
 
     dev = bins_t.device
@@ -957,6 +1037,9 @@ def check_and_time_histogram(bins_t, levels, gh, n_bins, launches):
         a, b = histogram(bt, leaf, g, **kw), histogram(bt, leaf, g, **kw)
         check(torch.equal(a, b), f"histogram ({name}) differs between two "
               "launches on the same inputs")
+        check(torch.equal(a, ref.histogram_fixed(bt, leaf, g, **kw)),
+              f"histogram ({name}) differs from the plain fixed-point "
+              "version")
         p32 = ref.histogram(bt, leaf, g, **kw)
         p64 = ref.histogram(bt, leaf, g.double(), **kw)
         lim64, lim32 = hist_limits(bt, leaf, g, **kw)
@@ -994,8 +1077,12 @@ def check_and_time_histogram(bins_t, levels, gh, n_bins, launches):
         bound_ms, bound_by = bound(
             n_feat * n + n * 4 + n * c2 * 4 + n_feat * segments * c2 * 4,
             n_feat * n * c2)
+        plan = tuning.hist_plan(n_feat, n, n_leaves, n_bins, c2)
         per_level.append({
             "d": d, "leaves": n_leaves,
+            "plan": {"feats_per_block": plan.feats_per_block,
+                     "tiles": plan.n_tiles, "chunks": plan.row_chunks,
+                     "blocks": plan.n_blocks},
             "ms": time_ms(lambda: histogram(bins_t, leaf, gh, **kw), 20,
                           flush),
             "plain_ms": time_ms(lambda: ref.histogram(bins_t, leaf, gh, **kw),
@@ -1034,6 +1121,7 @@ def check_and_time_histogram(bins_t, levels, gh, n_bins, launches):
         "bound_by": ("bytes" if all(lv["bound_by"] == "bytes"
                                     for lv in per_level) else "operations"),
         "library_ms": total["library_ms"],
+        "fixed_point_identical": True,
         "per": f"one tree: the sum over its {len(levels)} level launches",
         "library_call": "torch.zeros + index_add_ over prebuilt flat "
                         "(feature, leaf, bin) ids and a per-feature copy "
@@ -1240,6 +1328,8 @@ def check_and_time_knn(data, run, flush):
         x_aug, low.borders, low.split_features, low.split_bins,
         low.leaf_values), 20, flush)
     checks["fused_predict_c20"] = fused
+    checks["binarize"] = check_and_time_knn_binarize(
+        x_train, x_aug, low.borders, flush)
 
     # --- the card's pipeline against the plain one on the CPU, on the
     # first N_REFERENCE test rows: class ids equal where the augmented rows
@@ -1352,6 +1442,45 @@ def check_and_time_knn(data, run, flush):
         "back_to_back_ms_per_query": start.elapsed_time(end) / len(q_test),
         "per": "one query against the train split"}
     return [matrix_row, rowwise_row], checks
+
+
+def check_and_time_knn_binarize(x_train, x_aug, borders, flush):
+    """The binarize kernel at the kNN head's shape (533 columns: the
+    staged table is 136 KB): both splits' augmented rows, KNN_SMALL_ROWS
+    rows and a slice one row in, equal to both plain versions.  Then time
+    kernel, plain version and `searchsorted` on the train split."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binarize import binarize
+    cases = {"train split": x_train, "test split": x_aug,
+             f"{KNN_SMALL_ROWS} rows": x_aug[:KNN_SMALL_ROWS],
+             "test split from row 1": x_aug[1:]}
+    for what, xn in cases.items():
+        check(torch.equal(binarize(xn, borders, out_dtype=torch.uint8),
+                          ref.binarize_u8(xn, borders)),
+              f"binarize (uint8) differs from its plain version on the kNN "
+              f"head's {what}")
+        check(torch.equal(binarize(xn, borders, out_dtype=torch.int32),
+                          ref.binarize(xn, borders)),
+              f"binarize (int32) differs from its plain version on the kNN "
+              f"head's {what}")
+    xt, bt = x_train.t().contiguous(), borders.t().contiguous()
+    check(torch.equal(torch.searchsorted(bt, xt, out_int32=True).t(),
+                      ref.binarize(x_train, borders)),
+          "searchsorted yardstick computes other bins")
+    n, f = x_train.shape
+    nb = borders.shape[0]
+    bound_ms, bound_by = bound(n * f * 4 + nb * f * 4 + n * f, n * f * nb)
+    return {
+        "checked": list(cases), "rows": n, "features": f, "borders": nb,
+        "ms": time_ms(lambda: binarize(x_train, borders,
+                                       out_dtype=torch.uint8), 20, flush),
+        "plain_ms": time_ms(lambda: ref.binarize_u8(x_train, borders), 5,
+                            flush),
+        "library_ms": time_ms(lambda: torch.searchsorted(bt, xt,
+                                                         out_int32=True),
+                              10, flush),
+        "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def knn_phases(run, data):
@@ -1655,6 +1784,8 @@ def main() -> None:
     for row in knn_kernels:
         row["launches"] = launches[row["name"]]
     kernels += knn_kernels
+    next(row for row in kernels if row["name"] == "binarize")[
+        "knn_shape"] = knn_checks["path"]["binarize"]
     torch.cuda.synchronize()
 
     print(json.dumps({"checks": {

@@ -56,7 +56,7 @@ _SIGNATURES = {
                                _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                _INT, _INT),
     "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
-                        _INT, _INT, _INT, _INT, _INT, _INT),
+                        _INT, _INT, _INT, _INT, _INT, _INT, _INT),
     "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG, _INT, _INT),
     "repro_l2sq_matrix": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                           _INT),

@@ -2,7 +2,11 @@
 
 The kernel is `csrc/binarize.cu`; it replaces the TPU kernel
 `src/repro/kernels/binarize.py:binarize`.  Its plain version is
-`ref.binarize` (`ref.binarize_u8` for uint8 bins).
+`ref.binarize` (`ref.binarize_u8` for uint8 bins).  The kernel counts a
+sorted border column with a binary search for the borders `< x` and any
+other column with the compare-sum; both give the plain version's bins.
+It takes any number of borders: a table too large for a block's shared
+memory is read from global memory and counted with the compare-sum.
 """
 from __future__ import annotations
 

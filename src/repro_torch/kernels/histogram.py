@@ -2,7 +2,8 @@
 
 The kernel is `csrc/histogram.cu`; it replaces the TPU kernel
 `src/repro/kernels/histogram.py:histogram`.  Its plain version is
-`ref.histogram`.  The kernel accumulates in 64-bit fixed point, so it
+`ref.histogram`; `ref.histogram_fixed` is its exact function (the same
+bits on the card).  The kernel accumulates in 64-bit fixed point, so it
 gives the same bits on every launch; its tiling comes from
 `tuning.hist_plan`.
 """
@@ -41,20 +42,22 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
     f, n = bins_t.shape
     s = g.shape[1]
     plan = tuning.hist_plan(f, n, n_leaves, n_bins, s)
-    if f > 65535 or plan.n_tiles > 65535:
-        raise ValueError(f"histogram grid too large: {f} features x "
-                         f"{plan.n_tiles} tiles (each <= 65,535)")
+    if max(plan.n_groups, plan.n_tiles) > tuning.GRID_DIM_LIMIT:
+        raise ValueError(f"histogram grid too large: {plan.n_groups} "
+                         f"feature groups x {plan.n_tiles} tiles (each <= "
+                         f"{tuning.GRID_DIM_LIMIT:,})")
     dev = bins_t.device
     out = torch.empty((f, n_leaves * n_bins, s), dtype=torch.float32,
                       device=dev)
     if not (f and n):
         return out.zero_()
     max_bits = torch.empty((s,), dtype=torch.int32, device=dev)
-    acc = torch.empty((out.numel(),), dtype=torch.int64, device=dev)
+    acc = torch.empty((1 if plan.direct else out.numel(),),
+                      dtype=torch.int64, device=dev)
     _build.launch("repro_histogram", dev, bins_t, leaf, g, max_bits, acc,
                   out, n, f, n_bins, n_leaves, s,
                   int(bins_t.dtype == torch.uint8), plan.seg_tile,
-                  plan.row_chunks)
+                  plan.feats_per_block, plan.row_chunks)
     histogram.launches += 1
     return out
 

@@ -22,11 +22,14 @@ Training (`histogram`):
   leaf           (N,)    int32     current leaf id of each sample
   g              (N, S)  float32   per-sample stats (gradients, hessians)
   hist[f, l * n_bins + b, s] = sum_n g[n, s] [leaf[n] = l] [bins_t[f, n] = b]
+  (`histogram_fixed`: the same sum in the CUDA kernel's int64 fixed point)
 
 kNN features (`l2sq_rowwise`, `l2sq_matrix`): squared L2 distances in
 float32, the paper's L2SqrDistance, one query at a time or as a matrix.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -201,6 +204,45 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
     for j in range(f):
         out[j].index_add_(0, base + bins_t[j].long(), g)
     return out
+
+
+def stat_exponent(g: torch.Tensor) -> list[int]:
+    """Per-stat exponent e of the histogram kernel's fixed-point scale
+    2^e (csrc/histogram.cu `stat_exponent`): e = 62 - lg - ex, with lg
+    the bit length of N and ex the `frexp` exponent of the stat's largest
+    |g|, so N scaled terms never reach 2^62; 0 for an all-zero stat."""
+    n, s = g.shape
+    if n == 0:
+        return [0] * s
+    m = g.detach().abs().amax(dim=0).to(torch.float32).cpu()
+    _, ex = torch.frexp(m)
+    lg = int(n).bit_length()
+    return [62 - lg - int(e) if float(v) > 0 else 0
+            for v, e in zip(m.tolist(), ex.tolist())]
+
+
+def histogram_fixed(bins_t: torch.Tensor, leaf: torch.Tensor,
+                    g: torch.Tensor, *, n_bins: int,
+                    n_leaves: int) -> torch.Tensor:
+    """`histogram` in the kernel's 64-bit fixed point -> (F, n_leaves *
+    n_bins, S) float32, the same bits as the CUDA kernel.
+
+    Each term is rint(g * 2^e) as int64 (e from `stat_exponent`); the
+    integers are summed exactly (`index_add_` in int64, in any order),
+    converted to f64, scaled by 2^-e (exact) and rounded once to f32."""
+    f, _ = bins_t.shape
+    e = stat_exponent(g)
+    scale = torch.tensor([math.ldexp(1.0, k) for k in e],
+                         dtype=torch.float64, device=g.device)
+    inv = torch.tensor([math.ldexp(1.0, -k) for k in e],
+                       dtype=torch.float64, device=g.device)
+    q = torch.round(g.double() * scale).to(torch.int64)
+    acc = torch.zeros((f, n_leaves * n_bins, g.shape[1]), dtype=torch.int64,
+                      device=g.device)
+    base = leaf.long() * n_bins
+    for j in range(f):
+        acc[j].index_add_(0, base + bins_t[j].long(), q)
+    return (acc.double() * inv).to(torch.float32)
 
 
 def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import layout as jlayout  # noqa: E402
 from repro.core import trees as jtrees  # noqa: E402
+from repro.kernels import histogram as jhist  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import registry as jregistry  # noqa: E402
 from repro_torch.core import layout as tlayout  # noqa: E402
@@ -630,7 +631,8 @@ def test_histogram_launch_counter_ticks(monkeypatch):
     name, args = launched[0]
     assert name == "repro_histogram" and len(launched) == 1
     plan = tuning.hist_plan(3, 40, 2, 6, 4)
-    assert args[6:] == (40, 3, 6, 2, 4, 1, plan.seg_tile, plan.row_chunks)
+    assert args[6:] == (40, 3, 6, 2, 4, 1, plan.seg_tile,
+                        plan.feats_per_block, plan.row_chunks)
     assert ops.launch_counts() == {k: int(k == "histogram")
                                    for k in ops.KERNELS}
 
@@ -640,17 +642,329 @@ def test_histogram_plan_fits_shared_memory_at_every_level():
     for d in range(8):
         plan = tuning.hist_plan(54, 325_360, 1 << d, 64, 14)
         assert plan.smem_bytes < 227 * 1024
-        assert 2 * (plan.smem_bytes + tuning.SMEM_RESERVED_PER_BLOCK) \
-            <= tuning.SMEM_PER_SM                   # two blocks an SM
+        assert plan.smem_bytes + tuning.SMEM_RESERVED_PER_BLOCK \
+            <= tuning.SMEM_PER_SM                   # one block an SM
         assert plan.tile_bytes == plan.seg_tile * 14 * 8
         assert plan.n_tiles * plan.seg_tile >= (1 << d) * 64
         assert (plan.n_tiles - 1) * plan.seg_tile < (1 << d) * 64
-        assert 54 * plan.n_tiles * plan.row_chunks >= tuning.SM_COUNT
+        assert plan.n_blocks >= 0.8 * plan.waves * tuning.SM_COUNT
     assert tuning.hist_plan(54, 325_360, 1, 64, 14).n_tiles == 1
-    assert tuning.hist_plan(54, 325_360, 128, 64, 14).n_tiles == 8
+    assert tuning.hist_plan(54, 325_360, 128, 64, 14).n_tiles == 37
     # few rows: one chunk; the widest stats and bins still fit
     assert tuning.hist_plan(54, 17, 128, 64, 14).row_chunks == 1
     assert tuning.hist_plan(1, 10, 1 << 12, 256, 64).smem_bytes \
         < 227 * 1024
     with pytest.raises(ValueError):
         tuning.hist_plan(54, 100, 2, 64, 65)
+
+
+# --------------------------------------------------------------------------
+# The CUDA histogram's exact function: ref.histogram_fixed
+# --------------------------------------------------------------------------
+U32 = 2.0 ** -24      # unit roundoff of float32
+
+
+def _fixed_inputs(n=300, f=3, c=4, n_bins=5, n_leaves=4, seed=5):
+    rng = np.random.default_rng(seed)
+    bins_t = rng.integers(0, n_bins, (f, n)).astype(np.uint8)
+    bins_t[:, rng.random(n) < 0.4] = 0        # a crowded bin, as ReLU gives
+    leaf = rng.integers(0, n_leaves, n).astype(np.int32)
+    g = rng.normal(size=(n, c)).astype(np.float32)
+    return bins_t, leaf, g
+
+
+def _fixed_limit(bins_t, leaf, g, n_bins, n_leaves):
+    """Per cell: the sqrt(n) rule of PERF.md section 2 plus n half-quanta
+    of the fixed point, against the f64 sum; plus the f32 sum's own worst
+    case (n + 1) u sum|g| against an f32 sum."""
+    kw = dict(n_bins=n_bins, n_leaves=n_leaves)
+    t = [torch.from_numpy(a) for a in (bins_t, leaf)]
+    count = ref.histogram(*t, torch.ones((g.shape[0], 1), dtype=torch.float64),
+                          **kw)
+    abs_sum = ref.histogram(*t, torch.from_numpy(np.abs(g)).double(), **kw)
+    quantum = torch.tensor([2.0 ** -e for e in
+                            ref.stat_exponent(torch.from_numpy(g))],
+                           dtype=torch.float64)
+    lim64 = 8 * count.clamp(min=1).sqrt() * U32 * abs_sum \
+        + count * quantum / 2
+    return lim64, lim64 + 1.05 * (count + 1) * U32 * abs_sum
+
+
+def _fixed(bins_t, leaf, g, **kw):
+    return ref.histogram_fixed(*(torch.from_numpy(np.ascontiguousarray(a))
+                                 for a in (bins_t, leaf, g)), **kw)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_fixed_histogram_is_order_free(seed):
+    bins_t, leaf, g = _fixed_inputs(seed=seed)
+    kw = dict(n_bins=5, n_leaves=4)
+    want = _fixed(bins_t, leaf, g, **kw)
+    perm = np.random.default_rng(seed).permutation(g.shape[0])
+    assert torch.equal(_fixed(bins_t[:, perm], leaf[perm], g[perm], **kw),
+                       want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+def test_fixed_histogram_within_rounding_of_f64_and_jax_ref(dtype):
+    bins_t, leaf, g = _fixed_inputs()
+    bins_t = bins_t.astype(dtype)
+    kw = dict(n_bins=5, n_leaves=4)
+    got = _fixed(bins_t, leaf, g, **kw).double()
+    lim64, lim32 = _fixed_limit(bins_t, leaf, g, **kw)
+    f64 = ref.histogram(*(torch.from_numpy(a) for a in (bins_t, leaf)),
+                        torch.from_numpy(g).double(), **kw)
+    assert bool(((got - f64).abs() <= lim64).all())
+    jax_ref = np.array(jhist.histogram_ref(
+        jnp.asarray(bins_t), jnp.asarray(leaf), jnp.asarray(g), **kw))
+    assert bool(((got - torch.from_numpy(jax_ref).double()).abs()
+                 <= lim32).all())
+
+
+def test_fixed_histogram_keeps_an_all_zero_stat_exact():
+    bins_t, leaf, g = _fixed_inputs()
+    g[:, 1] = 0.0
+    out = _fixed(bins_t, leaf, g, n_bins=5, n_leaves=4)
+    assert ref.stat_exponent(torch.from_numpy(g))[1] == 0
+    assert bool((out[..., 1] == 0).all())
+    assert not bool((out[..., 0] == 0).all())
+
+
+@pytest.mark.parametrize("n", [256, 255, 1024, 1023])
+def test_fixed_histogram_scale_at_and_below_a_power_of_two(n):
+    bins_t, leaf, g = _fixed_inputs(n=n)
+    e = ref.stat_exponent(torch.from_numpy(g))
+    m = np.abs(g).max(axis=0)
+    # N < 2^lg and |g| < 2^ex: every partial sum stays below 2^62
+    lg = int(n).bit_length()
+    assert n < 2 ** lg
+    for k, ek in enumerate(e):
+        ex = int(np.frexp(m[k])[1])
+        assert ek == 62 - lg - ex
+        assert n * float(m[k]) * 2.0 ** ek < 2.0 ** 62
+    kw = dict(n_bins=5, n_leaves=4)
+    got = _fixed(bins_t, leaf, g, **kw).double()
+    lim64, _ = _fixed_limit(bins_t, leaf, g, **kw)
+    f64 = ref.histogram(*(torch.from_numpy(a) for a in (bins_t, leaf)),
+                        torch.from_numpy(g).double(), **kw)
+    assert bool(((got - f64).abs() <= lim64).all())
+
+
+def test_fixed_histogram_multiclass_hessian_floor():
+    # MultiClass floors its hessians at 1e-12 beside values near 0.25: the
+    # floor is a handful of quanta, kept within n half-quanta of exact
+    n = 2000
+    rng = np.random.default_rng(9)
+    h = np.where(rng.random(n) < 0.5, 1e-12, 0.25).astype(np.float32)
+    g = np.stack([rng.normal(size=n).astype(np.float32), h], axis=1)
+    bins_t = rng.integers(0, 3, (1, n)).astype(np.uint8)
+    leaf = rng.integers(0, 2, n).astype(np.int32)
+    kw = dict(n_bins=3, n_leaves=2)
+    got = _fixed(bins_t, leaf, g, **kw).double()
+    quantum = 2.0 ** -ref.stat_exponent(torch.from_numpy(g))[1]
+    assert 1e-12 / quantum > 1.0          # the floor does not round to 0
+    lim64, _ = _fixed_limit(bins_t, leaf, g, **kw)
+    f64 = ref.histogram(*(torch.from_numpy(a) for a in (bins_t, leaf)),
+                        torch.from_numpy(g).double(), **kw)
+    assert bool(((got - f64).abs() <= lim64).all())
+    # cells of floor hessians only
+    only = np.zeros((1, n), np.uint8)
+    floor_rows = h == np.float32(1e-12)
+    small = _fixed(only[:, floor_rows], leaf[floor_rows], g[floor_rows],
+                   **kw).double()[0, :, 1]
+    exact = torch.zeros(6, dtype=torch.float64)
+    for lf in (0, 1):
+        exact[lf * 3] = float(np.float32(1e-12)) * int(
+            (leaf[floor_rows] == lf).sum())
+    assert bool(((small - exact).abs()
+                 <= (exact / float(np.float32(1e-12))) * quantum / 2
+                 + 8 * U32 * exact).all())
+
+
+# --------------------------------------------------------------------------
+# The histogram plan at the two shapes and at every stat width
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("n_stats", [1, 14, 40, 64])
+@pytest.mark.parametrize("shape", [(54, 325_360, 8), (533, 2808, 4)])
+def test_histogram_plan_fits_the_card(shape, n_stats):
+    n_features, n_rows, depth = shape
+    for d in list(range(depth)) + [8]:
+        n_leaves = 1 << d
+        for n_bins in (64, 1):
+            plan = tuning.hist_plan(n_features, n_rows, n_leaves, n_bins,
+                                    n_stats)
+            segs = n_leaves * n_bins
+            assert plan.smem_bytes <= tuning.SMEM_OPTIN_LIMIT
+            assert plan.block_bytes == plan.feats_per_block * plan.seg_tile \
+                * n_stats * tuning.HIST_CELL_BYTES
+            assert max(plan.n_groups, plan.n_tiles) <= tuning.GRID_DIM_LIMIT
+            assert 1 <= plan.feats_per_block <= \
+                tuning.HIST_MAX_FEATS_PER_BLOCK
+            assert plan.n_groups == -(-n_features // plan.feats_per_block)
+            assert plan.n_tiles * plan.seg_tile >= segs
+            assert (plan.n_tiles - 1) * plan.seg_tile < segs
+            assert plan.row_chunks == 1 or \
+                -(-n_rows // plan.row_chunks) >= tuning.HIST_MIN_CHUNK_ROWS
+            tiles = plan.n_groups * plan.n_tiles
+            # chunks fill one wave, or balance a feature's several tiles
+            limit = tuning.SM_COUNT if plan.n_tiles == 1 else \
+                tuning.HIST_BALANCE_WAVES * tuning.SM_COUNT
+            assert plan.row_chunks == 1 or (plan.row_chunks - 1) * tiles \
+                < limit
+
+
+def test_histogram_plan_is_the_documented_one():
+    def grid(*args):
+        plans = [tuning.hist_plan(*args[:2], 1 << d, 64, args[3])
+                 for d in range(args[2])]
+        return ([p.feats_per_block for p in plans],
+                [p.n_tiles for p in plans], [p.row_chunks for p in plans])
+    assert grid(54, 325_360, 8, 14) == ([8, 8, 8, 8, 7, 8, 8, 8],
+                                        [1, 1, 1, 2, 4, 8, 16, 37],
+                                        [18, 18, 18, 38, 33, 19, 10, 5])
+    assert grid(533, 2808, 4, 40) == ([5, 5, 8, 8], [1, 1, 3, 7],
+                                      [1, 1, 1, 1])
+    assert all(tuning.hist_plan(533, 2808, 1 << d, 64, 40).direct
+               for d in range(4))
+
+
+# --------------------------------------------------------------------------
+# Binarize: the CUDA kernel's search over sorted border columns
+# --------------------------------------------------------------------------
+def _search_bins(x, borders):
+    """csrc/binarize.cu on sorted columns, vectorized: the number of
+    borders `< x` found by a binary search over each column (steps of the
+    largest power of two <= B, halving), NaN included."""
+    nb = borders.shape[0]
+    pos = torch.zeros(x.shape, dtype=torch.int64)
+    cols = torch.arange(x.shape[1])[None, :].expand_as(x)
+    step = 1 << (nb.bit_length() - 1) if nb else 0
+    while step:
+        nxt = pos + step
+        probe = borders[(nxt - 1).clamp(max=nb - 1), cols]
+        pos = torch.where((nxt <= nb) & (probe < x), nxt, pos)
+        step >>= 1
+    return pos.to(torch.int32)
+
+
+def _is_sorted(borders):
+    return bool((borders[:-1] <= borders[1:]).all()) if len(borders) else True
+
+
+VALUES = [-np.inf, -2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0, np.inf]
+hypothesis = pytest.importorskip("hypothesis")
+from hypothesis import given, settings  # noqa: E402
+import hypothesis.strategies as st  # noqa: E402
+
+
+@st.composite
+def _tables(draw):
+    """(x, sorted borders): columns of duplicate-prone values drawn from
+    VALUES and the normal, each padded with +inf; x drawn from the same
+    values, NaN and the borders themselves."""
+    n_feat = draw(st.integers(1, 4))
+    n_real = draw(st.integers(0, 10))
+    pad = draw(st.integers(0, 3))
+    value = st.one_of(st.sampled_from(VALUES),
+                      st.floats(-3, 3, width=32))
+    cols = []
+    for _ in range(n_feat):
+        col = sorted(draw(st.lists(value, min_size=n_real,
+                                   max_size=n_real)))
+        cols.append(col + [np.inf] * pad)
+    borders = np.array(cols, np.float32).T.reshape(n_real + pad, n_feat)
+    pool = VALUES + [np.nan] + [float(v) for v in borders.ravel()]
+    n_rows = draw(st.integers(1, 6))
+    x = np.array(draw(st.lists(st.sampled_from(pool) | value,
+                               min_size=n_rows * n_feat,
+                               max_size=n_rows * n_feat)),
+                 np.float32).reshape(n_rows, n_feat)
+    return torch.from_numpy(x), torch.from_numpy(borders)
+
+
+@settings(max_examples=150, deadline=None)
+@given(_tables())
+def test_search_over_sorted_columns_equals_the_count(table):
+    x, borders = table
+    assert all(_is_sorted(borders[:, f]) for f in range(borders.shape[1]))
+    assert torch.equal(_search_bins(x, borders), ref.binarize(x, borders))
+
+
+def test_search_edge_values():
+    borders = torch.tensor([[-1.0, 0.0], [0.0, 0.0], [0.0, 1.0],
+                            [2.0, np.inf], [np.inf, np.inf]])
+    x = torch.tensor([[np.nan, np.nan], [-np.inf, -np.inf],
+                      [np.inf, np.inf], [0.0, 0.0], [-1.0, 1.0],
+                      [0.5, 0.5], [2.0, 2.0]])
+    want = torch.tensor([[0, 0], [0, 0], [4, 3], [1, 0], [0, 2], [3, 2],
+                         [3, 3]], dtype=torch.int32)
+    assert torch.equal(ref.binarize(x, borders), want)
+    assert torch.equal(_search_bins(x, borders), want)
+
+
+def test_unsorted_column_is_still_counted():
+    # the search would miscount a shuffled column; the plain version (and
+    # the kernel's compare loop for such a column) count every border
+    borders = torch.tensor([[2.0], [-1.0], [0.5], [1.0], [-2.0]])
+    x = torch.tensor([[0.75], [1.5], [-1.5], [np.nan], [3.0]])
+    want = (x[:, None, :] > borders[None]).sum(1).to(torch.int32)
+    assert torch.equal(ref.binarize(x, borders), want)
+    assert torch.equal(want[:, 0], torch.tensor([3, 4, 1, 0, 5],
+                                                dtype=torch.int32))
+    assert not _is_sorted(borders[:, 0])
+    assert not torch.equal(_search_bins(x, borders), want)
+
+
+def test_binarize_wrapper_passes_any_border_count(monkeypatch):
+    # a table past a block's shared memory goes to the kernel too (read
+    # from global memory there), not to a refusal
+    launched = []
+    monkeypatch.setattr(_build, "check_cuda_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, device, *a: launched.append((name, a)))
+    monkeypatch.setattr(binarize_k.binarize, "launches", 0)
+    x = torch.zeros((2, 3), device="meta")
+    out = binarize_k.binarize(x, torch.zeros((60_000, 3), device="meta"))
+    assert out.shape == (2, 3) and out.dtype == torch.int32
+    assert [(n, a[3:]) for n, a in launched] == [
+        ("repro_binarize", (2, 3, 60_000, 0))]
+    assert binarize_k.binarize.launches == 1
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the binarize and histogram kernels "
+                    "have no CPU mode (chip_smoke.py holds them on the H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_on_the_card(card):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1000, 6)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    borders = np.sort(rng.normal(size=(9, 6)), 0).astype(np.float32)
+    borders[-2:, 1] = np.inf
+    borders[3, 2] = borders[2, 2]                  # a duplicate border
+    borders[:, 3] = rng.permutation(borders[:, 3])  # an unsorted column
+    x[:9, 2] = borders[:, 2]                       # values equal to borders
+    xt, bt = torch.from_numpy(x), torch.from_numpy(borders)
+    # the whole table, a slice one row in (unaligned, 5,994 elements: a
+    # tail after the 4-element steps), and a table past shared memory
+    wide = torch.from_numpy(np.sort(rng.normal(size=(300, 900)), 0)
+                            .astype(np.float32))
+    cases = [(xt, bt), (xt[1:], bt), (xt[:5].repeat(1, 150), wide)]
+    for dtype, plain in ((torch.uint8, ref.binarize_u8),
+                         (torch.int32, ref.binarize)):
+        for xc, bc in cases:
+            if dtype == torch.uint8 and bc.shape[0] > ref.MAX_U8_BORDERS:
+                continue
+            got = binarize_k.binarize(xc.to(card), bc.to(card),
+                                      out_dtype=dtype)
+            assert torch.equal(got.cpu(), plain(xc, bc))
+    bins_t, leaf, g = _fixed_inputs(n=5000)
+    args = [torch.from_numpy(a).to(card) for a in (bins_t, leaf, g)]
+    got = hist_k.histogram(*args, n_bins=5, n_leaves=4)
+    assert torch.equal(got.cpu(), _fixed(bins_t, leaf, g, n_bins=5,
+                                         n_leaves=4))
