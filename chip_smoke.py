@@ -26,7 +26,11 @@ to 0 before each path and read after it:
     splits with the `l2sq_matrix` kernel, of the test split again with one
     `l2sq_rowwise` launch a query, a 1,000-tree MultiClass head (depth 4,
     lr 0.05) trained on the 533 augmented columns with `boosting.fit`, and
-    `EmbeddingGBDTPipeline.predict` on the test split: accuracy and rows/s.
+    `EmbeddingGBDTPipeline.predict` on the test split: accuracy and rows/s;
+  * then the caps phase: the shapes the kernels once refused (33
+    outputs, rows past the old 48 KB bins tiles and past the opt-in limit,
+    66 histogram stats), numpy-seeded random models, against the plain
+    versions.
 
 It checks:
 
@@ -65,14 +69,26 @@ It checks:
     trees' splits, and the histogram at 533 features x 40 stats for depths
     0-3; the fused kernel at C = 20 and F = 533 within `sum_limit`; the
     pipeline's class ids equal to a CPU pipeline's on 1,024 test rows
-    where the rows bin alike and the margin is clear.
+    where the rows bin alike and the margin is clear;
+  * leaf_gather's staged and direct routes, at every row count above and
+    at C = 33, equal the tree-order float32 sum bit for bit (and the fused
+    kernels equal it at C = 33);
+  * caps: at C = 33 the fused, pool and staged routes of every layout
+    give the same bits, depth_major = soa, bitpacked = depth_grouped and
+    one-group bitpacked fused = soa fused; every index kernel equals its
+    plain version exactly and every fused kernel lies within `sum_limit`
+    of its own, uint8 and int32 bins and planes, one feature past each
+    old cap and past the opt-in limit (both routes exercised); the
+    histogram at 66 stats (two launches, depths 0 and 3, uint8 and int32
+    bins, 20,000 and 17 rows) equals `ref.histogram_fixed` bit for bit.
 
 Then it times each kernel beside its plain version, one PyTorch library
 call where one computes the same function, and the least time the card
 could take (`bound_ms`): the serving kernels at the bulk shape and the
 1,024-row bucket, the histogram at each level, the distance kernels at the
 test split's shape (the matrix also at 4,096 x 22,464; TF32 off for its
-`addmm` yardstick); profiles 10 training trees;
+`addmm` yardstick), leaf_gather on both of its routes at both shapes;
+profiles 10 training trees;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
 JSON, the serving and training JSON and the result line.  Any failed
@@ -313,6 +329,15 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
               f"{n} rows")
         want = ref.leaf_gather(want_idx, lv)
         limit = sum_limit(want_idx, lv)
+        # both of leaf_gather's routes, whichever the plan picks here, are
+        # the tree-order sum bit for bit
+        exact = tree_order_sum(want_idx, lv)
+        for staged in (True, False):
+            check(torch.equal(leaf_gather(want_idx, lv, staged=staged),
+                              exact),
+                  f"leaf_gather ({'staged' if staged else 'direct'}) at {n} "
+                  "rows is not the tree-order sum")
+        del exact
         got = {"leaf_gather": leaf_gather(want_idx, lv),
                "fused_predict": fused_predict(xn, borders, sf, sb, lv)}
         plain = {"leaf_gather": want,
@@ -422,6 +447,18 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
             "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
             **({"odd_tables": odd_tables} if name == "binarize" else {}),
         })
+    # leaf_gather's two routes at both shapes, and the one its plan picks
+    from repro_torch.kernels.tuning import gather_plan
+    gather = next(row for row in rows if row["name"] == "leaf_gather")
+    for label, n in (("bulk", len(x)), ("bucket", MAX_BATCH)):
+        ixn = idx[:n]
+        gather[f"{label}_route"] = ("staged" if gather_plan(
+            n, t, n_leaves, c).staged else "direct")
+        for route in ("staged", "direct"):
+            gather[f"{label}_{route}_ms"] = time_ms(
+                lambda ixn=ixn, r=route: leaf_gather(ixn, lv,
+                                                     staged=r == "staged"),
+                20 if label == "bulk" else 50, flush)
 
     # --- the tree axis padded to a multiple of TREE_TILE (always-left,
     # zero-leaf trees) against the plan's unpadded arrays, on the three
@@ -1513,6 +1550,255 @@ def knn_phases(run, data):
                 "final_train_loss")}}
 
 
+# --------------------------------------------------------------------------
+# The former caps: 33 outputs, rows past the old shared tiles, 66 stats
+# --------------------------------------------------------------------------
+CAPS_OUTPUTS = 33
+CAPS_ROWS = (2048, 17)             # whole and partial blocks
+CAPS_WIDE_ROWS = (1024, 17)
+# (features, borders): one feature past each kernel's old cap with uint8
+# bins (63 borders) and int32 bins (300), and rows past the opt-in limit
+# (the global route of every index and fused kernel)
+CAPS_FEATURES = ((1005, 63), (1021, 63), (1533, 63), (6145, 63),
+                 (252, 300), (256, 300), (384, 300), (1537, 300),
+                 (30_000, 63), (7_500, 300))
+CAPS_STATS = 66
+
+
+def random_ensemble(n_trees, depth, n_features, n_borders, n_outputs,
+                    seed, n_rows):
+    """A numpy-seeded ensemble on the card and `n_rows` rows of x (5% NaN)
+    for it."""
+    import torch
+    from repro_torch import convert
+    rng = np.random.default_rng(seed)
+    ens = convert.ensemble_from_numpy({
+        "split_features": rng.integers(0, n_features, (n_trees, depth))
+        .astype(np.int32),
+        "split_bins": rng.integers(1, n_borders + 1, (n_trees, depth))
+        .astype(np.int32),
+        "leaf_values": (0.1 * rng.normal(size=(n_trees, 1 << depth,
+                                               n_outputs))).astype(np.float32),
+        "borders": np.sort(rng.normal(size=(n_borders, n_features)), 0)
+        .astype(np.float32),
+        "n_borders": np.full((n_features,), n_borders, np.int32),
+        "base_score": rng.normal(scale=0.1, size=(n_outputs,))
+        .astype(np.float32)})
+    x = rng.normal(size=(n_rows, n_features)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    return ens.to("cuda"), torch.as_tensor(x, device="cuda")
+
+
+def tree_order_sum(idx, leaf_values):
+    """sum_t leaf_values[t, idx[:, t]] in tree order, one float32 add a
+    tree from 0: the order of every gather and fused kernel."""
+    import torch
+    acc = torch.zeros((idx.shape[0], leaf_values.shape[2]),
+                      device=idx.device)
+    for t in range(idx.shape[1]):
+        acc += leaf_values[t][idx[:, t].long()]
+    return acc
+
+
+def check_caps() -> dict:
+    """The shapes the kernels once refused, each against its plain
+    version: C = 33 on every route and layout (fused = pool = staged,
+    depth_major = soa, bitpacked = depth_grouped, one-group bitpacked
+    fused = soa fused, bit for bit), leaf_gather's staged and direct
+    routes bit for bit against the tree-order sum; every index and fused
+    kernel one feature past its old cap and past the opt-in limit, uint8
+    and int32 bins and planes; the histogram at 66 stats (two launches)
+    bit for bit against `ref.histogram_fixed`.  Returns what was run."""
+    import torch
+    from repro_torch.core import layout as tlayout
+    from repro_torch.core.predictor import Predictor
+    from repro_torch.core.trees import truncate_tree_depths
+    from repro_torch.kernels import ref, tuning
+    from repro_torch.kernels.fused_predict import (fused_predict,
+                                                   fused_predict_bp,
+                                                   fused_predict_dm)
+    from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.leaf_gather import leaf_gather
+    from repro_torch.kernels.leaf_index import (leaf_index, leaf_index_bp,
+                                                leaf_index_dm)
+    out = {"outputs": CAPS_OUTPUTS, "rows": list(CAPS_ROWS)}
+    worst = {}
+
+    def held(name, got, want, limit):
+        err, share = compare_sums(name, got, want, limit)
+        key = name.split(" ")[0]
+        worst[key] = max(worst.get(key, 0.0), share)
+
+    # --- C = 33: every route and layout, then the kernels
+    full, x = random_ensemble(64, 6, 54, 63, CAPS_OUTPUTS, SEED + 33,
+                              max(CAPS_ROWS))
+    rng = np.random.default_rng(SEED + 33)
+    mixed = truncate_tree_depths(full.to("cpu"), rng.integers(
+        0, 7, full.n_trees)).to("cuda")
+    raw = {}
+    for model_name, model in (("mixed", mixed), ("full", full)):
+        for layout in ("soa", "depth_major", "depth_grouped", "bitpacked"):
+            fused = Predictor.build(model, device="cuda", strategy="fused",
+                                    layout=layout)
+            staged = Predictor.build(model, device="cuda", strategy="staged",
+                                     layout=layout)
+            routes = {"fused": fused.raw(x),
+                      "pool": fused.raw(fused.quantize(x)),
+                      "staged": staged.raw(x)}
+            for route in ("pool", "staged"):
+                check(torch.equal(routes[route], routes["fused"]),
+                      f"C = {CAPS_OUTPUTS}, {model_name} model, {layout}: "
+                      f"{route} scores differ from fused")
+            raw[model_name, layout] = routes["fused"]
+        for a, b in (("depth_major", "soa"), ("bitpacked", "depth_grouped")):
+            check(torch.equal(raw[model_name, a], raw[model_name, b]),
+                  f"C = {CAPS_OUTPUTS}, {model_name} model: {a} scores "
+                  f"differ from {b}'s")
+    check(torch.equal(raw["full", "bitpacked"], raw["full", "soa"]),
+          f"C = {CAPS_OUTPUTS}: one-group bitpacked fused differs from soa")
+    out["groups"] = len(tlayout.lower(mixed, "depth_grouped").groups)
+    check(out["groups"] > 1, "the truncated C = 33 model has one group")
+
+    soa = tlayout.lower(full, "soa")
+    dm = tlayout.lower(full, "depth_major")
+    (bp,) = tlayout.lower(full, "bitpacked").groups
+    sf, sb, lv, borders = (soa.split_features, soa.split_bins,
+                           soa.leaf_values, soa.borders)
+    dm_planes = (dm.split_features_dm, dm.split_bins_dm, dm.pow2)
+    for n in CAPS_ROWS:
+        xn = x[:n]
+        idx = ref.leaf_index(ref.binarize(xn, borders), sf, sb)
+        exact = tree_order_sum(idx, lv)
+        limit = sum_limit(idx, lv)
+        for staged in (True, False):
+            got = leaf_gather(idx, lv, staged=staged)
+            check(torch.equal(got, exact),
+                  f"leaf_gather ({'staged' if staged else 'direct'}) at "
+                  f"C = {CAPS_OUTPUTS}, {n} rows is not the tree-order sum")
+            held(f"leaf_gather at C = {CAPS_OUTPUTS}, {n} rows", got,
+                 ref.leaf_gather(idx, lv), limit)
+        for name, got, want in (
+                ("fused_predict", fused_predict(xn, borders, sf, sb, lv),
+                 ref.fused_predict(xn, borders, sf, sb, lv)),
+                ("fused_predict_dm",
+                 fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values),
+                 ref.fused_predict_depth_major(xn, borders, *dm_planes,
+                                               dm.leaf_values)),
+                *((f"fused_predict_bp ({str(p.dtype)[6:]} planes)",
+                   fused_predict_bp(xn, borders, bp.split_features_bp, p,
+                                    bp.leaf_values),
+                   ref.fused_predict_bitpacked(xn, borders,
+                                               bp.split_features_bp, p,
+                                               bp.leaf_values))
+                  for p in (bp.split_bins_bp, bp.split_bins_bp.int()))):
+            check(torch.equal(got, exact),
+                  f"{name} at C = {CAPS_OUTPUTS}, {n} rows is not the "
+                  "tree-order sum")
+            held(f"{name} at C = {CAPS_OUTPUTS}, {n} rows", got, want, limit)
+
+    # --- rows past each old cap and past the opt-in limit
+    cases = []
+    for n_features, n_borders in CAPS_FEATURES:
+        ens, x = random_ensemble(48, 8, n_features, n_borders, 3,
+                                 SEED + n_features, max(CAPS_WIDE_ROWS))
+        soa = tlayout.lower(ens, "soa")
+        dm = tlayout.lower(ens, "depth_major")
+        (bp,) = tlayout.lower(ens, "bitpacked").groups
+        borders, lv = soa.borders, soa.leaf_values
+        dm_planes = (dm.split_features_dm, dm.split_bins_dm, dm.pow2)
+        u8 = n_borders <= ref.MAX_U8_BORDERS
+        bin_bytes = 1 if u8 else 4
+        for n in CAPS_WIDE_ROWS:
+            xn = x[:n]
+            what = f"{n_features} features, {n_borders} borders, {n} rows"
+            bins = ref.binarize(xn, borders)
+            if u8:
+                bins = bins.to(torch.uint8)
+            idx = ref.leaf_index(bins, soa.split_features, soa.split_bins)
+            check(torch.equal(leaf_index(bins, soa.split_features,
+                                         soa.split_bins), idx),
+                  f"leaf_index differs from its plain version at {what}")
+            check(torch.equal(leaf_index_dm(bins, *dm_planes),
+                              ref.leaf_index_depth_major(bins, *dm_planes)),
+                  f"leaf_index_dm differs from its plain version at {what}")
+            planes = [bp.split_bins_bp, bp.split_bins_bp.int()]
+            for p in planes:
+                check(torch.equal(
+                    leaf_index_bp(bins, bp.split_features_bp, p),
+                    ref.leaf_index_bitpacked(bins, bp.split_features_bp, p)),
+                    f"leaf_index_bp ({str(p.dtype)[6:]} planes) differs "
+                    f"from its plain version at {what}")
+            limit = sum_limit(idx, lv)
+            held(f"fused_predict at {what}",
+                 fused_predict(xn, borders, soa.split_features,
+                               soa.split_bins, lv),
+                 ref.fused_predict(xn, borders, soa.split_features,
+                                   soa.split_bins, lv), limit)
+            held(f"fused_predict_dm at {what}",
+                 fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values),
+                 ref.fused_predict_depth_major(xn, borders, *dm_planes,
+                                               dm.leaf_values), limit)
+            for p in planes:
+                held(f"fused_predict_bp at {what}",
+                     fused_predict_bp(xn, borders, bp.split_features_bp, p,
+                                      bp.leaf_values),
+                     ref.fused_predict_bitpacked(
+                         xn, borders, bp.split_features_bp, p,
+                         bp.leaf_values), limit)
+            del bins, idx, limit
+        cases.append({
+            "features": n_features, "borders": n_borders,
+            "routes": {
+                "leaf_index": tuning.tile_rows(n_features, bin_bytes).route,
+                "leaf_index_bp": tuning.bp_plan(
+                    max(CAPS_WIDE_ROWS), 48, 8, n_features,
+                    bin_bytes).tile.route,
+                "fused_predict": tuning.tile_shape(n_features, u8).route,
+                "fused_planes": tuning.tile_shape(n_features, u8,
+                                                  planes=True).route}})
+        del ens, x, soa, dm, bp
+        torch.cuda.empty_cache()
+    out["features"] = cases
+    check({r for c in cases for r in c["routes"].values()}
+          == {"shared", "global"}, "the feature cases miss a route")
+
+    # --- the histogram past 64 stats: one launch a stat group
+    rng = np.random.default_rng(SEED + CAPS_STATS)
+    n, n_feat = 20_000, 54
+    bins_t = rng.integers(0, 64, (n_feat, n)).astype(np.uint8)
+    bins_t[:, rng.random(n) < 0.4] = 0          # a crowded bin
+    gh = (rng.normal(size=(n, CAPS_STATS))
+          * np.logspace(-3, 2, CAPS_STATS)).astype(np.float32)
+    bins_t = torch.as_tensor(bins_t, device="cuda")
+    gh = torch.as_tensor(gh, device="cuda")
+    hist_cases = []
+    for depth in (0, 3):
+        leaf = torch.as_tensor(rng.integers(0, 1 << depth, n)
+                               .astype(np.int32), device="cuda")
+        for rows in (n, 17):
+            for bt in (bins_t, bins_t.int()):
+                bt_n = bt[:, :rows].contiguous()
+                kw = dict(n_bins=64, n_leaves=1 << depth)
+                before = histogram.launches
+                got = histogram(bt_n, leaf[:rows], gh[:rows].contiguous(),
+                                **kw)
+                check(histogram.launches - before
+                      == len(tuning.stat_groups(CAPS_STATS)),
+                      "the histogram did not launch once a stat group")
+                check(torch.equal(got, ref.histogram_fixed(
+                    bt_n, leaf[:rows], gh[:rows].contiguous(), **kw)),
+                      f"histogram at {CAPS_STATS} stats, depth {depth}, "
+                      f"{rows} rows, {bt.dtype} bins differs from the plain "
+                      "fixed-point version")
+                hist_cases.append(f"d={depth} rows={rows} {bt.dtype}")
+    out["histogram"] = {"stats": CAPS_STATS,
+                        "groups": tuning.stat_groups(CAPS_STATS),
+                        "cases": hist_cases, "fixed_point_identical": True}
+    out["err_over_limit"] = worst
+    torch.cuda.synchronize()
+    return out
+
+
 # The kernels each serving path launches, and no others.
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
@@ -1788,6 +2074,12 @@ def main() -> None:
         "knn_shape"] = knn_checks["path"]["binarize"]
     torch.cuda.synchronize()
 
+    # --- the former caps: 33 outputs, wide rows, 66 stats
+    t0 = time.perf_counter()
+    caps = check_caps()
+    caps["seconds"] = time.perf_counter() - t0
+    print(f"caps: {json.dumps(caps)}", flush=True)
+
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
         "layouts_vs_soa": layout_err,
@@ -1798,7 +2090,7 @@ def main() -> None:
                            "per cell from the f64 plain version; plus "
                            "1.05*(n+1)*u*sum|gh| from the f32 one",
         "tolerance_control": control, "tree_padding": tree_padding,
-        "training": training_checks, "knn": knn_checks,
+        "training": training_checks, "knn": knn_checks, "caps": caps,
         "distance_limit": f"matrix {K_SIGMA:g}*sqrt(K)*u*(|a|^2 + |b|^2 + "
                           f"2*sum|a_k*b_k|), rowwise {K_SIGMA:g}*sqrt(K)*u*"
                           "sum(r_k - q_k)^2 per distance"}}))

@@ -40,21 +40,13 @@ _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Every launcher ends with (device index, stream).
 _SIGNATURES = {
     "repro_binarize": (_PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT),
-    "repro_leaf_index": (_PTR, _PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT,
-                         _INT, _INT),
-    "repro_leaf_gather": (_PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT),
-    "repro_fused_predict": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
-                            _INT, _INT, _INT, _INT, _INT, _INT, _INT),
-    "repro_leaf_index_dm": (_PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT, _INT,
-                            _INT, _INT, _INT),
-    "repro_leaf_index_bp": (_PTR, _PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT,
-                            _INT, _INT, _INT, _INT),
-    "repro_fused_predict_dm": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
-                               _LONG, _INT, _INT, _INT, _INT, _INT, _INT,
-                               _INT, _INT),
-    "repro_fused_predict_bp": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG,
-                               _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                               _INT, _INT),
+    "repro_leaf_index": (_PTR,) * 4 + (_LONG,) + (_INT,) * 6,
+    "repro_leaf_gather": (_PTR,) * 3 + (_LONG,) + (_INT,) * 10,
+    "repro_fused_predict": (_PTR,) * 7 + (_LONG,) + (_INT,) * 9,
+    "repro_leaf_index_dm": (_PTR,) * 5 + (_LONG,) + (_INT,) * 6,
+    "repro_leaf_index_bp": (_PTR,) * 4 + (_LONG,) + (_INT,) * 9,
+    "repro_fused_predict_dm": (_PTR,) * 8 + (_LONG,) + (_INT,) * 9,
+    "repro_fused_predict_bp": (_PTR,) * 7 + (_LONG,) + (_INT,) * 10,
     "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
                         _INT, _INT, _INT, _INT, _INT, _INT, _INT),
     "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG, _INT, _INT),

@@ -20,3 +20,15 @@ constexpr int kMaxDepth = 16;
 inline cudaError_t select_device(int device) { return cudaSetDevice(device); }
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// A block gets 48 KB of shared memory unless its kernel opts in to more
+// (up to the device's opt-in limit, 227 KB on an H100).  `bytes` is the
+// block's dynamic plus static shared memory, `dynamic` its dynamic part.
+template <typename Kernel>
+inline cudaError_t allow_shared_memory(Kernel kernel, size_t bytes,
+                                       size_t dynamic) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(dynamic));
+}

@@ -24,26 +24,38 @@
 //     rows a warp reads at one feature fall in 32 distinct banks;
 //   * split features and bins are the same for every thread of a warp
 //     (one broadcast __ldg each, L1-resident); the leaf table stays in L2.
+//
+// Any C and any F (kernels/tuning.py tile_shape, output_slabs): a block
+// walks its rows' outputs in slabs of at most 32, every slab summed over
+// the trees in tree order (the leaf index recomputed a slab, from the
+// bins staged once), so every (row, output) is one add a tree in tree
+// order at any C.  A bins tile past the default 48 KB opts in to up to
+// the 227 KB limit; rows too wide for 32 of them there go through an
+// (N, F) scratch array in global memory that stage 1 writes and stage 2
+// reads (kStaged false).  That is the simpler of the two global routes:
+// binarizing a split's feature from x where a split needs it would put
+// B border compares (or a search) inside the tree loop.
 #include "common.cuh"
 
 namespace {
 
-template <typename BinT, int MaxC>
+template <typename BinT, int MaxC, bool kStaged>
 __global__ void fused_predict_kernel(
     const float* __restrict__ x, const float* __restrict__ borders,
     const int32_t* __restrict__ sf, const int32_t* __restrict__ sb,
-    const float* __restrict__ lv, float* __restrict__ out, long long n_rows,
-    int n_feat, int n_borders, int n_trees, int depth, int n_out,
-    int stride) {
+    const float* __restrict__ lv, float* __restrict__ out,
+    BinT* __restrict__ scratch, long long n_rows, int n_feat, int n_borders,
+    int n_trees, int depth, int n_out, int stride, int slab) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BinT* tile = reinterpret_cast<BinT*>(smem_raw);
   const int rows_per_block = blockDim.x;
   const long long row0 =
       static_cast<long long>(blockIdx.x) * rows_per_block;
+  BinT* tile = kStaged ? reinterpret_cast<BinT*>(smem_raw)
+                       : scratch + row0 * stride;
   const int rows = static_cast<int>(
       min(static_cast<long long>(rows_per_block), n_rows - row0));
 
-  // Stage 1: binarize the block's rows of x into the shared bins tile.
+  // Stage 1: binarize the block's rows of x into the bins tile.
   const float* xsrc = x + row0 * n_feat;
   for (int i = threadIdx.x; i < rows * n_feat; i += rows_per_block) {
     const int r = i / n_feat;
@@ -53,74 +65,101 @@ __global__ void fused_predict_kernel(
     for (int b = 0; b < n_borders; ++b) {
       count += v > __ldg(borders + static_cast<long long>(b) * n_feat + f);
     }
-    tile[r * stride + f] = static_cast<BinT>(count);
+    tile[static_cast<long long>(r) * stride + f] = static_cast<BinT>(count);
   }
   __syncthreads();
 
-  // Stage 2: every tree for this thread's row, index then gather.
+  // Stage 2: every tree for this thread's row, index then gather, a slab
+  // of outputs at a time.
   const int r = threadIdx.x;
   if (r >= rows) return;
-  const BinT* row = tile + r * stride;
+  const BinT* row = tile + static_cast<long long>(r) * stride;
   const int n_leaves = 1 << depth;
-  float acc[MaxC];
+  for (int c0 = 0; c0 < n_out; c0 += slab) {
+    const int nc = min(slab, n_out - c0);
+    float acc[MaxC];
 #pragma unroll
-  for (int c = 0; c < MaxC; ++c) acc[c] = 0.0f;
-  for (int t = 0; t < n_trees; ++t) {
-    const int32_t* tsf = sf + static_cast<long long>(t) * depth;
-    const int32_t* tsb = sb + static_cast<long long>(t) * depth;
-    int idx = 0;
-    for (int d = 0; d < depth; ++d) {
-      // int32 compare: the 2^30 PAD_SPLIT_BIN never goes right
-      idx |= (static_cast<int>(row[__ldg(tsf + d)]) >= __ldg(tsb + d)) << d;
+    for (int c = 0; c < MaxC; ++c) acc[c] = 0.0f;
+    for (int t = 0; t < n_trees; ++t) {
+      const int32_t* tsf = sf + static_cast<long long>(t) * depth;
+      const int32_t* tsb = sb + static_cast<long long>(t) * depth;
+      int idx = 0;
+      for (int d = 0; d < depth; ++d) {
+        // int32 compare: the 2^30 PAD_SPLIT_BIN never goes right
+        idx |= (static_cast<int>(row[__ldg(tsf + d)]) >= __ldg(tsb + d))
+               << d;
+      }
+      const float* leaf =
+          lv + (static_cast<long long>(t) * n_leaves + idx) * n_out + c0;
+#pragma unroll
+      for (int c = 0; c < MaxC; ++c) {
+        if (c < nc) acc[c] += __ldg(leaf + c);
+      }
     }
-    const float* leaf =
-        lv + (static_cast<long long>(t) * n_leaves + idx) * n_out;
 #pragma unroll
     for (int c = 0; c < MaxC; ++c) {
-      if (c < n_out) acc[c] += __ldg(leaf + c);
+      if (c < nc) out[(row0 + r) * n_out + c0 + c] = acc[c];
     }
-  }
-#pragma unroll
-  for (int c = 0; c < MaxC; ++c) {
-    if (c < n_out) out[(row0 + r) * n_out + c] = acc[c];
   }
 }
 
+template <typename BinT, int MaxC>
+int launch_tile(dim3 grid, int rows_per_block, size_t smem, cudaStream_t s,
+                const float* x, const float* borders, const int32_t* sf,
+                const int32_t* sb, const float* lv, float* out,
+                BinT* scratch, long long n_rows, int n_feat, int n_borders,
+                int n_trees, int depth, int n_out, int stride, int slab) {
+  auto kernel = scratch != nullptr ? fused_predict_kernel<BinT, MaxC, false>
+                                   : fused_predict_kernel<BinT, MaxC, true>;
+  const cudaError_t err = allow_shared_memory(kernel, smem, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, rows_per_block, smem, s>>>(
+      x, borders, sf, sb, lv, out, scratch, n_rows, n_feat, n_borders,
+      n_trees, depth, n_out, stride, slab);
+  return launch_status();
+}
+
 template <typename BinT>
-void launch(dim3 grid, int rows_per_block, size_t smem, cudaStream_t s,
-            const float* x, const float* borders, const int32_t* sf,
-            const int32_t* sb, const float* lv, float* out, long long n_rows,
-            int n_feat, int n_borders, int n_trees, int depth, int n_out,
-            int stride) {
-  if (n_out <= 8) {
-    fused_predict_kernel<BinT, 8><<<grid, rows_per_block, smem, s>>>(
-        x, borders, sf, sb, lv, out, n_rows, n_feat, n_borders, n_trees,
-        depth, n_out, stride);
-  } else {
-    fused_predict_kernel<BinT, 32><<<grid, rows_per_block, smem, s>>>(
-        x, borders, sf, sb, lv, out, n_rows, n_feat, n_borders, n_trees,
-        depth, n_out, stride);
+int launch(dim3 grid, int rows_per_block, cudaStream_t s, const float* x,
+           const float* borders, const int32_t* sf, const int32_t* sb,
+           const float* lv, float* out, void* scratch, long long n_rows,
+           int n_feat, int n_borders, int n_trees, int depth, int n_out,
+           int stride, int slab) {
+  const size_t smem = scratch != nullptr
+      ? 0 : static_cast<size_t>(rows_per_block) * stride * sizeof(BinT);
+  BinT* sp = static_cast<BinT*>(scratch);
+  if (slab <= 8) {
+    return launch_tile<BinT, 8>(grid, rows_per_block, smem, s, x, borders,
+                                sf, sb, lv, out, sp, n_rows, n_feat,
+                                n_borders, n_trees, depth, n_out, stride,
+                                slab);
   }
+  return launch_tile<BinT, 32>(grid, rows_per_block, smem, s, x, borders, sf,
+                               sb, lv, out, sp, n_rows, n_feat, n_borders,
+                               n_trees, depth, n_out, stride, slab);
 }
 
 }  // namespace
 
 // x (n_rows, n_feat) f32; borders (n_borders, n_feat) f32; sf, sb
 // (n_trees, depth) int32 with every sf in [0, n_feat) and depth <=
-// kMaxDepth; lv (n_trees, 2^depth, n_out) f32 with n_out <= 32; out
-// (n_rows, n_out) f32.  The bins tile is uint8 when bins_u8 (the caller
-// guarantees n_borders <= 255) else int32, with `stride` elements a row;
-// rows_per_block * stride * sizeof(bin) fits 48 KB.
+// kMaxDepth; lv (n_trees, 2^depth, n_out) f32; out (n_rows, n_out) f32,
+// summed in slabs of `slab` <= 32 outputs.  The bins are uint8 when
+// bins_u8 (the caller guarantees n_borders <= 255) else int32, with
+// `stride` elements a row: a tile of rows_per_block rows in shared memory
+// (kernels/tuning.py tile_shape), or, when `scratch` is not null, the
+// block's rows of an (n_rows, stride = n_feat) scratch array.
 extern "C" int repro_fused_predict(const void* x, const void* borders,
                                    const void* sf, const void* sb,
-                                   const void* lv, void* out,
+                                   const void* lv, void* out, void* scratch,
                                    long long n_rows, int n_feat,
                                    int n_borders, int n_trees, int depth,
                                    int n_out, int bins_u8, int stride,
-                                   int rows_per_block, int device,
+                                   int rows_per_block, int slab, int device,
                                    void* stream) {
   cudaError_t err = select_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (slab < 1 || slab > 32) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(
       (n_rows + rows_per_block - 1) / rows_per_block));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -131,14 +170,11 @@ extern "C" int repro_fused_predict(const void* x, const void* borders,
   const float* lp = static_cast<const float*>(lv);
   float* op = static_cast<float*>(out);
   if (bins_u8) {
-    const size_t smem = static_cast<size_t>(rows_per_block) * stride;
-    launch<uint8_t>(grid, rows_per_block, smem, s, xp, bp, sfp, sbp, lp, op,
-                    n_rows, n_feat, n_borders, n_trees, depth, n_out, stride);
-  } else {
-    const size_t smem =
-        static_cast<size_t>(rows_per_block) * stride * sizeof(int32_t);
-    launch<int32_t>(grid, rows_per_block, smem, s, xp, bp, sfp, sbp, lp, op,
-                    n_rows, n_feat, n_borders, n_trees, depth, n_out, stride);
+    return launch<uint8_t>(grid, rows_per_block, s, xp, bp, sfp, sbp, lp, op,
+                           scratch, n_rows, n_feat, n_borders, n_trees,
+                           depth, n_out, stride, slab);
   }
-  return launch_status();
+  return launch<int32_t>(grid, rows_per_block, s, xp, bp, sfp, sbp, lp, op,
+                         scratch, n_rows, n_feat, n_borders, n_trees, depth,
+                         n_out, stride, slab);
 }

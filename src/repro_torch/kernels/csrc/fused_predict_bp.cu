@@ -20,22 +20,21 @@
 namespace {
 
 template <typename BinT>
-void launch(unsigned blocks, int rows_per_block, cudaStream_t s,
-            const float* x, const float* borders, const int32_t* sf,
-            const void* sb, int planes_u8, const float* lv, float* out,
-            long long n_rows, int n_feat, int n_borders, int n_trees,
-            int depth, int n_out, int stride) {
+int launch(unsigned blocks, int rows_per_block, cudaStream_t s,
+           const float* x, const float* borders, const int32_t* sf,
+           const void* sb, int planes_u8, const float* lv, float* out,
+           void* scratch, long long n_rows, int n_feat, int n_borders,
+           int n_trees, int depth, int n_out, int stride, int slab) {
   if (planes_u8) {
-    launch_fused_planes<BinT, uint8_t, true>(
+    return launch_fused_planes<BinT, uint8_t, true>(
         blocks, rows_per_block, s, x, borders, sf,
-        static_cast<const uint8_t*>(sb), nullptr, lv, out, n_rows, n_feat,
-        n_borders, n_trees, depth, n_out, stride);
-  } else {
-    launch_fused_planes<BinT, int32_t, true>(
-        blocks, rows_per_block, s, x, borders, sf,
-        static_cast<const int32_t*>(sb), nullptr, lv, out, n_rows, n_feat,
-        n_borders, n_trees, depth, n_out, stride);
+        static_cast<const uint8_t*>(sb), nullptr, lv, out, scratch, n_rows,
+        n_feat, n_borders, n_trees, depth, n_out, stride, slab);
   }
+  return launch_fused_planes<BinT, int32_t, true>(
+      blocks, rows_per_block, s, x, borders, sf,
+      static_cast<const int32_t*>(sb), nullptr, lv, out, scratch, n_rows,
+      n_feat, n_borders, n_trees, depth, n_out, stride, slab);
 }
 
 }  // namespace
@@ -43,20 +42,24 @@ void launch(unsigned blocks, int rows_per_block, cudaStream_t s,
 // x (n_rows, n_feat) f32; borders (n_borders, n_feat) f32; sf_bp (depth,
 // n_trees) int32 with every sf in [0, n_feat) and depth <= kMaxDepth;
 // sb_bp (depth, n_trees) uint8 when planes_u8 else int32; lv (n_trees,
-// 2^depth, n_out) f32 with n_out <= 32; out (n_rows, n_out) f32.  The bins
-// tile is uint8 when bins_u8 (the caller guarantees n_borders <= 255) else
-// int32, with `stride` elements a row; rows_per_block is a multiple of 32
-// (whole warps for the ballots); with the staged planes it fits 48 KB.
+// 2^depth, n_out) f32; out (n_rows, n_out) f32, summed in slabs of `slab`
+// <= 32 outputs.  The bins are uint8 when bins_u8 (the caller guarantees
+// n_borders <= 255) else int32: a tile of rows_per_block rows (a multiple
+// of 32: whole warps for the ballots) of `stride` in shared memory
+// (kernels/tuning.py tile_shape), or, when `scratch` is not null, the
+// block's rows of an (n_rows, n_feat) scratch array.
 extern "C" int repro_fused_predict_bp(const void* x, const void* borders,
                                       const void* sf_bp, const void* sb_bp,
                                       const void* lv, void* out,
-                                      long long n_rows, int n_feat,
-                                      int n_borders, int n_trees, int depth,
-                                      int n_out, int bins_u8, int planes_u8,
-                                      int stride, int rows_per_block,
+                                      void* scratch, long long n_rows,
+                                      int n_feat, int n_borders, int n_trees,
+                                      int depth, int n_out, int bins_u8,
+                                      int planes_u8, int stride,
+                                      int rows_per_block, int slab,
                                       int device, void* stream) {
   cudaError_t err = select_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (slab < 1 || slab > 32) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(
       (n_rows + rows_per_block - 1) / rows_per_block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -66,13 +69,11 @@ extern "C" int repro_fused_predict_bp(const void* x, const void* borders,
   const float* lp = static_cast<const float*>(lv);
   float* op = static_cast<float*>(out);
   if (bins_u8) {
-    launch<uint8_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp, planes_u8,
-                    lp, op, n_rows, n_feat, n_borders, n_trees, depth, n_out,
-                    stride);
-  } else {
-    launch<int32_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp, planes_u8,
-                    lp, op, n_rows, n_feat, n_borders, n_trees, depth, n_out,
-                    stride);
+    return launch<uint8_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp,
+                           planes_u8, lp, op, scratch, n_rows, n_feat,
+                           n_borders, n_trees, depth, n_out, stride, slab);
   }
-  return launch_status();
+  return launch<int32_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp,
+                         planes_u8, lp, op, scratch, n_rows, n_feat,
+                         n_borders, n_trees, depth, n_out, stride, slab);
 }

@@ -77,7 +77,7 @@
 namespace {
 
 constexpr int kHistThreads = 1024;     // threads of an accumulation block
-constexpr int kMaxStats = 64;          // 2C for C <= 32 outputs
+constexpr int kMaxStats = 64;          // a launch's; tuning.stat_groups
 constexpr int kMaxFeatsPerBlock = 8;   // tuning.HIST_MAX_FEATS_PER_BLOCK
 constexpr int kAuxThreads = 256;       // threads of the other kernels
 constexpr int kLoadsAhead = 4;         // steps whose stats load together
@@ -343,7 +343,8 @@ int launch_accumulate(const void* bins_t, const int32_t* leaf,
 }  // namespace
 
 // bins_t (n_features, n_rows) uint8 (bins_u8) or int32; leaf (n_rows,)
-// int32 in [0, n_leaves); gh (n_rows, n_stats) f32, finite, n_stats <= 64;
+// int32 in [0, n_leaves); gh (n_rows, n_stats) f32, finite, n_stats <= 64
+// (kernels/histogram.py launches once a group of at most 64 stats);
 // out (n_features, n_leaves * n_bins, n_stats) f32.  Scratch: max_bits
 // (n_stats,) int32; acc (n_features * n_leaves * n_bins * n_stats,) int64 when
 // row_chunks > 1, else unused.  The tiling (seg_tile segments,

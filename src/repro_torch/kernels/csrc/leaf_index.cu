@@ -13,13 +13,14 @@
 // bins (n_rows, n_feat) uint8 when bins_u8 else int32; sf, sb (n_trees,
 // depth) int32 with every sf in [0, n_feat) and depth <= kMaxDepth;
 // out (n_rows, n_trees) int32.  rows_per_block is a multiple of kRowGroups
-// chosen by the caller so the bins tile fits 48 KB of shared memory.
+// chosen by the caller (kernels/tuning.py tile_rows); the rows are staged
+// in shared memory unless from_global.
 extern "C" int repro_leaf_index(const void* bins, const void* sf,
                                 const void* sb, void* out, long long n_rows,
                                 int n_feat, int n_trees, int depth,
-                                int bins_u8, int rows_per_block, int device,
-                                void* stream) {
+                                int bins_u8, int rows_per_block,
+                                int from_global, int device, void* stream) {
   return launch_leaf_index(bins, sf, sb, nullptr, out, n_rows, n_feat,
-                           n_trees, depth, bins_u8, rows_per_block, depth, 1,
-                           device, stream);
+                           n_trees, depth, bins_u8, rows_per_block,
+                           from_global, depth, 1, device, stream);
 }

@@ -30,7 +30,7 @@ namespace {
 constexpr int kTreeTile = 32;   // trees per block: one warp's lanes
 constexpr int kRowGroups = 8;   // warps per block
 
-template <typename BinT>
+template <typename BinT, bool kStaged>
 __global__ void leaf_index_kernel(const BinT* __restrict__ bins,
                                   const int32_t* __restrict__ sf,
                                   const int32_t* __restrict__ sb,
@@ -40,17 +40,20 @@ __global__ void leaf_index_kernel(const BinT* __restrict__ bins,
                                   int depth, int rows_per_block,
                                   int tree_stride, int level_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BinT* tile = reinterpret_cast<BinT*>(smem_raw);
+  BinT* staged = reinterpret_cast<BinT*>(smem_raw);
   const long long row0 =
       static_cast<long long>(blockIdx.x) * rows_per_block;
   const int rows = static_cast<int>(
       min(static_cast<long long>(rows_per_block), n_rows - row0));
   const int tid = threadIdx.y * kTreeTile + threadIdx.x;
   const BinT* src = bins + row0 * n_feat;
-  for (int i = tid; i < rows * n_feat; i += kTreeTile * kRowGroups) {
-    tile[i] = src[i];
+  if (kStaged) {
+    for (int i = tid; i < rows * n_feat; i += kTreeTile * kRowGroups) {
+      staged[i] = src[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  const BinT* tile = kStaged ? staged : src;
 
   const int t = blockIdx.y * kTreeTile + threadIdx.x;
   if (t >= n_trees) return;
@@ -79,14 +82,33 @@ __global__ void leaf_index_kernel(const BinT* __restrict__ bins,
   }
 }
 
+template <typename BinT>
+int launch_typed(dim3 grid, dim3 block, cudaStream_t s, const BinT* bins,
+                 const int32_t* sf, const int32_t* sb, const float* pow2,
+                 int32_t* out, long long n_rows, int n_feat, int n_trees,
+                 int depth, int rows_per_block, int from_global,
+                 int tree_stride, int level_stride) {
+  const size_t smem = from_global ? 0
+      : static_cast<size_t>(rows_per_block) * n_feat * sizeof(BinT);
+  auto kernel = from_global ? leaf_index_kernel<BinT, false>
+                            : leaf_index_kernel<BinT, true>;
+  const cudaError_t err = allow_shared_memory(kernel, smem, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, block, smem, s>>>(bins, sf, sb, pow2, out, n_rows, n_feat,
+                                   n_trees, depth, rows_per_block,
+                                   tree_stride, level_stride);
+  return launch_status();
+}
+
 // Launch over uint8 (bins_u8) or int32 bins; rows_per_block is a multiple
-// of kRowGroups chosen by the caller so the bins tile fits 48 KB.
+// of kRowGroups chosen by the caller (kernels/tuning.py tile_rows), with
+// the bins tile in shared memory unless from_global.
 inline int launch_leaf_index(const void* bins, const void* sf,
                              const void* sb, const void* pow2, void* out,
                              long long n_rows, int n_feat, int n_trees,
                              int depth, int bins_u8, int rows_per_block,
-                             int tree_stride, int level_stride, int device,
-                             void* stream) {
+                             int from_global, int tree_stride,
+                             int level_stride, int device, void* stream) {
   cudaError_t err = select_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(kTreeTile, kRowGroups);
@@ -99,18 +121,17 @@ inline int launch_leaf_index(const void* bins, const void* sf,
   const float* wp = static_cast<const float*>(pow2);
   int32_t* op = static_cast<int32_t*>(out);
   if (bins_u8) {
-    const size_t smem = static_cast<size_t>(rows_per_block) * n_feat;
-    leaf_index_kernel<uint8_t><<<grid, block, smem, s>>>(
-        static_cast<const uint8_t*>(bins), sfp, sbp, wp, op, n_rows, n_feat,
-        n_trees, depth, rows_per_block, tree_stride, level_stride);
-  } else {
-    const size_t smem =
-        static_cast<size_t>(rows_per_block) * n_feat * sizeof(int32_t);
-    leaf_index_kernel<int32_t><<<grid, block, smem, s>>>(
-        static_cast<const int32_t*>(bins), sfp, sbp, wp, op, n_rows, n_feat,
-        n_trees, depth, rows_per_block, tree_stride, level_stride);
+    return launch_typed<uint8_t>(grid, block, s,
+                                 static_cast<const uint8_t*>(bins), sfp, sbp,
+                                 wp, op, n_rows, n_feat, n_trees, depth,
+                                 rows_per_block, from_global, tree_stride,
+                                 level_stride);
   }
-  return launch_status();
+  return launch_typed<int32_t>(grid, block, s,
+                               static_cast<const int32_t*>(bins), sfp, sbp,
+                               wp, op, n_rows, n_feat, n_trees, depth,
+                               rows_per_block, from_global, tree_stride,
+                               level_stride);
 }
 
 }  // namespace

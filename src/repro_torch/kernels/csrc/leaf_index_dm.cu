@@ -23,15 +23,16 @@
 // bins (n_rows, n_feat) uint8 when bins_u8 else int32; sf_dm, sb_dm
 // (depth, n_trees) int32 with every sf in [0, n_feat) and depth <=
 // kMaxDepth; pow2 (depth, 1) f32; out (n_rows, n_trees) int32.
-// rows_per_block is a multiple of kRowGroups chosen by the caller so the
-// bins tile fits 48 KB of shared memory.
+// rows_per_block is a multiple of kRowGroups chosen by the caller
+// (kernels/tuning.py tile_rows); the rows are staged in shared memory
+// unless from_global.
 extern "C" int repro_leaf_index_dm(const void* bins, const void* sf_dm,
                                    const void* sb_dm, const void* pow2,
                                    void* out, long long n_rows, int n_feat,
                                    int n_trees, int depth, int bins_u8,
-                                   int rows_per_block, int device,
-                                   void* stream) {
+                                   int rows_per_block, int from_global,
+                                   int device, void* stream) {
   return launch_leaf_index(bins, sf_dm, sb_dm, pow2, out, n_rows, n_feat,
-                           n_trees, depth, bins_u8, rows_per_block, 1,
-                           n_trees, device, stream);
+                           n_trees, depth, bins_u8, rows_per_block,
+                           from_global, 1, n_trees, device, stream);
 }

@@ -14,35 +14,35 @@ Three kernels, one for each way a layout holds its splits:
                     `ref.fused_predict_bitpacked`.
 
 All three sum the trees in order, one add per tree, as `leaf_gather`
-does, so every route of one model gives bit-identical scores.
+does, so every route of one model gives bit-identical scores.  They take
+any number of outputs (a block walks its rows' output slabs in turn) and
+any number of features (`tuning.tile_shape`: the bins tile in shared
+memory up to the opt-in limit, an (N, F) scratch array past it).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.leaf_gather import MAX_OUTPUTS
-from repro_torch.kernels.leaf_index import (MAX_DEPTH, TILE_BYTES,
-                                           strided_tile)
-
-# One thread per row: 128 rows (4 warps) a block.  At Covertype's width
-# the uint8 bins tile is 7.5 KB, so 16 blocks (the SM's 2,048 threads)
-# fit one SM's shared memory, and N = 139,440 rows make 1,090 blocks,
-# about 8 for each of the 132 SMs.  Wide rows take fewer, in whole warps.
-ROWS_PER_BLOCK = 128
-# The depth-major and bitpacked kernels stage a chunk of trees' (D, T)
-# planes in 16 KB of static shared memory (csrc/fused_planes.cuh: 2,048
-# entries a plane) beside the level weights, which leaves the bins tile
-# the rest of the 48 KB.
-PLANE_BYTES = 16 * 1024 + 4 * MAX_DEPTH
+from repro_torch.kernels.leaf_index import MAX_DEPTH
+from repro_torch.kernels.tuning import output_slabs, tile_shape
 
 
-def tile_shape(n_features: int, u8: bool,
-               budget: int = TILE_BYTES) -> tuple[int, int]:
-    """(rows a block, row stride in bins) of the shared bins tile: at
-    most `ROWS_PER_BLOCK` rows in whole warps, odd-word row stride
-    (`leaf_index.strided_tile`)."""
-    return strided_tile(n_features, 1 if u8 else 4, budget, ROWS_PER_BLOCK)
+def _launch_args(x: torch.Tensor, n_borders: int, c: int, planes: bool
+                 ) -> tuple:
+    """(bins_u8, stride, rows a block, scratch, slab) of a launch: the
+    tile of `tuning.tile_shape`; on its global route an (N, F) scratch
+    array that stage 1 writes the bins to (None on the shared route);
+    the width of the output slabs the block walks in turn."""
+    n, f = x.shape
+    u8 = n_borders <= ref.MAX_U8_BORDERS
+    plan = tile_shape(f, u8, planes)
+    scratch = None
+    if plan.route == "global":
+        scratch = torch.empty((n, f), device=x.device,
+                              dtype=torch.uint8 if u8 else torch.int32)
+    slab = output_slabs(c)[0]
+    return int(u8), plan.stride, plan.rows, scratch, slab[1] - slab[0]
 
 
 def _check_fused_args(name: str, x, borders, planes, leaf_values,
@@ -62,9 +62,6 @@ def _check_fused_args(name: str, x, borders, planes, leaf_values,
         raise ValueError(f"{name} takes depth <= {MAX_DEPTH} with 2^depth "
                          f"leaves, got depth {depth} and "
                          f"{leaf_values.shape[1]} leaves")
-    if leaf_values.shape[2] > MAX_OUTPUTS:
-        raise ValueError(f"{name} takes <= {MAX_OUTPUTS} outputs, got "
-                         f"{leaf_values.shape[2]}")
 
 
 def fused_predict(x: torch.Tensor, borders: torch.Tensor,
@@ -93,11 +90,11 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     c = leaf_values.shape[2]
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
-        u8 = n_borders <= ref.MAX_U8_BORDERS
-        rows, stride = tile_shape(f, u8)
+        u8, stride, rows, scratch, slab = _launch_args(x, n_borders, c,
+                                                       False)
         _build.launch("repro_fused_predict", x.device, x, borders,
-                      split_features, split_bins, leaf_values, out, n, f,
-                      n_borders, t, d, c, int(u8), stride, rows)
+                      split_features, split_bins, leaf_values, out, scratch,
+                      n, f, n_borders, t, d, c, u8, stride, rows, slab)
         fused_predict.launches += 1
     return out
 
@@ -134,12 +131,12 @@ def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
     c = leaf_values.shape[2]
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
-        u8 = borders.shape[0] <= ref.MAX_U8_BORDERS
-        rows, stride = tile_shape(f, u8, TILE_BYTES - PLANE_BYTES)
+        u8, stride, rows, scratch, slab = _launch_args(x, borders.shape[0],
+                                                       c, True)
         _build.launch("repro_fused_predict_dm", x.device, x, borders,
                       split_features_dm, split_bins_dm, pow2, leaf_values,
-                      out, n, f, borders.shape[0], t, d, c, int(u8), stride,
-                      rows)
+                      out, scratch, n, f, borders.shape[0], t, d, c, u8,
+                      stride, rows, slab)
         fused_predict_dm.launches += 1
     return out
 
@@ -175,12 +172,13 @@ def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
     c = leaf_values.shape[2]
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
-        u8 = borders.shape[0] <= ref.MAX_U8_BORDERS
-        rows, stride = tile_shape(f, u8, TILE_BYTES - PLANE_BYTES)
+        u8, stride, rows, scratch, slab = _launch_args(x, borders.shape[0],
+                                                       c, True)
         _build.launch("repro_fused_predict_bp", x.device, x, borders,
-                      split_features_bp, split_bins_bp, leaf_values, out, n,
-                      f, borders.shape[0], t, d, c, int(u8),
-                      int(split_bins_bp.dtype == torch.uint8), stride, rows)
+                      split_features_bp, split_bins_bp, leaf_values, out,
+                      scratch, n, f, borders.shape[0], t, d, c, u8,
+                      int(split_bins_bp.dtype == torch.uint8), stride, rows,
+                      slab)
         fused_predict_bp.launches += 1
     return out
 

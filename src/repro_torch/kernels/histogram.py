@@ -5,7 +5,9 @@ The kernel is `csrc/histogram.cu`; it replaces the TPU kernel
 `ref.histogram`; `ref.histogram_fixed` is its exact function (the same
 bits on the card).  The kernel accumulates in 64-bit fixed point, so it
 gives the same bits on every launch; its tiling comes from
-`tuning.hist_plan`.
+`tuning.hist_plan`.  Past 64 stats it runs once a stat group: the
+fixed-point scale is per stat, so each group's cells are the bits of the
+whole.
 """
 from __future__ import annotations
 
@@ -51,14 +53,23 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
                       device=dev)
     if not (f and n):
         return out.zero_()
-    max_bits = torch.empty((s,), dtype=torch.int32, device=dev)
-    acc = torch.empty((1 if plan.direct else out.numel(),),
+    groups = plan.stat_groups
+    width = max(stop - start for start, stop in groups)
+    max_bits = torch.empty((width,), dtype=torch.int32, device=dev)
+    acc = torch.empty((1 if plan.direct else f * n_leaves * n_bins * width,),
                       dtype=torch.int64, device=dev)
-    _build.launch("repro_histogram", dev, bins_t, leaf, g, max_bits, acc,
-                  out, n, f, n_bins, n_leaves, s,
-                  int(bins_t.dtype == torch.uint8), plan.seg_tile,
-                  plan.feats_per_block, plan.row_chunks)
-    histogram.launches += 1
+    for start, stop in groups:
+        part = out if len(groups) == 1 else torch.empty(
+            (f, n_leaves * n_bins, stop - start), dtype=torch.float32,
+            device=dev)
+        g_part = g if len(groups) == 1 else g[:, start:stop].contiguous()
+        _build.launch("repro_histogram", dev, bins_t, leaf, g_part, max_bits,
+                      acc, part, n, f, n_bins, n_leaves, stop - start,
+                      int(bins_t.dtype == torch.uint8), plan.seg_tile,
+                      plan.feats_per_block, plan.row_chunks)
+        histogram.launches += 1
+        if part is not out:
+            out[:, :, start:stop] = part
     return out
 
 

@@ -12,51 +12,19 @@ Three kernels, one for each way a layout holds its splits:
                  thresholds, 32-row compare words (bitpacked); replaces
                  `leaf_index_bp`.  Plain version `ref.leaf_index_bitpacked`.
 
-Each takes int32 or uint8 bins.
+Each takes int32 or uint8 bins, and any number of features: the rows of
+a block are staged in shared memory while they fit the opt-in limit and
+read from global memory past it (`tuning.tile_rows`, `tuning.bp_plan`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.tuning import bp_plan, tile_rows
 
 # Deepest tree the kernels take (csrc/common.cuh kMaxDepth).
 MAX_DEPTH = 16
-# A block stages up to 128 rows of bins in shared memory, fewer when a
-# row is wide, so the tile stays within the 48 KB a block gets without
-# opting in to more.  Rows come in multiples of the block's 8 warps.
-MAX_TILE_ROWS = 128
-TILE_BYTES = 48 * 1024
-ROW_GROUPS = 8
-
-
-def tile_rows(n_features: int, bin_bytes: int) -> int:
-    """Rows of bins one block stages: as many as fit `TILE_BYTES`, at
-    most `MAX_TILE_ROWS`, in multiples of `ROW_GROUPS`."""
-    fit = TILE_BYTES // max(n_features * bin_bytes, 1)
-    rows = min(MAX_TILE_ROWS, fit // ROW_GROUPS * ROW_GROUPS)
-    if rows < ROW_GROUPS:
-        raise ValueError(f"{n_features} features of {bin_bytes}-byte bins "
-                         f"leave no room for {ROW_GROUPS} rows in "
-                         f"{TILE_BYTES} bytes of shared memory")
-    return rows
-
-
-def strided_tile(n_features: int, bin_bytes: int, budget: int,
-                 max_rows: int = MAX_TILE_ROWS, warp: int = 32
-                 ) -> tuple[int, int]:
-    """(rows, row stride in bins) of a bins tile whose rows a warp reads
-    one row a lane: the stride is an odd number of 4-byte words, so the
-    32 rows read at one feature sit in 32 distinct shared-memory banks.
-    Rows come in whole warps, at most `max_rows`, within `budget` bytes."""
-    words = (n_features * bin_bytes + 3) // 4 | 1
-    stride = words * 4 // bin_bytes
-    rows = min(max_rows, budget // (stride * bin_bytes) // warp * warp)
-    if rows < warp:
-        raise ValueError(f"{n_features} features of {bin_bytes}-byte bins "
-                         f"leave no room for {warp} rows in {budget} bytes "
-                         "of shared memory")
-    return rows, stride
 
 
 def _check_index_args(name: str, bins: torch.Tensor, planes) -> None:
@@ -90,9 +58,10 @@ def leaf_index(bins: torch.Tensor, split_features: torch.Tensor,
     out = torch.empty((n, t), dtype=torch.int32, device=bins.device)
     if n and t:
         u8 = bins.dtype == torch.uint8
+        plan = tile_rows(f, 1 if u8 else 4)
         _build.launch("repro_leaf_index", bins.device, bins, split_features,
-                      split_bins, out, n, f, t, d, int(u8),
-                      tile_rows(f, 1 if u8 else 4))
+                      split_bins, out, n, f, t, d, int(u8), plan.rows,
+                      int(plan.route == "global"))
         leaf_index.launches += 1
     return out
 
@@ -130,20 +99,15 @@ def leaf_index_dm(bins: torch.Tensor, split_features_dm: torch.Tensor,
     out = torch.empty((n, t), dtype=torch.int32, device=bins.device)
     if n and t:
         u8 = bins.dtype == torch.uint8
+        plan = tile_rows(f, 1 if u8 else 4)
         _build.launch("repro_leaf_index_dm", bins.device, bins,
                       split_features_dm, split_bins_dm, pow2, out, n, f, t,
-                      d, int(u8), tile_rows(f, 1 if u8 else 4))
+                      d, int(u8), plan.rows, int(plan.route == "global"))
         leaf_index_dm.launches += 1
     return out
 
 
 leaf_index_dm.launches = 0
-
-# The bitpacked kernel's 4 warps each transpose a 32 x 32 block of idx
-# through shared memory (csrc/leaf_index_bp.cu kWarps, 33-word rows).
-BP_WARPS = 4
-BP_TRANSPOSE_BYTES = BP_WARPS * 32 * 33 * 4
-
 
 def leaf_index_bp(bins: torch.Tensor, split_features_bp: torch.Tensor,
                   split_bins_bp: torch.Tensor) -> torch.Tensor:
@@ -173,12 +137,12 @@ def leaf_index_bp(bins: torch.Tensor, split_features_bp: torch.Tensor,
     out = torch.empty((n, t), dtype=torch.int32, device=bins.device)
     if n and t:
         u8 = bins.dtype == torch.uint8
-        rows, stride = strided_tile(f, 1 if u8 else 4,
-                                    TILE_BYTES - BP_TRANSPOSE_BYTES)
+        plan = bp_plan(n, t, d, f, 1 if u8 else 4)
         _build.launch("repro_leaf_index_bp", bins.device, bins,
                       split_features_bp, split_bins_bp, out, n, f, t, d,
                       int(u8), int(split_bins_bp.dtype == torch.uint8),
-                      stride, rows)
+                      plan.tile.stride, int(plan.tile.route == "global"),
+                      plan.n_tree_groups, plan.rounds_per_group)
         leaf_index_bp.launches += 1
     return out
 

@@ -129,7 +129,8 @@ def _leaf_gather_ref(idx, lv):
 
 
 @registry.register("leaf_gather", "cuda", layouts=ALL_LAYOUTS,
-                   constraints="<= 32 outputs; csrc/leaf_gather.cu")
+                   constraints="any outputs (slabs of <= 32); "
+                               "csrc/leaf_gather.cu")
 def _leaf_gather_cuda(idx, lv):
     return _gather_k.leaf_gather(idx, lv)
 
@@ -142,7 +143,7 @@ def _fused_ref(x, borders, sf, sb, lv):
 
 @registry.register("fused_predict", "cuda", dtypes=("int32", "uint8"),
                    layouts=SOA_LAYOUTS,
-                   constraints="depth <= 16, <= 32 outputs; uint8 bins "
+                   constraints="depth <= 16; uint8 bins "
                                "tile when <= 255 borders; "
                                "csrc/fused_predict.cu")
 def _fused_cuda(x, borders, sf, sb, lv):
@@ -172,7 +173,7 @@ def _fused_ref_dm(x, borders, sf_dm, sb_dm, pow2, lv):
 
 @registry.register("fused_predict", "cuda_dm", dtypes=("int32", "uint8"),
                    layouts=("depth_major",),
-                   constraints="depth <= 16, <= 32 outputs; "
+                   constraints="depth <= 16; "
                                "csrc/fused_predict_dm.cu")
 def _fused_cuda_dm(x, borders, sf_dm, sb_dm, pow2, lv):
     return _fused_k.fused_predict_dm(x, borders, sf_dm, sb_dm, pow2, lv)
@@ -202,7 +203,7 @@ def _fused_ref_bp(x, borders, sf_bp, sb_bp, lv):
 
 @registry.register("fused_predict", "cuda_bp", dtypes=("int32", "uint8"),
                    layouts=("bitpacked",),
-                   constraints="depth <= 16, <= 32 outputs; "
+                   constraints="depth <= 16; "
                                "csrc/fused_predict_bp.cu")
 def _fused_cuda_bp(x, borders, sf_bp, sb_bp, lv):
     return _fused_k.fused_predict_bp(x, borders, sf_bp, sb_bp, lv)
@@ -219,8 +220,8 @@ def _histogram_ref(bins_t, leaf, g, *, n_bins, n_leaves):
 
 @registry.register("histogram", "cuda", dtypes=("int32", "uint8"),
                    layouts=ALL_LAYOUTS,
-                   constraints="<= 64 stats, finite; int64 fixed point, "
-                               "the same bits every launch; "
+                   constraints="finite; a launch per 64 stats; int64 fixed "
+                               "point, the same bits every launch; "
                                "csrc/histogram.cu")
 def _histogram_cuda(bins_t, leaf, g, *, n_bins, n_leaves):
     return _hist_k.histogram(bins_t, leaf, g, n_bins=n_bins,

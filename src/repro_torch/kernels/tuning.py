@@ -1,5 +1,8 @@
 """Physical-layout selection for `PredictConfig(layout="auto")`, and the
-shared-memory plan of the training histogram kernel.
+launch plans of the CUDA kernels: shared-memory tiles and their route,
+output slabs, the leaf-gather and bitpacked-index grids, and the
+training histogram's grid and stat groups.  Every plan is plain Python,
+so the CPU tests check it at any shape.
 
 The port's copy of the layout rule in `src/repro/kernels/tuning.py`: the
 leaf-table and lowered-array byte costs of each layout, from the
@@ -88,7 +91,7 @@ SMEM_PER_SM = 228 * 1024           # shared memory of one SM
 SMEM_OPTIN_LIMIT = 232_448         # the most one block may opt in to
 SMEM_RESERVED_PER_BLOCK = 1024     # the runtime's own share of each block
 HIST_CELL_BYTES = 8                # int64 fixed point, as two 32-bit words
-HIST_MAX_STATS = 64                # csrc/histogram.cu kMaxStats (2C, C <= 32)
+HIST_MAX_STATS = 64                # csrc/histogram.cu kMaxStats: one launch
 HIST_THREADS = 1024                # csrc/histogram.cu kHistThreads
 # The per-stat double scales and inverse scales, and each warp's 32-byte
 # row order.
@@ -119,13 +122,16 @@ class HistPlan:
     segments per group (`tile_bytes` of cells per feature), and
     `row_chunks` chunks of rows.  With one chunk a block rounds its own
     cells into the output (`direct`); otherwise the chunks meet in an int64
-    buffer."""
+    buffer.  `stat_groups` are the [start, stop) slices of the stats, one
+    launch each, at most HIST_MAX_STATS wide; the grid is planned for the
+    widest."""
     seg_tile: int
     n_tiles: int
     row_chunks: int
     tile_bytes: int
     feats_per_block: int
     n_groups: int
+    stat_groups: tuple[tuple[int, int], ...] = ((0, 1),)
 
     @property
     def block_bytes(self) -> int:
@@ -173,9 +179,27 @@ def _hist_grid(n_features: int, n_rows: int, n_segs: int, n_stats: int,
                     seg_tile * n_stats * HIST_CELL_BYTES, feats, groups)
 
 
+def slices(n: int, width: int) -> tuple[tuple[int, int], ...]:
+    """[start, stop) slices cutting range(n) into the fewest pieces of at
+    most `width`, each ceil(n / pieces) long but the last (66 at width
+    64: 33 + 33; 33 at width 32: 17 + 16).  The kernels cut their output
+    slabs the same way."""
+    pieces = max(1, -(-n // width))
+    step = max(1, -(-n // pieces))
+    return tuple((i * step, min(n, (i + 1) * step)) for i in range(pieces))
+
+
+def stat_groups(n_stats: int) -> tuple[tuple[int, int], ...]:
+    """The histogram's stat groups: one launch each."""
+    return slices(n_stats, HIST_MAX_STATS)
+
+
 def hist_plan(n_features: int, n_rows: int, n_leaves: int, n_bins: int,
               n_stats: int) -> HistPlan:
-    """The histogram launch's plan: for each count of features a block
+    """The histogram launch's plan: past HIST_MAX_STATS stats, one launch
+    a stat group (`stat_groups`: the fixed-point scale is per stat, so a
+    group's cells are the whole's, bit for bit), each with the grid below
+    planned for the widest group.  The grid: for each count of features a block
     (1..`HIST_MAX_FEATS_PER_BLOCK`) the grid `_hist_grid` gives; of those
     that fit one wave, the one with the most blocks weighted by the share
     of a row's work that is adds (fpb / (fpb + HIST_ROW_COST)); if none
@@ -188,9 +212,11 @@ def hist_plan(n_features: int, n_rows: int, n_leaves: int, n_bins: int,
     head (533 features, 2,808 rows, 64 bins, 40 stats), by depth d = 0..3:
     5, 5, 8, 8 features a block; 1, 1, 3, 7 tiles; one chunk (every block
     writes its output directly)."""
-    if not 1 <= n_stats <= HIST_MAX_STATS:
-        raise ValueError(f"the histogram kernel takes 1..{HIST_MAX_STATS} "
-                         f"stats (2C for C <= 32 outputs), got {n_stats}")
+    if n_stats < 1:
+        raise ValueError(f"the histogram takes at least one stat, got "
+                         f"{n_stats}")
+    groups = stat_groups(n_stats)
+    n_stats = max(stop - start for start, stop in groups)
     n_segs = max(n_leaves * n_bins, 1)
     n_features = max(n_features, 1)
     plans = [_hist_grid(n_features, n_rows, n_segs, n_stats, feats)
@@ -205,4 +231,252 @@ def hist_plan(n_features: int, n_rows: int, n_leaves: int, n_bins: int,
                      -(-waves * SM_COUNT // (plan.n_groups * plan.n_tiles)))
         plan = dataclasses.replace(plan,
                                    row_chunks=max(plan.row_chunks, chunks))
-    return plan
+    return dataclasses.replace(plan, stat_groups=groups)
+
+
+# --------------------------------------------------------------------------
+# Shared-memory tiles of bins, and their route
+# --------------------------------------------------------------------------
+# The index and fused kernels stage a block's rows of bins in shared
+# memory.  A tile that fits the 48 KB a block has by default is staged
+# there; past that the kernel opts in to up to SMEM_OPTIN_LIMIT (as
+# csrc/binarize.cu does for its border table); a row too wide for even
+# the fewest rows there is read from global memory (`route` "global"),
+# by the same kernel under a template flag.
+SMEM_DEFAULT_BYTES = 48 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """`rows` rows a block; a staged row holds `stride` bins (n_features
+    on the global route); `tile_bytes` of dynamic shared memory for the
+    tile beside the kernel's `static_bytes` of other shared memory."""
+    rows: int
+    stride: int
+    route: str
+    tile_bytes: int
+    static_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.tile_bytes + self.static_bytes
+
+    @property
+    def opt_in(self) -> bool:
+        """Whether the block needs more than the default 48 KB."""
+        return self.smem_bytes > SMEM_DEFAULT_BYTES
+
+
+def _tile(n_features: int, bin_bytes: int, *, max_rows: int, granule: int,
+          static_bytes: int, odd_stride: bool,
+          budgets: tuple[int, ...] = (SMEM_DEFAULT_BYTES, SMEM_OPTIN_LIMIT)
+          ) -> TilePlan:
+    """As many rows as fit the first of `budgets` (the default 48 KB, then
+    the opt-in limit) that holds any, at most `max_rows`, in multiples of
+    `granule`; the global route if not even `granule` rows fit."""
+    if odd_stride:
+        words = (n_features * bin_bytes + 3) // 4 | 1
+        stride = words * 4 // bin_bytes
+    else:
+        stride = n_features
+    row_bytes = max(stride * bin_bytes, 1)
+    for budget in budgets:
+        rows = min(max_rows,
+                   (budget - static_bytes) // row_bytes // granule * granule)
+        if rows >= granule:
+            return TilePlan(rows, stride, "shared", rows * row_bytes,
+                            static_bytes)
+    return TilePlan(max_rows, n_features, "global", 0, static_bytes)
+
+
+# csrc/leaf_index.cuh: up to 128 rows a block, in multiples of its 8 row
+# groups (warps), unpadded rows.
+INDEX_MAX_ROWS = 128
+INDEX_ROW_GROUPS = 8
+
+
+def tile_rows(n_features: int, bin_bytes: int) -> TilePlan:
+    """The bins tile of `leaf_index` and `leaf_index_dm`."""
+    return _tile(n_features, bin_bytes, max_rows=INDEX_MAX_ROWS,
+                 granule=INDEX_ROW_GROUPS, static_bytes=0, odd_stride=False)
+
+
+def strided_tile(n_features: int, bin_bytes: int, static_bytes: int = 0,
+                 max_rows: int = INDEX_MAX_ROWS, warp: int = 32
+                 ) -> TilePlan:
+    """A bins tile whose rows a warp reads one row a lane: the stride is
+    an odd number of 4-byte words, so the 32 rows read at one feature sit
+    in 32 distinct shared-memory banks.  Rows come in whole warps."""
+    return _tile(n_features, bin_bytes, max_rows=max_rows, granule=warp,
+                 static_bytes=static_bytes, odd_stride=True)
+
+
+# The fused kernels: one thread a row, up to 128 rows (4 warps) a block.
+# The depth-major and bitpacked ones stage a chunk of trees' (D, T) planes
+# in 16 KB of static shared memory (csrc/fused_planes.cuh: 2,048 entries a
+# plane) beside the level weights.
+FUSED_MAX_ROWS = 128
+PLANE_BYTES = 16 * 1024 + 4 * 16
+
+
+def tile_shape(n_features: int, u8: bool, planes: bool = False) -> TilePlan:
+    """The bins tile of a fused kernel (`planes`: the dm and bp ones).  On
+    the global route stage 1 writes the bins to an (N, F) scratch array."""
+    return strided_tile(n_features, 1 if u8 else 4,
+                        PLANE_BYTES if planes else 0, FUSED_MAX_ROWS)
+
+
+# --------------------------------------------------------------------------
+# Output slabs
+# --------------------------------------------------------------------------
+# A thread of a gather or fused kernel sums at most this many outputs of
+# a row at a time; more outputs go in slabs, each summed over the trees
+# in tree order, so every (row, output) is one add a tree in tree order
+# at any C.
+SLAB_OUTPUTS = 32
+
+
+def output_slabs(n_outputs: int) -> tuple[tuple[int, int], ...]:
+    return slices(n_outputs, SLAB_OUTPUTS)
+
+
+# --------------------------------------------------------------------------
+# csrc/leaf_gather.cu
+# --------------------------------------------------------------------------
+# Lanes of a warp hold a row's outputs (`lanes`, the slab's width rounded
+# up to a power of two), so a warp sums 32 / lanes rows at once.  Staged:
+# one 1,024-thread block an SM stages a chunk of trees' leaf values (one
+# slab) and its rows' idx for those trees in shared memory, and sums many
+# rows a thread against each chunk.  Direct: a row a lane group, leaf
+# values read from L2 with 8 trees' loads in flight.
+GATHER_STAGED_THREADS = 1024
+GATHER_STAGE_BYTES = SMEM_OPTIN_LIMIT
+GATHER_MAX_CHUNK = 32              # trees a chunk: a warp's lanes load idx
+GATHER_MIN_STAGE_TREES = 4         # trees a chunk holds at least
+GATHER_MAX_ROWS_PER_THREAD = 16    # csrc/leaf_gather.cu kMaxRows
+GATHER_DIRECT_THREADS = (64, 256)  # a direct block's threads, least, most
+SECTOR_BYTES = 32                  # what a direct gather pulls from L2
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """`n_slabs` slabs of `slab` outputs (the last may be narrower), each
+    summed by `lanes` lanes a row; `threads` a block, each summing
+    `rows_per_thread` rows; staged blocks hold `trees_per_chunk` trees'
+    leaf values and idx (`smem_bytes`).  The grid is (n_row_blocks,
+    n_slabs)."""
+    slab: int
+    n_slabs: int
+    lanes: int
+    staged: bool
+    threads: int
+    rows_per_thread: int
+    trees_per_chunk: int
+    n_row_blocks: int
+    smem_bytes: int
+
+    @property
+    def rows_per_block(self) -> int:
+        return self.threads // self.lanes * self.rows_per_thread
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+def gather_stage_bytes(trees: int, n_leaves: int, slab: int,
+                       rows: int) -> int:
+    """Shared memory of a staged chunk: the trees' leaf values of a slab,
+    padded to 16 bytes, then `rows` rows of idx, each padded to whole
+    16-byte words (csrc/leaf_gather.cu sizes it the same way)."""
+    return (-(-trees * n_leaves * slab * 4 // 16) * 16
+            + rows * -(-trees // 4) * 16)
+
+
+def gather_plan(n_rows: int, n_trees: int, n_leaves: int, n_outputs: int,
+                staged: bool | None = None) -> GatherPlan:
+    """The leaf-gather launch.  `staged=None` picks: stage when a chunk of
+    GATHER_MIN_STAGE_TREES trees fits (a model of fewer trees reads
+    directly) and the rows of each SM's block are at least n_leaves *
+    slab * 4 / SECTOR_BYTES (the bytes a block stages a tree, from L2, are
+    no more than the sectors its rows' direct gathers would pull).  At
+    depth 8, C = 7 that is 224 rows: the 139,440-row bulk call stages
+    (1,152 rows a block, 19 trees a chunk), a 1,024-row bucket reads
+    directly."""
+    spans = output_slabs(max(n_outputs, 1))
+    slab = spans[0][1] - spans[0][0]
+    n_slabs = len(spans)
+    lanes = _pow2_at_least(slab)
+    slots = GATHER_STAGED_THREADS // lanes
+    n_leaves = max(n_leaves, 1)
+    per_sm = -(-n_rows // max(1, SM_COUNT // n_slabs))
+    rpt = min(GATHER_MAX_ROWS_PER_THREAD, max(1, -(-per_sm // slots)))
+    rows = slots * rpt
+    chunk = next((t for t in range(min(GATHER_MAX_CHUNK, max(n_trees, 1)),
+                                   0, -1)
+                  if gather_stage_bytes(t, n_leaves, slab, rows)
+                  <= GATHER_STAGE_BYTES), 0)
+    if staged is None:
+        staged = (chunk >= GATHER_MIN_STAGE_TREES
+                  and per_sm * SECTOR_BYTES >= n_leaves * slab * 4)
+    if staged:
+        if chunk < 1:
+            raise ValueError(f"{n_leaves} leaves x {slab} outputs leave no "
+                             f"room for a tree in {GATHER_STAGE_BYTES} "
+                             "bytes of shared memory")
+        return GatherPlan(slab, n_slabs, lanes, True, GATHER_STAGED_THREADS,
+                          rpt, chunk, max(1, -(-n_rows // rows)),
+                          gather_stage_bytes(chunk, n_leaves, slab, rows))
+    least, most = GATHER_DIRECT_THREADS
+    threads = min(most, max(least, _pow2_at_most(
+        n_rows * lanes * n_slabs // SM_COUNT)))
+    return GatherPlan(slab, n_slabs, lanes, False, threads, 1, 0,
+                      max(1, -(-n_rows // (threads // lanes))), 0)
+
+
+# --------------------------------------------------------------------------
+# csrc/leaf_index_bp.cu
+# --------------------------------------------------------------------------
+# 32 rows a block (a lane each), staged once; 8 warps walk the trees in
+# rounds of 256 (a 32-tree tile a warp), staging each round's (D, 256)
+# planes as (feature, threshold) int32 pairs and writing each row's 256
+# indexes as one contiguous kilobyte through 8 32 x 33-word transposes.
+BP_ROWS = 32
+BP_WARPS = 8
+BP_TREE_TILE = 32
+BP_ROUND_TREES = BP_WARPS * BP_TREE_TILE
+BP_TRANSPOSE_BYTES = BP_WARPS * BP_ROWS * 33 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class BitpackedPlan:
+    """The bins tile, and a grid of (row blocks, tree groups), each group
+    `rounds_per_group` rounds of BP_ROUND_TREES trees."""
+    tile: TilePlan
+    n_row_tiles: int
+    n_tree_groups: int
+    rounds_per_group: int
+
+
+def bp_plan(n_rows: int, n_trees: int, depth: int, n_features: int,
+            bin_bytes: int) -> BitpackedPlan:
+    """The bins tile of BP_ROWS rows (the global route when not even those
+    fit the opt-in limit beside the transposes and split pairs); the trees
+    in as many groups as the row blocks need to fill the SMs (one group
+    when they already do).  At Covertype's width (54 uint8 features, depth
+    8): 4,358 row blocks and one group at 139,440 rows, 32 row blocks and
+    4 groups of one round at the 1,024-row bucket."""
+    tile = _tile(n_features, bin_bytes, max_rows=BP_ROWS, granule=BP_ROWS,
+                 static_bytes=BP_TRANSPOSE_BYTES
+                 + max(depth, 1) * BP_ROUND_TREES * 8,
+                 odd_stride=True, budgets=(SMEM_OPTIN_LIMIT,))
+    row_tiles = max(1, -(-n_rows // BP_ROWS))
+    rounds = max(1, -(-n_trees // BP_ROUND_TREES))
+    groups = min(rounds, -(-SM_COUNT // row_tiles))
+    per_group = -(-rounds // groups)
+    return BitpackedPlan(tile, row_tiles, -(-rounds // per_group),
+                         per_group)

@@ -262,19 +262,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_shared_memory_tiles_fit_and_avoid_bank_conflicts():
     # Covertype width: 128 rows of 54 uint8 or int32 bins
-    assert index_k.tile_rows(54, 1) == 128
-    assert index_k.tile_rows(54, 4) == 128
+    assert index_k.tile_rows(54, 1).rows == 128
+    assert index_k.tile_rows(54, 4).rows == 128
     for n_feat, u8 in [(f, u8) for f in (1, 3, 54, 200) for u8 in (0, 1)] \
             + [(512, 1)]:
-            rows, stride = fused_k.tile_shape(n_feat, u8)
+            plan = fused_k.tile_shape(n_feat, u8)
+            rows, stride = plan.rows, plan.stride
             bin_bytes = 1 if u8 else 4
             assert stride >= n_feat and rows % 32 == 0
             assert (stride * bin_bytes // 4) % 2 == 1    # odd word stride
-            assert rows * stride * bin_bytes <= index_k.TILE_BYTES
-    with pytest.raises(ValueError):
-        index_k.tile_rows(10_000, 4)
-    with pytest.raises(ValueError):
-        fused_k.tile_shape(10_000, False)
+            assert plan.route == "shared" and not plan.opt_in
+            assert rows * stride * bin_bytes == plan.tile_bytes \
+                <= tuning.SMEM_DEFAULT_BYTES
+    # rows too wide for the opt-in limit are read from global memory
+    for plan in (index_k.tile_rows(10_000, 4),
+                 fused_k.tile_shape(10_000, False)):
+        assert plan.route == "global" and plan.tile_bytes == 0
+        assert plan.stride == 10_000
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -553,29 +557,31 @@ def test_registry_routes_by_layout():
 
 def test_new_kernel_tiles_fit_shared_memory():
     # the bitpacked index kernel's bins tile beside its 32 x 33 transpose
-    # tiles, the plane kernels' beside their staged planes: 48 KB a block
-    for n_feat in (1, 3, 54, 200, 2000):
+    # tiles and split pairs, the plane kernels' beside their staged planes
+    for n_feat in (1, 3, 54, 200, 2000, 8000):
         for bin_bytes in (1, 4):
-            budget = index_k.TILE_BYTES - index_k.BP_TRANSPOSE_BYTES
-            if n_feat * bin_bytes > budget // 32:
-                with pytest.raises(ValueError):
-                    index_k.strided_tile(n_feat, bin_bytes, budget)
+            tile = tuning.bp_plan(139_440, 1000, 8, n_feat, bin_bytes).tile
+            assert tile.smem_bytes <= tuning.SMEM_OPTIN_LIMIT
+            assert tile.static_bytes == tuning.BP_TRANSPOSE_BYTES \
+                + 8 * tuning.BP_ROUND_TREES * 8
+            row_bytes = ((n_feat * bin_bytes + 3) // 4 | 1) * 4
+            if 32 * row_bytes + tile.static_bytes > tuning.SMEM_OPTIN_LIMIT:
+                assert tile.route == "global" and tile.tile_bytes == 0
                 continue
-            rows, stride = index_k.strided_tile(n_feat, bin_bytes, budget)
-            assert rows % 32 == 0 and 32 <= rows <= 128
-            assert (stride * bin_bytes // 4) % 2 == 1
-            assert rows * stride * bin_bytes + \
-                index_k.BP_TRANSPOSE_BYTES <= index_k.TILE_BYTES
-            rows, stride = fused_k.tile_shape(
-                n_feat, bin_bytes == 1,
-                index_k.TILE_BYTES - fused_k.PLANE_BYTES)
-            assert rows * stride * bin_bytes + fused_k.PLANE_BYTES <= \
-                index_k.TILE_BYTES
-    # Covertype width: 128 rows of a uint8 pool for both
-    assert index_k.strided_tile(54, 1, index_k.TILE_BYTES
-                                - index_k.BP_TRANSPOSE_BYTES)[0] == 128
-    assert fused_k.tile_shape(54, True, index_k.TILE_BYTES
-                              - fused_k.PLANE_BYTES) == (128, 60)
+            assert tile.route == "shared" and tile.rows == 32
+            assert (tile.stride * bin_bytes // 4) % 2 == 1
+            assert tile.tile_bytes == 32 * row_bytes
+            plan = fused_k.tile_shape(n_feat, bin_bytes == 1, planes=True)
+            assert plan.smem_bytes <= tuning.SMEM_OPTIN_LIMIT
+            assert plan.static_bytes == tuning.PLANE_BYTES
+    # Covertype width: 32 rows of a uint8 pool for the bitpacked kernel
+    # (4 blocks an SM), 128 for the plane kernels within 48 KB
+    tile = tuning.bp_plan(139_440, 1000, 8, 54, 1).tile
+    assert (tile.rows, tile.stride, tile.route) == (32, 60, "shared")
+    assert 4 * (tile.smem_bytes + tuning.SMEM_RESERVED_PER_BLOCK) \
+        <= tuning.SMEM_PER_SM
+    plan = fused_k.tile_shape(54, True, planes=True)
+    assert (plan.rows, plan.stride, plan.opt_in) == (128, 60, False)
 
 
 # --------------------------------------------------------------------------
@@ -654,8 +660,12 @@ def test_histogram_plan_fits_shared_memory_at_every_level():
     assert tuning.hist_plan(54, 17, 128, 64, 14).row_chunks == 1
     assert tuning.hist_plan(1, 10, 1 << 12, 256, 64).smem_bytes \
         < 227 * 1024
+    # past 64 stats, one launch a group, the grid planned for the widest
+    plan = tuning.hist_plan(54, 100, 2, 64, 65)
+    assert plan.stat_groups == ((0, 33), (33, 65))
+    assert plan.tile_bytes == plan.seg_tile * 33 * 8
     with pytest.raises(ValueError):
-        tuning.hist_plan(54, 100, 2, 64, 65)
+        tuning.hist_plan(54, 100, 2, 64, 0)
 
 
 # --------------------------------------------------------------------------

@@ -484,13 +484,12 @@ def test_head_shapes_fit_the_fused_and_histogram_kernels():
     # kernel's 32-output instance), and a depth-4 level histogram of 533
     # features x 40 stats (20 gradients, 20 hessians) at 2,808 rows
     from repro_torch.kernels import fused_predict as fused_k
-    from repro_torch.kernels import leaf_gather as gather_k
-    from repro_torch.kernels import leaf_index as index_k
     from repro_torch.kernels import tuning
-    rows, stride = fused_k.tile_shape(533, True)
-    assert (rows, stride) == (64, 540)
-    assert rows * stride <= index_k.TILE_BYTES
-    assert 8 < 20 <= gather_k.MAX_OUTPUTS
+    plan = fused_k.tile_shape(533, True)
+    assert (plan.rows, plan.stride, plan.route) == (64, 540, "shared")
+    assert plan.tile_bytes <= tuning.SMEM_DEFAULT_BYTES
+    assert tuning.output_slabs(20) == ((0, 20),)    # one slab of 32 lanes
+    assert tuning.gather_plan(2841, 1000, 16, 20).lanes == 32
     for d in range(4):
         plan = tuning.hist_plan(533, 2808, 1 << d, 64, 40)
         assert plan.tile_bytes <= tuning.HIST_TILE_BYTES
