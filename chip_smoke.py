@@ -72,7 +72,10 @@ It checks:
     where the rows bin alike and the margin is clear;
   * leaf_gather's staged and direct routes, at every row count above and
     at C = 33, equal the tree-order float32 sum bit for bit (and the fused
-    kernels equal it at C = 33);
+    kernels equal it at C = 33); so do fused_predict's spread and row
+    routes (so each equals the other) at every row count above, at the
+    kNN head's C = 20 and at C = 33, and each route that takes a caps
+    shape past the feature caps gives the plan's route's bits;
   * caps: at C = 33 the fused, pool and staged routes of every layout
     give the same bits, depth_major = soa, bitpacked = depth_grouped and
     one-group bitpacked fused = soa fused; every index kernel equals its
@@ -84,10 +87,12 @@ It checks:
 
 Then it times each kernel beside its plain version, one PyTorch library
 call where one computes the same function, and the least time the card
-could take (`bound_ms`): the serving kernels at the bulk shape and the
-1,024-row bucket, the histogram at each level, the distance kernels at the
-test split's shape (the matrix also at 4,096 x 22,464; TF32 off for its
-`addmm` yardstick), leaf_gather on both of its routes at both shapes;
+could take (`bound_ms`, from the leaf rows the inputs touch): the serving
+kernels at the bulk shape and the 1,024-row bucket, the histogram at each
+level, the distance kernels at the test split's shape (the matrix also at
+4,096 x 22,464; TF32 off for its `addmm` yardstick), leaf_gather on both
+of its routes at both shapes, fused_predict on both of its routes at both
+shapes, at the 16-row bucket and at the kNN head;
 profiles 10 training trees;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
@@ -129,6 +134,7 @@ U = 2.0 ** -24          # unit roundoff of float32
 K_SIGMA = 8.0           # width of the float limit, in rounding walks
 TREE_TILE = 32          # the padding the tree-padding timings try
 PAIR_ROUNDS = 7         # alternating rounds when timing two versions
+FUSED_ROUTES = ("spread", "row")   # the soa fused kernel's routes
 RESUME_TREES, RESUME_AT = 20, 10   # a run checkpointed at 10 and resumed
 SPLIT_CHECK_TREES = 5   # trees whose splits are checked level by level
 HIST_SMALL_ROWS = (1000, 17)       # partial row chunks and blocks
@@ -337,6 +343,12 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
                               exact),
                   f"leaf_gather ({'staged' if staged else 'direct'}) at {n} "
                   "rows is not the tree-order sum")
+        # and both of fused_predict's routes (so they equal each other)
+        for route in FUSED_ROUTES:
+            check(torch.equal(fused_predict(xn, borders, sf, sb, lv,
+                                            route=route), exact),
+                  f"fused_predict ({route}) at {n} rows is not the "
+                  "tree-order sum")
         del exact
         got = {"leaf_gather": leaf_gather(want_idx, lv),
                "fused_predict": fused_predict(xn, borders, sf, sb, lv)}
@@ -383,11 +395,13 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
 
     def cases(n: int, sf=sf, sb=sb, lv=lv) -> dict:
         """Kernel, plain version, library call, bytes and operations of
-        each kernel on the first `n` rows."""
+        each kernel on the first `n` rows (the leaf rows the rows touch,
+        not the whole table)."""
         t = sf.shape[0]
         xn, bn, ixn = x[:n], bins[:n], idx[:n]
         n_feat, n_b = x.shape[1], borders.shape[0]
-        table_bytes = lv.numel() * 4 + sf.numel() * 8
+        leaf_bytes = leaf_rows_touched(ixn, n_leaves) * c * 4
+        table_bytes = leaf_bytes + sf.numel() * 8
         return {
             "binarize": dict(
                 kernel=lambda: binarize(xn, borders, out_dtype=torch.uint8),
@@ -407,7 +421,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
                 plain=lambda: ref.leaf_gather(ixn, lv),
                 library=lambda: F.embedding_bag(flat_idx[:n], flat_lv,
                                                 mode="sum"),
-                bytes=n * t * 4 + lv.numel() * 4 + n * c * 4,
+                bytes=n * t * 4 + leaf_bytes + n * c * 4,
                 ops=n * t * c),
             "fused_predict": dict(
                 kernel=lambda: fused_predict(xn, borders, sf, sb, lv),
@@ -430,6 +444,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
     for name, case in bulk.items():
         bound_ms, bound_by = bound(case["bytes"], case["ops"])
         small = bucket[name]
+        bucket_bound_ms, bucket_bound_by = bound(small["bytes"], small["ops"])
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -444,11 +459,32 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
             "n_rows": len(x), "n_trees": t,
             "bucket_rows": MAX_BATCH,
             "bucket_ms": time_ms(small["kernel"], 50, flush),
-            "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
+            "bucket_bound_ms": bucket_bound_ms,
+            "bucket_bound_by": bucket_bound_by,
             **({"odd_tables": odd_tables} if name == "binarize" else {}),
         })
+    # fused_predict's two routes at the bulk shape, the largest bucket and
+    # the single-request bucket, and the one its plan picks at each
+    from repro_torch.kernels.tuning import fused_plan, gather_plan
+    fused = next(row for row in rows if row["name"] == "fused_predict")
+    fused["routes"] = {}
+    for label, n in (("bulk", len(x)), ("bucket", MAX_BATCH),
+                     ("single", check_rows[-1])):
+        xn = x[:n]
+        small = cases(n)["fused_predict"]
+        timing = {"rows": n, "plan": fused_plan(
+            n, t, d, c, x.shape[1], borders.shape[0] <= 255).route,
+            "bound_ms": bound(small["bytes"], small["ops"])[0]}
+        for route in FUSED_ROUTES:
+            timing[f"{route}_ms"] = time_ms(
+                lambda xn=xn, r=route: fused_predict(xn, borders, sf, sb, lv,
+                                                     route=r),
+                20 if label == "bulk" else 50, flush)
+        fused["routes"][label] = timing
+    fused["single_ms"] = fused["routes"]["single"][
+        f"{fused['routes']['single']['plan']}_ms"]
+
     # leaf_gather's two routes at both shapes, and the one its plan picks
-    from repro_torch.kernels.tuning import gather_plan
     gather = next(row for row in rows if row["name"] == "leaf_gather")
     for label, n in (("bulk", len(x)), ("bucket", MAX_BATCH)):
         ixn = idx[:n]
@@ -487,6 +523,15 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
                 "unpadded_range_ms": [min(unpadded), max(unpadded)],
                 "padded_range_ms": [min(padded_ms), max(padded_ms)]}
     return rows, control, tree_padding
+
+
+def leaf_rows_touched(idx, n_leaves: int) -> int:
+    """Distinct (tree, leaf) rows of the leaf table that `idx` reads."""
+    import torch
+    t = idx.shape[1]
+    seen = torch.zeros(t * n_leaves, dtype=torch.bool, device=idx.device)
+    seen[idx.long() + torch.arange(t, device=idx.device) * n_leaves] = True
+    return int(seen.sum())
 
 
 def check_binarize_odd_tables(x, borders, check_rows):
@@ -649,6 +694,8 @@ def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
                  ref.fused_predict_bitpacked)):
             d, t = planes[0].shape
             plane_bytes = sum(p.numel() * p.element_size() for p in planes)
+            leaf_bytes = leaf_rows_touched(index_ref(bn, *planes),
+                                           lv.shape[1]) * c * 4
             out[f"leaf_index_{name}"] = dict(
                 kernel=lambda k=index_k, p=planes: k(bn, *p),
                 plain=lambda k=index_ref, p=planes: k(bn, *p),
@@ -660,7 +707,7 @@ def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
                 plain=lambda k=fused_ref, p=planes, lv=lv:
                     k(xn, borders, *p, lv),
                 bytes=n * n_feat * 4 + n_b * n_feat * 4 + plane_bytes
-                + lv.numel() * 4 + n * c * 4,
+                + leaf_bytes + n * c * 4,
                 ops=n * n_feat * n_b + n * t * d + n * t * c, n_trees=t)
         return out
 
@@ -691,6 +738,7 @@ def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
             "bucket_ms": time_ms(small["kernel"], 50, flush),
             "bucket_plain_ms": time_ms(small["plain"], 5, flush),
             "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
+            "bucket_bound_by": bound(small["bytes"], small["ops"])[1],
         })
     return rows, of_limit
 
@@ -1283,7 +1331,7 @@ def check_and_time_knn(data, run, flush):
     import torch
     from repro_torch.core.knn import KNNFeaturizer
     from repro_torch.data.synthetic import image_embeddings
-    from repro_torch.kernels import l2dist, ref
+    from repro_torch.kernels import l2dist, ref, tuning
     from repro_torch.kernels.fused_predict import fused_predict
     from repro_torch.serving.engine import EmbeddingGBDTPipeline
 
@@ -1349,10 +1397,18 @@ def check_and_time_knn(data, run, flush):
     low = plan.lowered
     x_aug = torch.cat([q_test, run["feats"]], dim=1)
     fused = {}
+    args = (low.borders, low.split_features, low.split_bins,
+            low.leaf_values)
     for n in (len(x_aug), KNN_SMALL_ROWS):
         xn = x_aug[:n]
         idx = ref.leaf_index(ref.binarize(xn, low.borders),
                              low.split_features, low.split_bins)
+        exact = tree_order_sum(idx, low.leaf_values)
+        for route in FUSED_ROUTES:
+            check(torch.equal(fused_predict(xn, *args, route=route), exact),
+                  f"fused_predict ({route}, C = {c}) at {n} rows is not the "
+                  "tree-order sum")
+        del exact
         err, share = compare_sums(
             f"fused_predict (C = {c}, F = {x_aug.shape[1]}) at {n} rows",
             fused_predict(xn, low.borders, low.split_features,
@@ -1361,9 +1417,13 @@ def check_and_time_knn(data, run, flush):
                               low.split_bins, low.leaf_values),
             sum_limit(idx, low.leaf_values))
         fused[f"rows_{n}"] = {"max_abs_err": err, "of_limit": share}
-    fused["ms"] = time_ms(lambda: fused_predict(
-        x_aug, low.borders, low.split_features, low.split_bins,
-        low.leaf_values), 20, flush)
+    fused["ms"] = time_ms(lambda: fused_predict(x_aug, *args), 20, flush)
+    fused["plan"] = tuning.fused_plan(
+        len(x_aug), *low.split_features.shape, c, x_aug.shape[1],
+        low.borders.shape[0] <= 255).route
+    for route in FUSED_ROUTES:
+        fused[f"{route}_ms"] = time_ms(
+            lambda r=route: fused_predict(x_aug, *args, route=r), 20, flush)
     checks["fused_predict_c20"] = fused
     checks["binarize"] = check_and_time_knn_binarize(
         x_train, x_aug, low.borders, flush)
@@ -1600,6 +1660,17 @@ def tree_order_sum(idx, leaf_values):
     return acc
 
 
+def spread_fits(n_rows: int, n_features: int, u8: bool) -> bool:
+    """Whether the spread route takes a caps model (48 trees of depth 8,
+    3 outputs) at this shape."""
+    from repro_torch.kernels import tuning
+    try:
+        tuning.fused_plan(n_rows, 48, 8, 3, n_features, u8, route="spread")
+    except ValueError:
+        return False
+    return True
+
+
 def check_caps() -> dict:
     """The shapes the kernels once refused, each against its plain
     version: C = 33 on every route and layout (fused = pool = staged,
@@ -1695,6 +1766,11 @@ def check_caps() -> dict:
                   f"{name} at C = {CAPS_OUTPUTS}, {n} rows is not the "
                   "tree-order sum")
             held(f"{name} at C = {CAPS_OUTPUTS}, {n} rows", got, want, limit)
+        for route in FUSED_ROUTES:
+            check(torch.equal(fused_predict(xn, borders, sf, sb, lv,
+                                            route=route), exact),
+                  f"fused_predict ({route}) at C = {CAPS_OUTPUTS}, {n} rows "
+                  "is not the tree-order sum")
 
     # --- rows past each old cap and past the opt-in limit
     cases = []
@@ -1729,11 +1805,21 @@ def check_caps() -> dict:
                     f"leaf_index_bp ({str(p.dtype)[6:]} planes) differs "
                     f"from its plain version at {what}")
             limit = sum_limit(idx, lv)
-            held(f"fused_predict at {what}",
-                 fused_predict(xn, borders, soa.split_features,
-                               soa.split_bins, lv),
-                 ref.fused_predict(xn, borders, soa.split_features,
-                                   soa.split_bins, lv), limit)
+            want = ref.fused_predict(xn, borders, soa.split_features,
+                                     soa.split_bins, lv)
+            # the plan's route, then each route that takes the shape
+            got = fused_predict(xn, borders, soa.split_features,
+                                soa.split_bins, lv)
+            held(f"fused_predict at {what}", got, want, limit)
+            for route in FUSED_ROUTES:
+                if route == "spread" and not spread_fits(n, n_features, u8):
+                    continue
+                check(torch.equal(fused_predict(
+                    xn, borders, soa.split_features, soa.split_bins, lv,
+                    route=route), got),
+                      f"fused_predict ({route}) at {what} differs from the "
+                      "plan's route")
+            del got, want
             held(f"fused_predict_dm at {what}",
                  fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values),
                  ref.fused_predict_depth_major(xn, borders, *dm_planes,
@@ -1754,13 +1840,17 @@ def check_caps() -> dict:
                     max(CAPS_WIDE_ROWS), 48, 8, n_features,
                     bin_bytes).tile.route,
                 "fused_predict": tuning.tile_shape(n_features, u8).route,
+                "fused_predict_plan": {
+                    n: tuning.fused_plan(n, 48, 8, 3, n_features, u8).route
+                    for n in CAPS_WIDE_ROWS},
                 "fused_planes": tuning.tile_shape(n_features, u8,
                                                   planes=True).route}})
         del ens, x, soa, dm, bp
         torch.cuda.empty_cache()
     out["features"] = cases
-    check({r for c in cases for r in c["routes"].values()}
-          == {"shared", "global"}, "the feature cases miss a route")
+    check({r for c in cases for k, r in c["routes"].items()
+           if k != "fused_predict_plan"} == {"shared", "global"},
+          "the feature cases miss a route")
 
     # --- the histogram past 64 stats: one launch a stat group
     rng = np.random.default_rng(SEED + CAPS_STATS)

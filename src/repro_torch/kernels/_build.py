@@ -43,6 +43,7 @@ _SIGNATURES = {
     "repro_leaf_index": (_PTR,) * 4 + (_LONG,) + (_INT,) * 6,
     "repro_leaf_gather": (_PTR,) * 3 + (_LONG,) + (_INT,) * 10,
     "repro_fused_predict": (_PTR,) * 7 + (_LONG,) + (_INT,) * 9,
+    "repro_fused_predict_spread": (_PTR,) * 6 + (_LONG,) + (_INT,) * 10,
     "repro_leaf_index_dm": (_PTR,) * 5 + (_LONG,) + (_INT,) * 6,
     "repro_leaf_index_bp": (_PTR,) * 4 + (_LONG,) + (_INT,) * 9,
     "repro_fused_predict_dm": (_PTR,) * 8 + (_LONG,) + (_INT,) * 9,

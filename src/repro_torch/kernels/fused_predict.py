@@ -18,6 +18,17 @@ does, so every route of one model gives bit-identical scores.  They take
 any number of outputs (a block walks its rows' output slabs in turn) and
 any number of features (`tuning.tile_shape`: the bins tile in shared
 memory up to the opt-in limit, an (N, F) scratch array past it).
+
+The soa kernel has two routes, which `tuning.fused_plan` picks from the
+shape (`route=` forces one): `row`, a thread a row walking every tree, 128
+rows a block, for many rows; and `spread`, for a serving bucket, whose
+blocks take N // 132 rows each (one at a 16-row bucket, 7 at 1,024) so
+the bucket fills the card, and walk the trees in chunks: the block's
+threads index a chunk's (row, tree) pairs, copy its leaf values into
+shared memory asynchronously, and lanes over (row, output) add them in
+tree order while the next chunk's copies are in flight.  Spread takes a
+shape only where its rows of bins fit shared memory; no route falls back
+to another.
 """
 from __future__ import annotations
 
@@ -25,7 +36,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.leaf_index import MAX_DEPTH
-from repro_torch.kernels.tuning import output_slabs, tile_shape
+from repro_torch.kernels.tuning import fused_plan, output_slabs, tile_shape
 
 
 def _launch_args(x: torch.Tensor, n_borders: int, c: int, planes: bool
@@ -66,16 +77,20 @@ def _check_fused_args(name: str, x, borders, planes, leaf_values,
 
 def fused_predict(x: torch.Tensor, borders: torch.Tensor,
                   split_features: torch.Tensor, split_bins: torch.Tensor,
-                  leaf_values: torch.Tensor) -> torch.Tensor:
+                  leaf_values: torch.Tensor, route: str | None = None
+                  ) -> torch.Tensor:
     """Fused GBDT predict -> (N, C) float32 raw tree sums.
 
     The bins of a row block stay on chip, as uint8 when B <= 255 and as
-    int32 otherwise.  A tensor on the CPU goes through the plain
-    version; a CUDA tensor launches the kernel (and adds one to
-    `fused_predict.launches`)."""
+    int32 otherwise.  `route` ("spread" or "row") forces one of the
+    kernel's routes; None lets `tuning.fused_plan` pick.  A tensor on the
+    CPU goes through the plain version; a CUDA tensor launches the kernel
+    (and adds one to `fused_predict.launches`)."""
     _check_fused_args("fused_predict", x, borders,
                       (split_features, split_bins), leaf_values,
                       *split_features.shape)
+    if route not in (None, "spread", "row"):
+        raise ValueError(f"route is spread, row or None, not {route!r}")
     if x.device.type == "cpu":
         return ref.fused_predict(x, borders, split_features, split_bins,
                                  leaf_values)
@@ -90,11 +105,20 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     c = leaf_values.shape[2]
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
-        u8, stride, rows, scratch, slab = _launch_args(x, n_borders, c,
-                                                       False)
-        _build.launch("repro_fused_predict", x.device, x, borders,
-                      split_features, split_bins, leaf_values, out, scratch,
-                      n, f, n_borders, t, d, c, u8, stride, rows, slab)
+        u8 = n_borders <= ref.MAX_U8_BORDERS
+        plan = fused_plan(n, t, d, c, f, u8, route)
+        if plan.route == "spread":
+            _build.launch("repro_fused_predict_spread", x.device, x,
+                          borders, split_features, split_bins, leaf_values,
+                          out, n, f, n_borders, t, d, c, int(u8), plan.rows,
+                          plan.threads, plan.trees_per_chunk, plan.slab)
+        else:
+            u8, stride, rows, scratch, slab = _launch_args(x, n_borders, c,
+                                                           False)
+            _build.launch("repro_fused_predict", x.device, x, borders,
+                          split_features, split_bins, leaf_values, out,
+                          scratch, n, f, n_borders, t, d, c, u8, stride,
+                          rows, slab)
         fused_predict.launches += 1
     return out
 

@@ -231,8 +231,11 @@ def test_wrappers_launch_at_33_outputs(launches):
     fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
                              _meta(d, t, dtype=torch.uint8), _meta(t, 8, c))
     assert [a[-1] for _, a in launches[1:]] == [17, 17, 17]     # the slab
-    assert all(a[6] is None for _, a in launches[1:2]) and \
-        launches[2][1][7] is None and launches[3][1][6] is None
+    # a 1,024-row bucket takes the soa kernel's spread route, which has no
+    # scratch argument; the dm and bp kernels' tiles need no scratch
+    assert launches[1][0] == "repro_fused_predict_spread" and not any(
+        isinstance(a, torch.Tensor) for a in launches[1][1][6:])
+    assert launches[2][1][7] is None and launches[3][1][6] is None
     assert sum(ops.launch_counts().values()) == 4
 
 
@@ -258,10 +261,14 @@ def test_wrappers_launch_past_the_feature_caps(launches):
     for f, n_borders in ((1533, 63), (1021, 63), (384, 300), (60_000, 63)):
         x, borders = _meta(n, f), _meta(n_borders, f)
         lv = _meta(t, 1 << d, 7)
-        fused_k.fused_predict(x, borders, _meta(t, d, dtype=i32),
-                              _meta(t, d, dtype=i32), lv)
+        # the plan's route at 64 rows is spread (one row of bins a block
+        # fits shared memory); the row route keeps the global scratch
+        for route in (None, "row"):
+            fused_k.fused_predict(x, borders, _meta(t, d, dtype=i32),
+                                  _meta(t, d, dtype=i32), lv, route=route)
         fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
                                  _meta(d, t, dtype=u8), lv)
+        assert launches[-3][0] == "repro_fused_predict_spread"
         global_route = f == 60_000
         scratch = launches[-2][1][6]
         assert (scratch is not None) == global_route

@@ -1,0 +1,273 @@
+"""The soa fused kernel's two routes (`csrc/fused_predict.cu`), on the CPU.
+
+The kernel takes a serving bucket on its `spread` route (a few rows a
+block, so the bucket fills the card; the trees in chunks whose leaf values
+are copied into shared memory and summed in tree order) and many rows on
+its `row` route (a thread a row).  The CPU cannot run either, so these
+tests pin what decides and launches them:
+
+  * `tuning.fused_plan` on hypothesis grids (N up to 200,000, T up to
+    2,000, depth up to 16, C up to 200, F up to 30,000, uint8 and int32
+    bins): its blocks cover every row once, its slabs every output once,
+    its shared memory stays within the opt-in limit less the runtime's
+    share, spread gives at least min(N, SM_COUNT) blocks where it is
+    chosen, and row is chosen wherever spread's smallest chunk does not
+    fit beside the block's rows of bins;
+  * the wrapper's launch, recorded on "meta" tensors, at 1, 16, 1,024 and
+    139,440 rows and C = 7 and 33, on the plan's route and on the forced
+    other one;
+  * on the CPU the wrapper is the plain version on either route, equal to
+    the JAX package's `fused_predict` within rtol = atol = 1e-4
+    (tests/test_differential.py:88: the port sums trees in another order
+    than XLA).
+
+The `cuda`-marked test holds both routes against each other and against
+the tree-order float32 sum bit for bit on the card, and skips here
+(`chip_smoke.py` holds them on the H100).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("hypothesis")
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref, tuning  # noqa: E402
+from repro_torch.kernels import fused_predict as fused_k  # noqa: E402
+
+torch.set_num_threads(1)
+
+GRID = settings(max_examples=200, deadline=None)
+LIMIT = tuning.SMEM_OPTIN_LIMIT - tuning.SMEM_RESERVED_PER_BLOCK
+
+
+def _covers(spans, n):
+    return [i for a, b in spans for i in range(a, b)] == list(range(n)) \
+        and all(b > a for a, b in spans)
+
+
+def _spread_fits(n_rows, depth, n_outputs, n_features, u8):
+    slab = tuning.output_slabs(n_outputs)[0][1]
+    rows = min(tuning.SPREAD_MAX_BLOCK_ROWS,
+               tuning.SPREAD_MAX_ACC * tuning.SPREAD_THREADS // slab,
+               max(1, n_rows // tuning.SM_COUNT))
+    return tuning.spread_smem_bytes(rows, 1, slab, depth, n_features,
+                                    1 if u8 else 4) <= LIMIT
+
+
+# --------------------------------------------------------------------------
+# The plan
+# --------------------------------------------------------------------------
+@GRID
+@given(n_rows=st.integers(1, 200_000), n_trees=st.integers(1, 2000),
+       depth=st.integers(1, 16), n_outputs=st.integers(1, 200),
+       n_features=st.integers(1, 30_000), u8=st.booleans())
+def test_fused_plan_covers_rows_and_outputs(n_rows, n_trees, depth,
+                                            n_outputs, n_features, u8):
+    plan = tuning.fused_plan(n_rows, n_trees, depth, n_outputs, n_features,
+                             u8)
+    spans = tuning.output_slabs(n_outputs)
+    assert _covers(spans, n_outputs)
+    assert plan.n_slabs == len(spans) and plan.slab == spans[0][1]
+    assert plan.n_blocks * plan.rows >= n_rows
+    assert (plan.n_blocks - 1) * plan.rows < n_rows
+    fits = _spread_fits(n_rows, depth, n_outputs, n_features, u8)
+    assert (plan.route == "spread") == (fits and n_rows
+                                        <= tuning.SPREAD_MAX_ROWS)
+    if plan.route == "spread":
+        assert plan.smem_bytes <= LIMIT
+        assert plan.smem_bytes == tuning.spread_smem_bytes(
+            plan.rows, plan.trees_per_chunk, plan.slab, depth, n_features,
+            1 if u8 else 4)
+        assert plan.n_blocks >= min(n_rows, tuning.SM_COUNT)
+        assert 1 <= plan.rows <= tuning.SPREAD_MAX_BLOCK_ROWS
+        assert 1 <= plan.trees_per_chunk <= n_trees
+        assert plan.rows * plan.trees_per_chunk <= max(
+            tuning.SPREAD_PAIRS, plan.rows)
+        assert plan.threads % 32 == 0
+        assert plan.rows * plan.slab <= tuning.SPREAD_MAX_ACC * plan.threads
+        assert plan.tile is None
+    else:
+        assert plan.tile == tuning.tile_shape(n_features, u8)
+        assert plan.rows == plan.threads == plan.tile.rows
+        assert plan.smem_bytes == plan.tile.smem_bytes
+        assert plan.smem_bytes <= tuning.SMEM_OPTIN_LIMIT
+
+
+@GRID
+@given(n_rows=st.integers(1, 200_000), n_trees=st.integers(1, 2000),
+       depth=st.integers(1, 16), n_outputs=st.integers(1, 200),
+       n_features=st.integers(1, 30_000), u8=st.booleans())
+def test_fused_plan_forced_routes(n_rows, n_trees, depth, n_outputs,
+                                  n_features, u8):
+    row = tuning.fused_plan(n_rows, n_trees, depth, n_outputs, n_features,
+                            u8, route="row")
+    assert row.route == "row" and row.trees_per_chunk == n_trees
+    if _spread_fits(n_rows, depth, n_outputs, n_features, u8):
+        plan = tuning.fused_plan(n_rows, n_trees, depth, n_outputs,
+                                 n_features, u8, route="spread")
+        assert plan.route == "spread" and plan.smem_bytes <= LIMIT
+        assert plan.n_blocks >= min(n_rows, tuning.SM_COUNT)
+    else:
+        with pytest.raises(ValueError, match="spread route"):
+            tuning.fused_plan(n_rows, n_trees, depth, n_outputs, n_features,
+                              u8, route="spread")
+
+
+def test_the_documented_fused_plans():
+    bucket = tuning.fused_plan(1024, 1000, 8, 7, 54, True)
+    assert (bucket.route, bucket.rows, bucket.n_blocks,
+            bucket.trees_per_chunk) == ("spread", 7, 147, 128)
+    single = tuning.fused_plan(16, 1000, 8, 7, 54, True)
+    assert (single.route, single.rows, single.n_blocks,
+            single.trees_per_chunk) == ("spread", 1, 16, 1000)
+    bulk = tuning.fused_plan(139_440, 1000, 8, 7, 54, True)
+    assert (bulk.route, bulk.rows, bulk.n_blocks) == ("row", 128, 1090)
+    knn = tuning.fused_plan(2841, 1000, 4, 20, 533, True)
+    assert (knn.route, knn.rows, knn.n_blocks) == ("spread", 21, 136)
+    assert tuning.spread_pitch(128, 7) % 32 == 7
+    with pytest.raises(ValueError, match="route"):
+        tuning.fused_plan(16, 10, 3, 7, 5, True, route="wide")
+
+
+def test_one_int32_row_past_shared_memory_keeps_the_row_route():
+    # 60,000 int32 bins are 240 KB: not one row fits beside a chunk
+    plan = tuning.fused_plan(16, 100, 8, 7, 60_000, False)
+    assert plan.route == "row" and plan.tile.route == "global"
+    # 30,000 int32 bins (120 KB) fit one row a block
+    assert tuning.fused_plan(16, 100, 8, 7, 30_000, False).route == "spread"
+    assert tuning.fused_plan(1024, 100, 8, 7, 30_000, False).route == "row"
+
+
+# --------------------------------------------------------------------------
+# The wrapper's launch
+# --------------------------------------------------------------------------
+@pytest.fixture
+def launches(monkeypatch):
+    """Record each launch on "meta" tensors instead of making it."""
+    made = []
+    monkeypatch.setattr(_build, "check_cuda_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, device, *a: made.append((name, a)))
+    ops.reset_launch_counts()
+    return made
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("n_rows", (1, 16, 1024, 139_440))
+@pytest.mark.parametrize("n_outputs", (7, 33))
+def test_wrapper_launches_the_plan(launches, n_rows, n_outputs):
+    t, d, f, n_borders = 1000, 8, 54, 63
+    i32 = torch.int32
+    args = (_meta(n_rows, f), _meta(n_borders, f), _meta(t, d, dtype=i32),
+            _meta(t, d, dtype=i32), _meta(t, 1 << d, n_outputs))
+    plan = tuning.fused_plan(n_rows, t, d, n_outputs, f, True)
+    other = "row" if plan.route == "spread" else "spread"
+    for route in (None, other):
+        out = fused_k.fused_predict(*args, route=route)
+        assert out.shape == (n_rows, n_outputs)
+    (first, a), (second, b) = launches
+    assert a[:5] == args and b[:5] == args
+    assert a[5].shape == (n_rows, n_outputs)
+    slab = tuning.output_slabs(n_outputs)[0][1]
+    spread = tuning.fused_plan(n_rows, t, d, n_outputs, f, True, "spread")
+    tile = tuning.tile_shape(f, True)
+    want = {"repro_fused_predict_spread": (
+                n_rows, f, n_borders, t, d, n_outputs, 1, spread.rows,
+                spread.threads, spread.trees_per_chunk, slab),
+            "repro_fused_predict": (
+                None, n_rows, f, n_borders, t, d, n_outputs, 1, tile.stride,
+                tile.rows, slab)}
+    name = {"spread": "repro_fused_predict_spread",
+            "row": "repro_fused_predict"}
+    assert (first, second) == (name[plan.route], name[other])
+    assert a[6:] == want[first] and b[6:] == want[second]
+    assert plan.route == ("spread" if n_rows <= 1024 else "row")
+    assert fused_k.fused_predict.launches == 2
+
+
+def test_wrapper_refuses_a_spread_that_does_not_fit(launches):
+    i32 = torch.int32
+    args = (_meta(16, 60_000), _meta(300, 60_000), _meta(4, 3, dtype=i32),
+            _meta(4, 3, dtype=i32), _meta(4, 8, 7))
+    with pytest.raises(ValueError, match="spread route"):
+        fused_k.fused_predict(*args, route="spread")
+    fused_k.fused_predict(*args)
+    (name, a), = launches
+    assert name == "repro_fused_predict" and a[6].shape == (16, 60_000)
+    assert fused_k.fused_predict.launches == 1
+
+
+# --------------------------------------------------------------------------
+# On the CPU: the plain version on either route, against the JAX package
+# --------------------------------------------------------------------------
+def _case(n, f, n_borders, t, d, c, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[rng.random(x.shape) < 0.05] = np.nan
+    borders = np.sort(rng.normal(size=(n_borders, f)), 0).astype(np.float32)
+    sf = rng.integers(0, f, (t, d)).astype(np.int32)
+    sb = rng.integers(1, n_borders + 1, (t, d)).astype(np.int32)
+    sb[rng.random(sb.shape) < 0.1] = ops.PAD_SPLIT_BIN
+    lv = rng.normal(size=(t, 1 << d, c)).astype(np.float32)
+    return x, borders, sf, sb, lv
+
+
+@pytest.mark.parametrize("n_outputs", (1, 7, 20, 33))
+@pytest.mark.parametrize("n_borders", (9, 300))
+def test_both_routes_match_jax_on_the_cpu(n_outputs, n_borders):
+    arrays = _case(17, 6, n_borders, 11, 4, n_outputs, seed=n_outputs)
+    want = np.asarray(jref.fused_predict(*map(jnp.asarray, arrays)))
+    tens = [torch.from_numpy(a) for a in arrays]
+    plain = ref.fused_predict(*tens)
+    for route in (None, "spread", "row"):
+        got = fused_k.fused_predict(*tens, route=route)
+        assert torch.equal(got, plain)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="route"):
+        fused_k.fused_predict(*tens, route="wide")
+
+
+# --------------------------------------------------------------------------
+# On the card
+# --------------------------------------------------------------------------
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(chip_smoke.py holds both routes on the H100)")
+    return torch.device("cuda")
+
+
+def _tree_order_sum(idx, lv):
+    acc = torch.zeros((idx.shape[0], lv.shape[2]), device=idx.device)
+    for t in range(idx.shape[1]):
+        acc += lv[t][idx[:, t].long()]
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_outputs", (1, 7, 20, 33))
+@pytest.mark.parametrize("n_borders", (63, 300))
+def test_both_routes_are_the_tree_order_sum_on_the_card(card, n_outputs,
+                                                        n_borders):
+    x, borders, sf, sb, lv = (torch.from_numpy(a).to(card) for a in _case(
+        1024, 54, n_borders, 300, 8, n_outputs, seed=n_borders))
+    for n in (1, 16, 17, 1024):
+        xn = x[:n]
+        idx = ref.leaf_index(ref.binarize(xn, borders), sf, sb)
+        exact = _tree_order_sum(idx, lv)
+        routes = [fused_k.fused_predict(xn, borders, sf, sb, lv, route=r)
+                  for r in ("spread", "row")]
+        assert torch.equal(routes[0], exact) and torch.equal(routes[1],
+                                                             exact)
+        np.testing.assert_allclose(
+            routes[0].cpu().numpy(),
+            ref.fused_predict(*(a.cpu() for a in (xn, borders, sf, sb, lv)))
+            .numpy(), rtol=1e-4, atol=1e-4)
