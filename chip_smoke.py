@@ -75,7 +75,11 @@ It checks:
     kernels equal it at C = 33); so do fused_predict's spread and row
     routes (so each equals the other) at every row count above, at the
     kNN head's C = 20 and at C = 33, and each route that takes a caps
-    shape past the feature caps gives the plan's route's bits;
+    shape past the feature caps gives the plan's route's bits; so do
+    fused_predict_dm's spread and row routes, each also equal to soa's
+    route of the same name on the same model, at every row count above and
+    at C = 33, and each dm route that takes a caps shape past the feature
+    caps gives soa's plan's bits;
   * caps: at C = 33 the fused, pool and staged routes of every layout
     give the same bits, depth_major = soa, bitpacked = depth_grouped and
     one-group bitpacked fused = soa fused; every index kernel equals its
@@ -91,8 +95,11 @@ could take (`bound_ms`, from the leaf rows the inputs touch): the serving
 kernels at the bulk shape and the 1,024-row bucket, the histogram at each
 level, the distance kernels at the test split's shape (the matrix also at
 4,096 x 22,464; TF32 off for its `addmm` yardstick), leaf_gather on both
-of its routes at both shapes, fused_predict on both of its routes at both
-shapes, at the 16-row bucket and at the kNN head;
+of its routes at both shapes, fused_predict and fused_predict_dm on both
+of their routes at both shapes and at the 16-row bucket (each also as the
+kernel's device time: CUDA events opened behind a spacer kernel, and
+`torch.profiler`'s where it sees the card), fused_predict also at the
+kNN head;
 profiles 10 training trees;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
@@ -134,7 +141,8 @@ U = 2.0 ** -24          # unit roundoff of float32
 K_SIGMA = 8.0           # width of the float limit, in rounding walks
 TREE_TILE = 32          # the padding the tree-padding timings try
 PAIR_ROUNDS = 7         # alternating rounds when timing two versions
-FUSED_ROUTES = ("spread", "row")   # the soa fused kernel's routes
+SPACER_CYCLES = 2_000_000   # about 1 ms of card clock ahead of a timed launch
+FUSED_ROUTES = ("spread", "row")   # the soa and dm fused kernels' routes
 RESUME_TREES, RESUME_AT = 20, 10   # a run checkpointed at 10 and resumed
 SPLIT_CHECK_TREES = 5   # trees whose splits are checked level by level
 HIST_SMALL_ROWS = (1000, 17)       # partial row chunks and blocks
@@ -282,6 +290,50 @@ def time_ms(fn, reps: int, flush) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def fused_device_ms(fn, flush, reps: int = 10) -> tuple[float, float | None]:
+    """Device time of the one fused kernel `fn` launches, L2 flushed
+    before each launch: the kernel alone.  `time_ms`'s event window also
+    holds the host's work before the launch, which at a serving bucket is
+    about as long as the kernel.
+
+    Returns the median of CUDA event windows that open only once the
+    launch is queued: a `torch.cuda._sleep` spacer keeps the card busy
+    while the host does the wrapper's work, and a sample whose start event
+    had already fired when the host returned is dropped and the spacer
+    doubled.  Beside it, the mean kernel time `torch.profiler` reports,
+    or None where the profiler sees no device events (another tool may
+    hold the card's tracing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    times, cycles = [], SPACER_CYCLES
+    while len(times) < reps:
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        late = start.query()
+        end.record()
+        end.synchronize()
+        if late:
+            cycles *= 2
+            check(cycles <= 64 * SPACER_CYCLES, "the host never queued a "
+                  "fused launch before its spacer ran out")
+            continue
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if "fused" in e.key)
+    return float(np.median(times)), (total / reps / 1e3 if total else None)
 
 
 def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
@@ -476,10 +528,12 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
             n, t, d, c, x.shape[1], borders.shape[0] <= 255).route,
             "bound_ms": bound(small["bytes"], small["ops"])[0]}
         for route in FUSED_ROUTES:
-            timing[f"{route}_ms"] = time_ms(
-                lambda xn=xn, r=route: fused_predict(xn, borders, sf, sb, lv,
-                                                     route=r),
-                20 if label == "bulk" else 50, flush)
+            fn = (lambda xn=xn, r=route: fused_predict(xn, borders, sf, sb,
+                                                       lv, route=r))
+            timing[f"{route}_ms"] = time_ms(fn, 20 if label == "bulk"
+                                            else 50, flush)
+            (timing[f"{route}_device_ms"],
+             timing[f"{route}_profiled_ms"]) = fused_device_ms(fn, flush)
         fused["routes"][label] = timing
     fused["single_ms"] = fused["routes"]["single"][
         f"{fused['routes']['single']['plan']}_ms"]
@@ -602,25 +656,30 @@ def check_binarize_odd_tables(x, borders, check_rows):
             "nan_border_column": 2}
 
 
-def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
+def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
                                   launches, check_rows: tuple[int, ...]):
     """Hold the depth_major and bitpacked kernels against their plain
     versions on the card at each row count in `check_rows`, then time
     them at the bulk shape and at the largest serving bucket.
 
-    `dm` and `bp` are the truncated model's depth_major and bitpacked
-    layouts (8 depth groups, uint8 threshold planes except the int32
-    group of the clamped depth-0 trees), `bp_one` the untruncated model's
-    bitpacked layout (one group).  leaf_index_bp runs on every group of
-    `bp` and on the one group with its planes as uint8 and widened to
-    int32, each from uint8 and int32 bins; fused_predict_bp on the one
-    group with both plane dtypes."""
+    `soa`, `dm` and `bp` are the truncated model's soa, depth_major and
+    bitpacked layouts (8 depth groups, uint8 threshold planes except the
+    int32 group of the clamped depth-0 trees), `bp_one` the untruncated
+    model's bitpacked layout (one group).  leaf_index_bp runs on every
+    group of `bp` and on the one group with its planes as uint8 and
+    widened to int32, each from uint8 and int32 bins; fused_predict_bp on
+    the one group with both plane dtypes.  fused_predict_dm's spread and
+    row routes must each give the tree-order sum and soa's routes' scores
+    bit for bit; both are timed at the bulk shape, the largest bucket and
+    the smallest, beside the route the plan picks."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.binarize import binarize
-    from repro_torch.kernels.fused_predict import (fused_predict_bp,
+    from repro_torch.kernels.fused_predict import (fused_predict,
+                                                   fused_predict_bp,
                                                    fused_predict_dm)
     from repro_torch.kernels.leaf_index import leaf_index_bp, leaf_index_dm
+    from repro_torch.kernels.tuning import fused_plan
 
     dev = dm.borders.device
     x = torch.as_tensor(x_test, device=dev)
@@ -652,6 +711,20 @@ def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
                       f"depth {sf.shape[0]}, {kind}) differs from its "
                       "plain version")
         idx = ref.leaf_index_depth_major(b8, *dm_planes)
+        # both of fused_predict_dm's routes are the tree-order sum and
+        # soa's routes, bit for bit
+        exact = tree_order_sum(idx, dm.leaf_values)
+        for route in FUSED_ROUTES:
+            got = fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values,
+                                   route=route)
+            check(torch.equal(got, exact), f"fused_predict_dm ({route}) at "
+                  f"{n} rows is not the tree-order sum")
+            check(torch.equal(got, fused_predict(
+                xn, borders, soa.split_features, soa.split_bins,
+                soa.leaf_values, route=route)),
+                  f"fused_predict_dm ({route}) at {n} rows differs from soa "
+                  "fused_predict's")
+        del exact, got
         err, share = compare_sums(
             f"fused_predict_dm at {n} rows",
             fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values),
@@ -740,6 +813,28 @@ def check_and_time_layout_kernels(x_test: np.ndarray, dm, bp, bp_one,
             "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
             "bucket_bound_by": bound(small["bytes"], small["ops"])[1],
         })
+    # fused_predict_dm's two routes at the bulk shape, the largest bucket
+    # and the single-request bucket, and the one its plan picks at each
+    fused = next(row for row in rows if row["name"] == "fused_predict_dm")
+    fused["routes"] = {}
+    d, t = dm_planes[0].shape
+    for label, n in (("bulk", len(x)), ("bucket", MAX_BATCH),
+                     ("single", check_rows[-1])):
+        xn = x[:n]
+        small = cases(n)["fused_predict_dm"]
+        timing = {"rows": n, "plan": fused_plan(
+            n, t, d, c, n_feat, n_b <= 255, planes=True).route,
+            "bound_ms": bound(small["bytes"], small["ops"])[0]}
+        for route in FUSED_ROUTES:
+            fn = (lambda xn=xn, r=route: fused_predict_dm(
+                xn, borders, *dm_planes, dm.leaf_values, route=r))
+            timing[f"{route}_ms"] = time_ms(fn, 20 if label == "bulk"
+                                            else 50, flush)
+            (timing[f"{route}_device_ms"],
+             timing[f"{route}_profiled_ms"]) = fused_device_ms(fn, flush)
+        fused["routes"][label] = timing
+    fused["single_ms"] = fused["routes"]["single"][
+        f"{fused['routes']['single']['plan']}_ms"]
     return rows, of_limit
 
 
@@ -1660,12 +1755,15 @@ def tree_order_sum(idx, leaf_values):
     return acc
 
 
-def spread_fits(n_rows: int, n_features: int, u8: bool) -> bool:
-    """Whether the spread route takes a caps model (48 trees of depth 8,
-    3 outputs) at this shape."""
+def spread_fits(n_rows: int, n_features: int, u8: bool,
+                planes: bool = False) -> bool:
+    """Whether the spread route of the soa (or, with `planes`, the dm)
+    fused kernel takes a caps model (48 trees of depth 8, 3 outputs) at
+    this shape."""
     from repro_torch.kernels import tuning
     try:
-        tuning.fused_plan(n_rows, 48, 8, 3, n_features, u8, route="spread")
+        tuning.fused_plan(n_rows, 48, 8, 3, n_features, u8, route="spread",
+                          planes=planes)
     except ValueError:
         return False
     return True
@@ -1676,9 +1774,11 @@ def check_caps() -> dict:
     version: C = 33 on every route and layout (fused = pool = staged,
     depth_major = soa, bitpacked = depth_grouped, one-group bitpacked
     fused = soa fused, bit for bit), leaf_gather's staged and direct
-    routes bit for bit against the tree-order sum; every index and fused
-    kernel one feature past its old cap and past the opt-in limit, uint8
-    and int32 bins and planes; the histogram at 66 stats (two launches)
+    routes and the soa and dm fused kernels' spread and row routes bit for
+    bit against the tree-order sum; every index and fused kernel one
+    feature past its old cap and past the opt-in limit, uint8 and int32
+    bins and planes (each soa and dm fused route that takes the shape
+    giving soa's plan's bits); the histogram at 66 stats (two launches)
     bit for bit against `ref.histogram_fixed`.  Returns what was run."""
     import torch
     from repro_torch.core import layout as tlayout
@@ -1767,10 +1867,15 @@ def check_caps() -> dict:
                   "tree-order sum")
             held(f"{name} at C = {CAPS_OUTPUTS}, {n} rows", got, want, limit)
         for route in FUSED_ROUTES:
-            check(torch.equal(fused_predict(xn, borders, sf, sb, lv,
-                                            route=route), exact),
+            got = fused_predict(xn, borders, sf, sb, lv, route=route)
+            check(torch.equal(got, exact),
                   f"fused_predict ({route}) at C = {CAPS_OUTPUTS}, {n} rows "
                   "is not the tree-order sum")
+            check(torch.equal(fused_predict_dm(xn, borders, *dm_planes,
+                                               dm.leaf_values, route=route),
+                              got),
+                  f"fused_predict_dm ({route}) at C = {CAPS_OUTPUTS}, {n} "
+                  "rows differs from soa's")
 
     # --- rows past each old cap and past the opt-in limit
     cases = []
@@ -1819,11 +1924,20 @@ def check_caps() -> dict:
                     route=route), got),
                       f"fused_predict ({route}) at {what} differs from the "
                       "plan's route")
-            del got, want
             held(f"fused_predict_dm at {what}",
                  fused_predict_dm(xn, borders, *dm_planes, dm.leaf_values),
                  ref.fused_predict_depth_major(xn, borders, *dm_planes,
                                                dm.leaf_values), limit)
+            # every dm route that takes the shape gives soa's plan's bits
+            for route in FUSED_ROUTES:
+                if route == "spread" and not spread_fits(n, n_features, u8,
+                                                         planes=True):
+                    continue
+                check(torch.equal(fused_predict_dm(
+                    xn, borders, *dm_planes, dm.leaf_values, route=route),
+                    got), f"fused_predict_dm ({route}) at {what} differs "
+                          "from soa's")
+            del got, want
             for p in planes:
                 held(f"fused_predict_bp at {what}",
                      fused_predict_bp(xn, borders, bp.split_features_bp, p,
@@ -1843,13 +1957,17 @@ def check_caps() -> dict:
                 "fused_predict_plan": {
                     n: tuning.fused_plan(n, 48, 8, 3, n_features, u8).route
                     for n in CAPS_WIDE_ROWS},
+                "fused_predict_dm_plan": {
+                    n: tuning.fused_plan(n, 48, 8, 3, n_features, u8,
+                                         planes=True).route
+                    for n in CAPS_WIDE_ROWS},
                 "fused_planes": tuning.tile_shape(n_features, u8,
                                                   planes=True).route}})
         del ens, x, soa, dm, bp
         torch.cuda.empty_cache()
     out["features"] = cases
     check({r for c in cases for k, r in c["routes"].items()
-           if k != "fused_predict_plan"} == {"shared", "global"},
+           if not k.endswith("_plan")} == {"shared", "global"},
           "the feature cases miss a route")
 
     # --- the histogram past 64 stats: one launch a stat group
@@ -2135,7 +2253,8 @@ def main() -> None:
     kernels, control, tree_padding = check_and_time_kernels(
         x_test, paths["soa"]["plan"], launches, check_rows)
     layout_kernels, layout_of_limit = check_and_time_layout_kernels(
-        x_test, paths["depth_major"]["plan"].lowered,
+        x_test, paths["soa"]["plan"].lowered,
+        paths["depth_major"]["plan"].lowered,
         paths["bitpacked"]["plan"].lowered,
         paths["bitpacked_one_group"]["plan"].lowered, launches, check_rows)
     hist_row["launches"] = launches["histogram"]

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time the soa fused kernel's two routes over a range of row counts on
-the card, and check each against the tree-order float32 sum bit for bit.
+"""Time the soa and depth_major fused kernels' two routes over a range of
+row counts on the card, and check each against the tree-order float32 sum
+bit for bit.
 
     python3 scripts/fused_route_sweep.py [--rows 16,1024,139440]
-        [--pairs 1024,2048] [--threads 256] [--out build/sweep.json]
+        [--layout soa,depth_major] [--pairs 1024,2048] [--threads 256]
+        [--out build/sweep.json]
 
 The model is numpy-seeded at the Covertype serving shape (1,000 trees of
 depth 8, 7 outputs, 54 features, 63 borders) and, with `--knn`, also at
 the kNN head's (1,000 trees of depth 4, 20 outputs, 533 features).  For
-each shape, each row count and each spread setting (`--pairs`: the (row,
-tree) pairs a chunk, `tuning.SPREAD_PAIRS`; `--threads`: a block's
-threads), it prints the plan's route and both routes' median CUDA-event
-times with L2 flushed (as `chip_smoke.py` times), the kernel's own device
-time from `torch.profiler`, and the time a launch of 20 back to back:
-what `kernels/tuning.py fused_plan` is set from (its SPREAD_MAX_ROWS).
-One JSON object a line; the last line is the card.  Needs one CUDA card.
+each layout (`--layout`: soa, whose kernel reads (T, D) split rows, and
+depth_major, whose kernel reads the same splits as (D, T) planes with
+level weights 2^d), each shape, each row count and each spread setting
+(`--pairs`: the (row, tree) pairs a chunk, `tuning.SPREAD_PAIRS`;
+`--threads`: a block's threads), it prints the plan's route and both
+routes' median CUDA-event times with L2 flushed (as `chip_smoke.py`
+times), the kernel's own device time from `torch.profiler`, and the time
+a launch of 20 back to back: what `kernels/tuning.py fused_plan` is set
+from (its SPREAD_MAX_ROWS).  The layouts of one model alternate row count
+by row count, so their times come from one stretch of the card.  One JSON
+object a line; the last line is the card.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -49,6 +55,8 @@ def main() -> None:
                         "8192,16384,32768,139440")
     parser.add_argument("--pairs", default="1024")
     parser.add_argument("--threads", default="512")
+    parser.add_argument("--layout", default="soa",
+                        help="comma-separated: soa, depth_major")
     parser.add_argument("--knn", action="store_true")
     parser.add_argument("--reps", type=int, default=30)
     parser.add_argument("--out", default=None)
@@ -58,7 +66,12 @@ def main() -> None:
         sys.exit("fused_route_sweep: needs a CUDA card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import ref, tuning
-    from repro_torch.kernels.fused_predict import fused_predict
+    from repro_torch.kernels.fused_predict import (fused_predict,
+                                                   fused_predict_dm)
+    layouts = args.layout.split(",")
+    if not set(layouts) <= {"soa", "depth_major"}:
+        sys.exit(f"fused_route_sweep: --layout takes soa and depth_major, "
+                 f"not {args.layout}")
 
     def time_ms(fn, flush):
         fn()
@@ -110,9 +123,12 @@ def main() -> None:
 
     from repro_torch.kernels import _build
     _build.library()
+    entry = ""          # the kernel the ptxas lines below belong to
     for line in _build.build_info.get("log", "").splitlines():
-        if "fused" in line and ("registers" in line or "Compiling" in line
-                                or "spill" in line):
+        if "Compiling" in line:
+            entry = line
+        if "fused" in entry and ("registers" in line or "Compiling" in line
+                                 or "spill" in line):
             print(f"ptxas {line.strip()}")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = [int(r) for r in args.rows.split(",")]
@@ -123,6 +139,16 @@ def main() -> None:
             **dims, n=max(rows)).items()}
         x, borders, sf, sb, lv = (arrays[k] for k in
                                   ("x", "borders", "sf", "sb", "lv"))
+        # depth_major's lowering of the same splits: (D, T) planes and
+        # level weights 2^d (src/repro_torch/core/layout.py)
+        sf_dm, sb_dm = sf.t().contiguous(), sb.t().contiguous()
+        pow2 = (2.0 ** torch.arange(dims["d"], device="cuda")
+                ).reshape(-1, 1).float()
+        kernels = {
+            "soa": lambda xn, r: fused_predict(xn, borders, sf, sb, lv,
+                                               route=r),
+            "depth_major": lambda xn, r: fused_predict_dm(
+                xn, borders, sf_dm, sb_dm, pow2, lv, route=r)}
         for pairs in (int(p) for p in args.pairs.split(",")):
             for threads in (int(t) for t in args.threads.split(",")):
                 tuning.SPREAD_PAIRS, tuning.SPREAD_THREADS = pairs, threads
@@ -130,30 +156,32 @@ def main() -> None:
                     xn = x[:n]
                     exact = tree_order_sum(
                         ref.leaf_index(ref.binarize(xn, borders), sf, sb), lv)
-                    line = {"shape": shape, "rows": n, "pairs": pairs,
-                            "threads": threads}
-                    plan = tuning.fused_plan(n, dims["t"], dims["d"],
-                                             dims["c"], dims["f"], True)
-                    spread = tuning.fused_plan(n, dims["t"], dims["d"],
-                                               dims["c"], dims["f"], True,
-                                               "spread")
-                    line.update(plan=plan.route, spread_rows=spread.rows,
-                                spread_chunk=spread.trees_per_chunk,
-                                spread_blocks=spread.n_blocks,
-                                spread_smem=spread.smem_bytes)
-                    for route in ("spread", "row"):
-                        got = fused_predict(xn, borders, sf, sb, lv,
-                                            route=route)
-                        if not torch.equal(got, exact):
-                            sys.exit(f"fused_route_sweep: {route} at {n} "
-                                     "rows is not the tree-order sum")
-                        fn = (lambda r=route: fused_predict(
-                            xn, borders, sf, sb, lv, route=r))
-                        line[f"{route}_ms"] = time_ms(fn, flush)
-                        line[f"{route}_kernel_ms"] = kernel_ms(fn, flush)
-                        line[f"{route}_loop_ms"] = loop_ms(fn)
-                    print(json.dumps(line), flush=True)
-                    lines.append(line)
+                    for layout in layouts:
+                        planes = layout == "depth_major"
+                        line = {"layout": layout, "shape": shape, "rows": n,
+                                "pairs": pairs, "threads": threads}
+                        plan = tuning.fused_plan(
+                            n, dims["t"], dims["d"], dims["c"], dims["f"],
+                            True, planes=planes)
+                        spread = tuning.fused_plan(
+                            n, dims["t"], dims["d"], dims["c"], dims["f"],
+                            True, "spread", planes=planes)
+                        line.update(plan=plan.route, spread_rows=spread.rows,
+                                    spread_chunk=spread.trees_per_chunk,
+                                    spread_blocks=spread.n_blocks,
+                                    spread_smem=spread.smem_bytes)
+                        for route in ("spread", "row"):
+                            fn = (lambda k=kernels[layout], r=route:
+                                  k(xn, r))
+                            if not torch.equal(fn(), exact):
+                                sys.exit(f"fused_route_sweep: {layout} "
+                                         f"{route} at {n} rows is not the "
+                                         "tree-order sum")
+                            line[f"{route}_ms"] = time_ms(fn, flush)
+                            line[f"{route}_kernel_ms"] = kernel_ms(fn, flush)
+                            line[f"{route}_loop_ms"] = loop_ms(fn)
+                        print(json.dumps(line), flush=True)
+                        lines.append(line)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True

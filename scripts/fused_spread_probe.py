@@ -4,7 +4,9 @@
     python3 scripts/fused_spread_probe.py [--out build/probe.jsonl]
 
 Copies `src/repro_torch/kernels/csrc/` into `build/fused_spread_probe/`,
-adds `clock64()` stamps to `fused_spread_kernel` (block 0, thread 0: after
+adds `clock64()` stamps to `fused_spread_kernel` (`fused_spread.cuh`;
+read back through two functions added to `fused_predict.cu`, the soa
+kernel's source; block 0, thread 0: after
 stage 1's binarize, after the first chunk's index, and in each chunk after
 the copies are issued, after the sum of the chunk before, after each of
 the two barriers' waits and the next chunk's index), builds that copy
@@ -33,16 +35,10 @@ STAMPS = 512
 
 
 def patched_source(text: str) -> str:
-    """The kernel source with the stamps in."""
+    """The spread route's header with the stamps in.  The stamps are
+    `static`: each source that includes the header has its own."""
     head = text.index("namespace {\n")
-    text = (text[:head] + f"""__device__ unsigned long long g_probe[{STAMPS}];
-extern "C" int repro_probe_read(void* dst) {{
-  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));
-}}
-extern "C" int repro_probe_clear() {{
-  static const unsigned long long zero[{STAMPS}] = {{}};
-  return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
-}}
+    text = (text[:head] + f"""static __device__ unsigned long long g_probe[{STAMPS}];
 #define STAMP(k) do {{ if (blockIdx.x == 0 && threadIdx.x == 0 && \\
   (k) < {STAMPS}) g_probe[(k)] = clock64(); }} while (0)
 """ + text[head:])
@@ -73,6 +69,18 @@ extern "C" int repro_probe_clear() {{
                      f"no single anchor {anchor!r}")
         text = text.replace(anchor, new)
     return text
+
+
+# The soa kernel's stamps, read and cleared from the host.
+READERS = f"""
+extern "C" int repro_probe_read(void* dst) {{
+  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));
+}}
+extern "C" int repro_probe_clear() {{
+  static const unsigned long long zero[{STAMPS}] = {{}};
+  return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
+}}
+"""
 
 
 def phases(cycles: dict[int, int]) -> dict:
@@ -112,8 +120,10 @@ def main() -> None:
     src = ROOT / "build" / "fused_spread_probe" / "csrc"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC, src)
-    kernel = src / "fused_predict.cu"
-    kernel.write_text(patched_source(kernel.read_text()))
+    header = src / "fused_spread.cuh"
+    header.write_text(patched_source(header.read_text()))
+    with open(src / "fused_predict.cu", "a") as fh:
+        fh.write(READERS)
     _build.CSRC, _build.BUILD_DIR = src, src.parent / "lib"
     lib = _build.library()
     lib.repro_probe_read.argtypes = [ctypes.c_void_p]

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "repro_leaf_index_dm": (_PTR,) * 5 + (_LONG,) + (_INT,) * 6,
     "repro_leaf_index_bp": (_PTR,) * 4 + (_LONG,) + (_INT,) * 9,
     "repro_fused_predict_dm": (_PTR,) * 8 + (_LONG,) + (_INT,) * 9,
+    "repro_fused_predict_dm_spread": (_PTR,) * 7 + (_LONG,) + (_INT,) * 10,
     "repro_fused_predict_bp": (_PTR,) * 7 + (_LONG,) + (_INT,) * 10,
     "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
                         _INT, _INT, _INT, _INT, _INT, _INT, _INT),

@@ -1,17 +1,19 @@
-// Fused prediction over (D, T) split planes, shared by fused_predict_dm.cu
-// (depth_major: int32 planes, level weights pow2) and fused_predict_bp.cu
-// (bitpacked: int32 features, uint8 or int32 thresholds, 32-row compare
-// words).  Both layouts hold the splits as planes, row d = every tree's
-// level-d split; they differ only in how a level's compare enters the
-// index, which `kBitpacked` selects.
+// The row route of the fused kernels over (D, T) split planes: the only
+// route of fused_predict_bp.cu (bitpacked: int32 features, uint8 or int32
+// thresholds, 32-row compare words) and the row route of
+// fused_predict_dm.cu (depth_major: int32 planes, level weights pow2),
+// whose serving buckets take fused_spread.cuh instead.  Both layouts hold
+// the splits as planes, row d = every tree's level-d split; they differ
+// only in how a level's compare enters the index, which `kBitpacked`
+// selects.
 //
-// The structure is fused_predict.cu's: a block binarizes its rows of x
-// into a shared bins tile once (uint8 when <= 255 borders, int32
+// The structure is fused_predict.cu's row route: a block binarizes its rows
+// of x into a shared bins tile once (uint8 when <= 255 borders, int32
 // otherwise; odd-word row stride, so a warp's 32 rows at one feature sit
 // in 32 banks), then each thread walks every tree for its own row, sums
 // the leaf values in tree order, one add per tree, and writes its C
-// outputs: no atomics, and the same sums, bit for bit, as fused_predict.cu
-// and leaf_gather.cu give the same model.
+// outputs: no atomics, and the same sums, bit for bit, as fused_predict.cu,
+// fused_spread.cuh and leaf_gather.cu give the same model.
 //
 // What the planes change: a thread reads tree t's level-d split at
 // plane[d * T + t], T * 4 bytes from tree t's next level, so reading the
@@ -21,9 +23,12 @@
 // both planes), and every thread then reads the split of the tree it is
 // on as a broadcast.
 //
-// What bounds it on an H100: operations, as fused_predict.cu: D shared
-// loads and compares plus C leaf loads per (row, tree), about 2.6e9 at
-// N = 139,440, T = 1,000, D = 8, C = 7, against 41 MB of bytes.
+// What bounds it on an H100: operations in bulk, as fused_predict.cu: D
+// shared loads and compares plus C leaf loads per (row, tree), about 2.6e9
+// at N = 139,440, T = 1,000, D = 8, C = 7, against 41 MB of bytes.  At a
+// serving bucket a block costs one thread's serial walk of the T trees,
+// so a 1,024-row bucket (8 blocks on 132 SMs) takes about as long as the
+// bulk call: what the spread route is for.
 //
 // Any C and any F, as fused_predict.cu: the block walks its rows' output
 // slabs in turn (each summed in tree order, the planes restaged a slab),

@@ -7,10 +7,21 @@
 // feature with a matmul against the lowered (T, D, F) f32 one-hot and
 // weighs the compare bits with the f32 pow2 vector on the MXU; here a
 // thread reads its bins from shared memory at the split feature itself
-// (the port lowers no one-hot) and adds the weights as integers.  The
-// kernel is fused_planes.cuh with int32 planes; its design and what bounds
-// it are described there.
+// (the port lowers no one-hot) and adds the weights as integers.
+//
+// It computes soa's function from soa's model (the lowering sets pow2[d]
+// = 2^d), so it has soa's two routes, which kernels/tuning.py fused_plan
+// (planes=True) picks from the shape:
+//   * row (many rows): fused_planes.cuh with int32 planes, a thread a row
+//     walking every tree, the planes staged a chunk of trees at a time;
+//   * spread (a serving bucket): fused_spread.cuh with kPlanes, N / 132
+//     rows a block, row d of a chunk's splits copied from the contiguous
+//     slice of plane d.
+// Their designs and what bounds them are described in the two headers.
+// Both sum every (row, output) in tree order, one add a tree from 0.0f, so
+// both routes give soa's scores bit for bit.
 #include "fused_planes.cuh"
+#include "fused_spread.cuh"
 
 // x (n_rows, n_feat) f32; borders (n_borders, n_feat) f32; sf_dm, sb_dm
 // (depth, n_trees) int32 with every sf in [0, n_feat) and depth <=
@@ -50,4 +61,21 @@ extern "C" int repro_fused_predict_dm(const void* x, const void* borders,
   return launch_fused_planes<int32_t, int32_t, false>(
       blocks, rows_per_block, s, xp, bp, sfp, sbp, wp, lp, op, scratch,
       n_rows, n_feat, n_borders, n_trees, depth, n_out, stride, slab);
+}
+
+// The spread route (fused_spread.cuh): the arguments of
+// repro_fused_predict_spread, with (depth, n_trees) planes and the (depth,
+// 1) f32 level weights pow2; `rows_per_block` rows and `threads` threads a
+// block, the trees in chunks of `chunk`, outputs in slabs of `slab` <= 32
+// (kernels/tuning.py fused_plan).
+extern "C" int repro_fused_predict_dm_spread(
+    const void* x, const void* borders, const void* sf_dm, const void* sb_dm,
+    const void* pow2, const void* lv, void* out, long long n_rows,
+    int n_feat, int n_borders, int n_trees, int depth, int n_out,
+    int bins_u8, int rows_per_block, int threads, int chunk, int slab,
+    int device, void* stream) {
+  return spread_launcher<true>(x, borders, sf_dm, sb_dm, pow2, lv, out,
+                               n_rows, n_feat, n_borders, n_trees, depth,
+                               n_out, bins_u8, rows_per_block, threads,
+                               chunk, slab, device, stream);
 }

@@ -19,16 +19,18 @@ any number of outputs (a block walks its rows' output slabs in turn) and
 any number of features (`tuning.tile_shape`: the bins tile in shared
 memory up to the opt-in limit, an (N, F) scratch array past it).
 
-The soa kernel has two routes, which `tuning.fused_plan` picks from the
-shape (`route=` forces one): `row`, a thread a row walking every tree, 128
-rows a block, for many rows; and `spread`, for a serving bucket, whose
-blocks take N // 132 rows each (one at a 16-row bucket, 7 at 1,024) so
-the bucket fills the card, and walk the trees in chunks: the block's
-threads index a chunk's (row, tree) pairs, copy its leaf values into
-shared memory asynchronously, and lanes over (row, output) add them in
-tree order while the next chunk's copies are in flight.  Spread takes a
-shape only where its rows of bins fit shared memory; no route falls back
-to another.
+The soa and depth_major kernels have two routes each, which
+`tuning.fused_plan` picks from the shape (`route=` forces one): `row`, a
+thread a row walking every tree, 128 rows a block, for many rows; and
+`spread` (`csrc/fused_spread.cuh`, one source for both layouts), for a
+serving bucket, whose blocks take N // 132 rows each (one at a 16-row
+bucket, 7 at 1,024) so the bucket fills the card, and walk the trees in
+chunks: the block's threads index a chunk's (row, tree) pairs, copy its
+leaf values into shared memory asynchronously, and lanes over (row,
+output) add them in tree order while the next chunk's copies are in
+flight.  Spread takes a shape only where its rows of bins fit shared
+memory; no route falls back to another.  The bitpacked kernel keeps the
+row route only.
 """
 from __future__ import annotations
 
@@ -54,6 +56,11 @@ def _launch_args(x: torch.Tensor, n_borders: int, c: int, planes: bool
                               dtype=torch.uint8 if u8 else torch.int32)
     slab = output_slabs(c)[0]
     return int(u8), plan.stride, plan.rows, scratch, slab[1] - slab[0]
+
+
+def _check_route(route: str | None) -> None:
+    if route not in (None, "spread", "row"):
+        raise ValueError(f"route is spread, row or None, not {route!r}")
 
 
 def _check_fused_args(name: str, x, borders, planes, leaf_values,
@@ -89,8 +96,7 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     _check_fused_args("fused_predict", x, borders,
                       (split_features, split_bins), leaf_values,
                       *split_features.shape)
-    if route not in (None, "spread", "row"):
-        raise ValueError(f"route is spread, row or None, not {route!r}")
+    _check_route(route)
     if x.device.type == "cpu":
         return ref.fused_predict(x, borders, split_features, split_bins,
                                  leaf_values)
@@ -129,15 +135,19 @@ fused_predict.launches = 0
 def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
                      split_features_dm: torch.Tensor,
                      split_bins_dm: torch.Tensor, pow2: torch.Tensor,
-                     leaf_values: torch.Tensor) -> torch.Tensor:
+                     leaf_values: torch.Tensor, route: str | None = None
+                     ) -> torch.Tensor:
     """Fused GBDT predict over the depth-major (D, T) int32 planes and
     (D, 1) f32 level weights -> (N, C) float32 raw tree sums.
 
-    A tensor on the CPU goes through the plain version; a CUDA tensor
-    launches the kernel (and adds one to `fused_predict_dm.launches`)."""
+    `route` ("spread" or "row") forces one of the kernel's routes; None
+    lets `tuning.fused_plan(..., planes=True)` pick.  A tensor on the CPU
+    goes through the plain version; a CUDA tensor launches the kernel (and
+    adds one to `fused_predict_dm.launches`)."""
     d, t = split_features_dm.shape
     _check_fused_args("fused_predict_dm", x, borders,
                       (split_features_dm, split_bins_dm), leaf_values, t, d)
+    _check_route(route)
     if pow2.shape != (d, 1):
         raise ValueError(f"pow2 must be (D, 1) = ({d}, 1), got "
                          f"{tuple(pow2.shape)}")
@@ -152,15 +162,25 @@ def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
         split_bins_dm=(split_bins_dm, torch.int32),
         pow2=(pow2, torch.float32), leaf_values=(leaf_values, torch.float32))
     n, f = x.shape
+    n_borders = borders.shape[0]
     c = leaf_values.shape[2]
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
-        u8, stride, rows, scratch, slab = _launch_args(x, borders.shape[0],
-                                                       c, True)
-        _build.launch("repro_fused_predict_dm", x.device, x, borders,
-                      split_features_dm, split_bins_dm, pow2, leaf_values,
-                      out, scratch, n, f, borders.shape[0], t, d, c, u8,
-                      stride, rows, slab)
+        u8 = n_borders <= ref.MAX_U8_BORDERS
+        plan = fused_plan(n, t, d, c, f, u8, route, planes=True)
+        if plan.route == "spread":
+            _build.launch("repro_fused_predict_dm_spread", x.device, x,
+                          borders, split_features_dm, split_bins_dm, pow2,
+                          leaf_values, out, n, f, n_borders, t, d, c,
+                          int(u8), plan.rows, plan.threads,
+                          plan.trees_per_chunk, plan.slab)
+        else:
+            u8, stride, rows, scratch, slab = _launch_args(x, n_borders, c,
+                                                           True)
+            _build.launch("repro_fused_predict_dm", x.device, x, borders,
+                          split_features_dm, split_bins_dm, pow2,
+                          leaf_values, out, scratch, n, f, n_borders, t, d,
+                          c, u8, stride, rows, slab)
         fused_predict_dm.launches += 1
     return out
 

@@ -439,29 +439,38 @@ def gather_plan(n_rows: int, n_trees: int, n_leaves: int, n_outputs: int,
 
 
 # --------------------------------------------------------------------------
-# csrc/fused_predict.cu (soa)
+# csrc/fused_predict.cu (soa) and csrc/fused_predict_dm.cu (depth_major)
 # --------------------------------------------------------------------------
-# Two routes.  `row`: one thread a row walks every tree (tile_shape's bins
-# tile, FUSED_MAX_ROWS rows a block).  `spread`: a block of a few rows
-# binarizes them into shared memory, then walks the trees in chunks; its
-# threads compute the (row, tree) indexes of a chunk, gather the chunk's
-# leaf values into a shared buffer with asynchronous copies, and lanes
-# over (row, output) add them in tree order while the next chunk's copies
-# are in flight.  A serving bucket then fills the card: N // SM_COUNT rows
-# a block.  Threads and pairs a chunk were set from
-# scripts/fused_route_sweep.py on the H100 (PERF.md §6): 512 threads
-# beat 256 by 23-31% at the kNN head's 533 features and lose up to 6% at
-# Covertype's 54.
-SPREAD_THREADS = 512               # csrc/fused_predict.cu kSpreadMaxThreads
+# Two routes each.  `row`: one thread a row walks every tree (tile_shape's
+# bins tile, FUSED_MAX_ROWS rows a block; csrc/fused_planes.cuh for dm).
+# `spread` (csrc/fused_spread.cuh, one source for both): a block of a few
+# rows binarizes them into shared memory, then walks the trees in chunks;
+# its threads compute the (row, tree) indexes of a chunk, gather the
+# chunk's leaf values into a shared buffer with asynchronous copies, and
+# lanes over (row, output) add them in tree order while the next chunk's
+# copies are in flight.  A serving bucket then fills the card: N //
+# SM_COUNT rows a block.  The dm spread block stages a chunk's splits from
+# its (D, T) planes into the same shared layout and holds its level
+# weights in SPREAD_WEIGHT_BYTES of static shared memory.  Threads and
+# pairs a chunk were set from scripts/fused_route_sweep.py on the H100
+# (PERF.md §6): 512 threads beat 256 by 23-31% at the kNN head's 533
+# features and lose up to 6% at Covertype's 54.
+SPREAD_THREADS = 512               # csrc/fused_spread.cuh kSpreadMaxThreads
 SPREAD_MAX_BLOCK_ROWS = 32         # rows a spread block binarizes at most
 SPREAD_PAIRS = 1024                # (row, tree) pairs a chunk, at most
-SPREAD_MAX_ACC = 4                 # csrc/fused_predict.cu kSpreadMaxAcc
+SPREAD_MAX_ACC = 4                 # csrc/fused_spread.cuh kSpreadMaxAcc
 # Rows up to which the plan takes the spread route: the row route's
 # 128-row blocks fill the 132 SMs from 16,896 rows on, and the sweep found
 # spread faster up to 16,384 rows on both shapes, slower at the kNN head
 # from 32,768 and on both at 139,440.
 SPREAD_MAX_ROWS = 16_384
+# The dm kernel's: its row route is slower than soa's at the kNN head, and
+# the sweep with `--layout depth_major` found spread faster up to 32,768
+# rows on both shapes, at parity at 40,960 on Covertype's and slower from
+# 49,152 there (PERF.md §6).
+SPREAD_MAX_ROWS_DM = 32_768
 SPREAD_SMEM_LIMIT = SMEM_OPTIN_LIMIT - SMEM_RESERVED_PER_BLOCK
+SPREAD_WEIGHT_BYTES = 4 * 16       # the dm kernel's kMaxDepth int32 weights
 
 
 def _align16(n: int) -> int:
@@ -479,7 +488,7 @@ def spread_pitch(chunk: int, slab: int) -> int:
 
 def spread_smem_bytes(rows: int, chunk: int, slab: int, depth: int,
                       n_features: int, bin_bytes: int) -> int:
-    """Dynamic shared memory of a spread block, as csrc/fused_predict.cu
+    """Dynamic shared memory of a spread block, as csrc/fused_spread.cuh
     lays it out: two leaf-value buffers, the chunk's (row, tree) indexes,
     its (D, chunk) plane of (split feature, split bin) pairs, the bins
     tile."""
@@ -490,11 +499,13 @@ def spread_smem_bytes(rows: int, chunk: int, slab: int, depth: int,
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """One soa fused launch: `n_blocks` blocks of `threads` threads, each
-    owning `rows` rows; output slabs of `slab` (`n_slabs` of them).  Spread
-    blocks walk the trees `trees_per_chunk` at a time in `smem_bytes` of
-    shared memory; row blocks (a thread a row) walk them all and hold the
-    bins tile of `tile` (its global route past the opt-in limit)."""
+    """One soa or dm fused launch: `n_blocks` blocks of `threads` threads,
+    each owning `rows` rows; output slabs of `slab` (`n_slabs` of them).
+    Spread blocks walk the trees `trees_per_chunk` at a time in
+    `smem_bytes` of dynamic shared memory (the dm kernel adds
+    SPREAD_WEIGHT_BYTES of static); row blocks (a thread a row) walk them
+    all and hold the bins tile of `tile` (its global route past the opt-in
+    limit)."""
     route: str
     rows: int
     threads: int
@@ -507,18 +518,21 @@ class FusedPlan:
 
 
 def fused_plan(n_rows: int, n_trees: int, depth: int, n_outputs: int,
-               n_features: int, u8: bool, route: str | None = None
-               ) -> FusedPlan:
-    """The soa fused launch.  `route=None` picks spread up to
-    SPREAD_MAX_ROWS rows where its smallest chunk fits shared memory
-    beside the block's rows of bins, row otherwise; "spread" raises where
-    it does not fit.  Spread: R = N // SM_COUNT rows a block (1 to
+               n_features: int, u8: bool, route: str | None = None,
+               planes: bool = False) -> FusedPlan:
+    """The fused launch of soa (`planes` False) or depth_major (`planes`
+    True: (D, T) split planes and level weights).  `route=None` picks
+    spread up to SPREAD_MAX_ROWS rows (SPREAD_MAX_ROWS_DM for
+    depth_major) where its smallest chunk fits shared memory beside the
+    block's rows of bins, row otherwise; "spread" raises where it does not
+    fit.  Spread: R = N // SM_COUNT rows a block (1 to
     SPREAD_MAX_BLOCK_ROWS), so the blocks reach min(N, SM_COUNT); trees a
     chunk up to SPREAD_PAIRS // R, in whole warps from 32 on, as many as
     fit (counted with each buffer's padding at its most).  At the
     1,024-row bucket (T = 1,000, depth 8, C = 7, 54 uint8 features): 7
     rows a block, 147 blocks of 512 threads, 128 trees a chunk; at 16
-    rows one row a block and 1,000 trees a chunk."""
+    rows one row a block and 1,000 trees a chunk; on either layout.  Row:
+    `tile_shape(n_features, u8, planes)`."""
     if route not in (None, "spread", "row"):
         raise ValueError(f"route is spread, row or None, not {route!r}")
     spans = output_slabs(max(n_outputs, 1))
@@ -527,30 +541,31 @@ def fused_plan(n_rows: int, n_trees: int, depth: int, n_outputs: int,
     rows = min(SPREAD_MAX_BLOCK_ROWS, SPREAD_MAX_ACC * SPREAD_THREADS // slab,
                max(1, n_rows // SM_COUNT))
     n_trees, depth = max(n_trees, 1), max(depth, 0)
+    limit = SPREAD_SMEM_LIMIT - (SPREAD_WEIGHT_BYTES if planes else 0)
 
     fits = spread_smem_bytes(rows, 1, slab, depth, n_features,
-                             bin_bytes) <= SPREAD_SMEM_LIMIT
+                             bin_bytes) <= limit
     if route == "spread" and not fits:
         raise ValueError(
             f"{rows} rows of {n_features} bins and one tree's leaf values "
-            f"pass {SPREAD_SMEM_LIMIT} bytes of shared memory: the spread "
-            "route does not take this shape")
-    if route == "spread" or (route is None and fits
-                             and n_rows <= SPREAD_MAX_ROWS):
+            f"pass {limit} bytes of shared memory: the spread route does "
+            "not take this shape")
+    max_rows = SPREAD_MAX_ROWS_DM if planes else SPREAD_MAX_ROWS
+    if route == "spread" or (route is None and fits and n_rows <= max_rows):
         # spread_smem_bytes at its most: each buffer padded by 15 bytes,
         # each row of leaf values by 31 words
         fixed = (_align16(rows * n_features * bin_bytes)
                  + 2 * (rows * 31 * 4 + 15) + 30)
         per_tree = 8 * rows * slab + 4 * rows + 8 * depth
         chunk = max(1, min(n_trees, SPREAD_PAIRS // rows,
-                           (SPREAD_SMEM_LIMIT - fixed) // per_tree))
+                           (limit - fixed) // per_tree))
         if 32 <= chunk < n_trees:
             chunk = chunk // 32 * 32
         return FusedPlan("spread", rows, SPREAD_THREADS, chunk, slab,
                          len(spans), -(-n_rows // rows),
                          spread_smem_bytes(rows, chunk, slab, depth,
                                            n_features, bin_bytes))
-    tile = tile_shape(n_features, u8)
+    tile = tile_shape(n_features, u8, planes)
     return FusedPlan("row", tile.rows, tile.rows, n_trees, slab, len(spans),
                      -(-n_rows // tile.rows), tile.smem_bytes, tile)
 

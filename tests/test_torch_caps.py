@@ -231,11 +231,13 @@ def test_wrappers_launch_at_33_outputs(launches):
     fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
                              _meta(d, t, dtype=torch.uint8), _meta(t, 8, c))
     assert [a[-1] for _, a in launches[1:]] == [17, 17, 17]     # the slab
-    # a 1,024-row bucket takes the soa kernel's spread route, which has no
-    # scratch argument; the dm and bp kernels' tiles need no scratch
+    # a 1,024-row bucket takes the soa and dm kernels' spread routes,
+    # which have no scratch argument; the bp kernel's tile needs no scratch
     assert launches[1][0] == "repro_fused_predict_spread" and not any(
         isinstance(a, torch.Tensor) for a in launches[1][1][6:])
-    assert launches[2][1][7] is None and launches[3][1][6] is None
+    assert launches[2][0] == "repro_fused_predict_dm_spread" and not any(
+        isinstance(a, torch.Tensor) for a in launches[2][1][7:])
+    assert launches[3][1][6] is None
     assert sum(ops.launch_counts().values()) == 4
 
 

@@ -1,6 +1,8 @@
-"""The soa fused kernel's two routes (`csrc/fused_predict.cu`), on the CPU.
+"""The soa and depth_major fused kernels' two routes
+(`csrc/fused_predict.cu`, `csrc/fused_predict_dm.cu`, whose spread routes
+share `csrc/fused_spread.cuh`), on the CPU.
 
-The kernel takes a serving bucket on its `spread` route (a few rows a
+Each kernel takes a serving bucket on its `spread` route (a few rows a
 block, so the bucket fills the card; the trees in chunks whose leaf values
 are copied into shared memory and summed in tree order) and many rows on
 its `row` route (a thread a row).  The CPU cannot run either, so these
@@ -8,22 +10,26 @@ tests pin what decides and launches them:
 
   * `tuning.fused_plan` on hypothesis grids (N up to 200,000, T up to
     2,000, depth up to 16, C up to 200, F up to 30,000, uint8 and int32
-    bins): its blocks cover every row once, its slabs every output once,
-    its shared memory stays within the opt-in limit less the runtime's
-    share, spread gives at least min(N, SM_COUNT) blocks where it is
-    chosen, and row is chosen wherever spread's smallest chunk does not
-    fit beside the block's rows of bins;
-  * the wrapper's launch, recorded on "meta" tensors, at 1, 16, 1,024 and
-    139,440 rows and C = 7 and 33, on the plan's route and on the forced
-    other one;
-  * on the CPU the wrapper is the plain version on either route, equal to
-    the JAX package's `fused_predict` within rtol = atol = 1e-4
-    (tests/test_differential.py:88: the port sums trees in another order
-    than XLA).
+    bins), for soa and for dm (`planes=True`): its blocks cover every row
+    once, its slabs every output once, its shared memory stays within the
+    opt-in limit less the runtime's share (and, on dm, the level weights'
+    static bytes), spread gives at least min(N, SM_COUNT) blocks where it
+    is chosen, and row is chosen wherever spread's smallest chunk does not
+    fit beside the block's rows of bins; the dm row route's tile is
+    `tile_shape(..., planes=True)`;
+  * each wrapper's launch, recorded on "meta" tensors, at 1, 16, 1,024
+    and 139,440 rows and C = 7 and 33, on the plan's route and on the
+    forced other one;
+  * on the CPU each wrapper is the plain version on either route, equal to
+    the JAX package's `fused_predict` / `fused_predict_dm` within rtol =
+    atol = 1e-4 (tests/test_differential.py:88: the port sums trees in
+    another order than XLA); dm also against the JAX Pallas kernel in
+    interpret mode on a tiny case.
 
-The `cuda`-marked test holds both routes against each other and against
-the tree-order float32 sum bit for bit on the card, and skips here
-(`chip_smoke.py` holds them on the H100).
+The `cuda`-marked tests hold both routes against each other and against
+the tree-order float32 sum bit for bit on the card, dm's also against
+soa's on the same model, and skip here (`chip_smoke.py` holds them on the
+H100).
 """
 import numpy as np
 import pytest
@@ -34,7 +40,12 @@ from hypothesis import given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import layout as jlayout  # noqa: E402
+from repro.core import trees as jtrees  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import registry as jregistry  # noqa: E402
+from repro_torch.core import layout as tlayout  # noqa: E402
+from repro_torch.core import trees as ttrees  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, tuning  # noqa: E402
 from repro_torch.kernels import fused_predict as fused_k  # noqa: E402
 
@@ -49,13 +60,15 @@ def _covers(spans, n):
         and all(b > a for a, b in spans)
 
 
-def _spread_fits(n_rows, depth, n_outputs, n_features, u8):
+def _spread_fits(n_rows, depth, n_outputs, n_features, u8, planes=False):
     slab = tuning.output_slabs(n_outputs)[0][1]
     rows = min(tuning.SPREAD_MAX_BLOCK_ROWS,
                tuning.SPREAD_MAX_ACC * tuning.SPREAD_THREADS // slab,
                max(1, n_rows // tuning.SM_COUNT))
+    # the dm kernel's level weights are static shared memory
+    static = tuning.SPREAD_WEIGHT_BYTES if planes else 0
     return tuning.spread_smem_bytes(rows, 1, slab, depth, n_features,
-                                    1 if u8 else 4) <= LIMIT
+                                    1 if u8 else 4) + static <= LIMIT
 
 
 # --------------------------------------------------------------------------
@@ -142,6 +155,109 @@ def test_one_int32_row_past_shared_memory_keeps_the_row_route():
     assert tuning.fused_plan(1024, 100, 8, 7, 30_000, False).route == "row"
 
 
+@GRID
+@given(n_rows=st.integers(1, 200_000), n_trees=st.integers(1, 2000),
+       depth=st.integers(1, 16), n_outputs=st.integers(1, 200),
+       n_features=st.integers(1, 30_000), u8=st.booleans())
+def test_dm_fused_plan_covers_rows_and_outputs(n_rows, n_trees, depth,
+                                               n_outputs, n_features, u8):
+    plan = tuning.fused_plan(n_rows, n_trees, depth, n_outputs, n_features,
+                             u8, planes=True)
+    spans = tuning.output_slabs(n_outputs)
+    assert plan.n_slabs == len(spans) and plan.slab == spans[0][1]
+    assert plan.n_blocks * plan.rows >= n_rows
+    assert (plan.n_blocks - 1) * plan.rows < n_rows
+    fits = _spread_fits(n_rows, depth, n_outputs, n_features, u8, True)
+    assert (plan.route == "spread") == (fits and n_rows
+                                        <= tuning.SPREAD_MAX_ROWS_DM)
+    if plan.route == "spread":
+        assert plan.smem_bytes + tuning.SPREAD_WEIGHT_BYTES <= LIMIT
+        assert plan.smem_bytes == tuning.spread_smem_bytes(
+            plan.rows, plan.trees_per_chunk, plan.slab, depth, n_features,
+            1 if u8 else 4)
+        assert plan.n_blocks >= min(n_rows, tuning.SM_COUNT)
+        assert 1 <= plan.rows <= tuning.SPREAD_MAX_BLOCK_ROWS
+        assert 1 <= plan.trees_per_chunk <= n_trees
+        assert plan.rows * plan.trees_per_chunk <= max(
+            tuning.SPREAD_PAIRS, plan.rows)
+        assert plan.threads % 32 == 0
+        assert plan.rows * plan.slab <= tuning.SPREAD_MAX_ACC * plan.threads
+        assert plan.tile is None
+        # the spread half is soa's, but for the weights' 64 bytes
+        soa = tuning.fused_plan(n_rows, n_trees, depth, n_outputs,
+                                n_features, u8, route="spread")
+        assert (soa.rows, soa.threads, soa.n_blocks, soa.slab) == (
+            plan.rows, plan.threads, plan.n_blocks, plan.slab)
+        assert soa.trees_per_chunk >= plan.trees_per_chunk
+    else:
+        assert plan.tile == tuning.tile_shape(n_features, u8, planes=True)
+        assert plan.rows == plan.threads == plan.tile.rows
+        assert plan.smem_bytes == plan.tile.smem_bytes
+        assert plan.smem_bytes <= tuning.SMEM_OPTIN_LIMIT
+        assert plan.trees_per_chunk == n_trees
+
+
+@GRID
+@given(n_rows=st.integers(1, 200_000), n_trees=st.integers(1, 2000),
+       depth=st.integers(1, 16), n_outputs=st.integers(1, 200),
+       n_features=st.integers(1, 30_000), u8=st.booleans())
+def test_dm_fused_plan_forced_routes(n_rows, n_trees, depth, n_outputs,
+                                     n_features, u8):
+    row = tuning.fused_plan(n_rows, n_trees, depth, n_outputs, n_features,
+                            u8, route="row", planes=True)
+    assert row.route == "row" and row.trees_per_chunk == n_trees
+    assert row.tile == tuning.tile_shape(n_features, u8, planes=True)
+    if _spread_fits(n_rows, depth, n_outputs, n_features, u8, True):
+        plan = tuning.fused_plan(n_rows, n_trees, depth, n_outputs,
+                                 n_features, u8, route="spread", planes=True)
+        assert plan.route == "spread"
+        assert plan.smem_bytes + tuning.SPREAD_WEIGHT_BYTES <= LIMIT
+        assert plan.n_blocks >= min(n_rows, tuning.SM_COUNT)
+    else:
+        with pytest.raises(ValueError, match="spread route"):
+            tuning.fused_plan(n_rows, n_trees, depth, n_outputs, n_features,
+                              u8, route="spread", planes=True)
+
+
+def test_the_documented_dm_fused_plans():
+    def plan(n, *args, **kw):
+        return tuning.fused_plan(n, 1000, 8, 7, 54, True, *args,
+                                 planes=True, **kw)
+    bucket = plan(1024)
+    assert (bucket.route, bucket.rows, bucket.n_blocks, bucket.threads,
+            bucket.trees_per_chunk) == ("spread", 7, 147, 512, 128)
+    single = plan(16)
+    assert (single.route, single.rows, single.n_blocks,
+            single.trees_per_chunk) == ("spread", 1, 16, 1000)
+    bulk = plan(139_440)
+    assert (bulk.route, bulk.rows, bulk.n_blocks) == ("row", 128, 1090)
+    assert bulk.tile == tuning.tile_shape(54, True, planes=True)
+    # dm's threshold is its own (set from the route sweep on the card)
+    assert tuning.SPREAD_MAX_ROWS_DM == 32_768 > tuning.SPREAD_MAX_ROWS
+    assert plan(tuning.SPREAD_MAX_ROWS_DM).route == "spread"
+    assert plan(tuning.SPREAD_MAX_ROWS_DM + 1).route == "row"
+    assert tuning.fused_plan(tuning.SPREAD_MAX_ROWS + 1, 1000, 8, 7, 54,
+                             True).route == "row"
+    # on the spread route dm's plan is soa's at these shapes
+    for n in (16, 1024):
+        assert plan(n) == tuning.fused_plan(n, 1000, 8, 7, 54, True)
+    knn = tuning.fused_plan(2841, 1000, 4, 20, 533, True, planes=True)
+    assert (knn.route, knn.rows, knn.n_blocks) == ("spread", 21, 136)
+    with pytest.raises(ValueError, match="route"):
+        tuning.fused_plan(16, 10, 3, 7, 5, True, route="wide", planes=True)
+
+
+def test_the_dm_weights_take_their_bytes_from_the_limit():
+    # the widest uint8 row a one-row soa spread block takes, past it dm's
+    def fits(f, planes):
+        return tuning.fused_plan(16, 100, 8, 7, f, True,
+                                 planes=planes).route == "spread"
+    widest = max(f for f in range(225_000, 232_448)
+                 if _spread_fits(16, 8, 7, f, True))
+    assert fits(widest, False) and not fits(widest + 1, False)
+    assert not fits(widest, True) and fits(widest - 64, True)
+
+
 # --------------------------------------------------------------------------
 # The wrapper's launch
 # --------------------------------------------------------------------------
@@ -204,6 +320,56 @@ def test_wrapper_refuses_a_spread_that_does_not_fit(launches):
     assert fused_k.fused_predict.launches == 1
 
 
+@pytest.mark.parametrize("n_rows", (1, 16, 1024, 139_440))
+@pytest.mark.parametrize("n_outputs", (7, 33))
+def test_dm_wrapper_launches_the_plan(launches, n_rows, n_outputs):
+    t, d, f, n_borders = 1000, 8, 54, 63
+    i32 = torch.int32
+    args = (_meta(n_rows, f), _meta(n_borders, f), _meta(d, t, dtype=i32),
+            _meta(d, t, dtype=i32), _meta(d, 1), _meta(t, 1 << d, n_outputs))
+    plan = tuning.fused_plan(n_rows, t, d, n_outputs, f, True, planes=True)
+    other = "row" if plan.route == "spread" else "spread"
+    for route in (None, other):
+        out = fused_k.fused_predict_dm(*args, route=route)
+        assert out.shape == (n_rows, n_outputs)
+    (first, a), (second, b) = launches
+    assert a[:6] == args and b[:6] == args
+    assert a[6].shape == (n_rows, n_outputs)
+    slab = tuning.output_slabs(n_outputs)[0][1]
+    spread = tuning.fused_plan(n_rows, t, d, n_outputs, f, True, "spread",
+                               planes=True)
+    tile = tuning.tile_shape(f, True, planes=True)
+    want = {"repro_fused_predict_dm_spread": (
+                n_rows, f, n_borders, t, d, n_outputs, 1, spread.rows,
+                spread.threads, spread.trees_per_chunk, slab),
+            "repro_fused_predict_dm": (
+                None, n_rows, f, n_borders, t, d, n_outputs, 1, tile.stride,
+                tile.rows, slab)}
+    name = {"spread": "repro_fused_predict_dm_spread",
+            "row": "repro_fused_predict_dm"}
+    assert (first, second) == (name[plan.route], name[other])
+    assert a[7:] == want[first] and b[7:] == want[second]
+    assert plan.route == ("spread" if n_rows <= 1024 else "row")
+    assert fused_k.fused_predict_dm.launches == 2
+    assert fused_k.fused_predict.launches == 0
+
+
+def test_dm_wrapper_refuses_a_spread_that_does_not_fit(launches):
+    i32 = torch.int32
+    args = (_meta(16, 60_000), _meta(300, 60_000), _meta(3, 4, dtype=i32),
+            _meta(3, 4, dtype=i32), _meta(3, 1), _meta(4, 8, 7))
+    with pytest.raises(ValueError, match="spread route"):
+        fused_k.fused_predict_dm(*args, route="spread")
+    with pytest.raises(ValueError, match="route"):
+        fused_k.fused_predict_dm(*args, route="wide")
+    assert launches == []
+    fused_k.fused_predict_dm(*args)
+    (name, a), = launches
+    assert name == "repro_fused_predict_dm" and a[7].shape == (16, 60_000)
+    assert a[7].dtype == torch.int32
+    assert fused_k.fused_predict_dm.launches == 1
+
+
 # --------------------------------------------------------------------------
 # On the CPU: the plain version on either route, against the JAX package
 # --------------------------------------------------------------------------
@@ -232,6 +398,61 @@ def test_both_routes_match_jax_on_the_cpu(n_outputs, n_borders):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="route"):
         fused_k.fused_predict(*tens, route="wide")
+
+
+def _dm_layouts(x, borders, sf, sb, lv):
+    """The JAX package's depth_major lowering (backend "ref") and the
+    port's, of one model."""
+    n_borders = np.full((borders.shape[1],), borders.shape[0], np.int32)
+    jens = jtrees.ObliviousEnsemble(*map(jnp.asarray, (sf, sb, lv, borders,
+                                                       n_borders)))
+    tens = ttrees.ObliviousEnsemble(*(torch.from_numpy(a) for a in (
+        sf, sb, lv, borders, n_borders)))
+    return (jlayout.lower(jens, "depth_major", backend="ref"),
+            tlayout.lower(tens, "depth_major"))
+
+
+def _dm_args(dm, x):
+    return (torch.from_numpy(x), dm.borders, dm.split_features_dm,
+            dm.split_bins_dm, dm.pow2, dm.leaf_values)
+
+
+@pytest.mark.parametrize("n_outputs", (1, 7, 20, 33))
+@pytest.mark.parametrize("n_borders", (9, 300))
+def test_dm_routes_match_jax_on_the_cpu(n_outputs, n_borders):
+    arrays = _case(17, 6, n_borders, 11, 4, n_outputs, seed=n_outputs + 50)
+    jdm, dm = _dm_layouts(*arrays)
+    x = arrays[0]
+    want = np.asarray(jref.fused_predict_depth_major(
+        jnp.asarray(x), jdm.borders, jdm.onehot, jdm.split_bins_dm, jdm.pow2,
+        jdm.leaf_values))
+    args = _dm_args(dm, x)
+    plain = ref.fused_predict_depth_major(*args)
+    # depth_major is soa's function on soa's model
+    soa = ref.fused_predict(*(torch.from_numpy(a) for a in arrays))
+    assert torch.equal(plain, soa)
+    launched = fused_k.fused_predict_dm.launches
+    for route in (None, "spread", "row"):
+        got = fused_k.fused_predict_dm(*args, route=route)
+        assert torch.equal(got, plain)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert fused_k.fused_predict_dm.launches == launched   # no kernel
+
+
+@pytest.mark.parametrize("n_borders", (9, 300))
+def test_dm_routes_match_pallas_interpret(n_borders):
+    # tiny: Pallas interprets on the CPU (<= 10 trees, depth <= 3, <= 8 rows)
+    arrays = _case(8, 5, n_borders, 10, 3, 7, seed=n_borders)
+    jdm, dm = _dm_layouts(*arrays)
+    x = arrays[0]
+    want = np.asarray(jregistry.get("fused_predict", "pallas_dm").fn(
+        jnp.asarray(x), jdm.borders, jdm.onehot, jdm.split_bins_dm, jdm.pow2,
+        jdm.leaf_values))
+    args = _dm_args(dm, x)
+    for route in (None, "spread", "row"):
+        np.testing.assert_allclose(
+            fused_k.fused_predict_dm(*args, route=route).numpy(), want,
+            rtol=1e-4, atol=1e-4)
 
 
 # --------------------------------------------------------------------------
@@ -271,3 +492,24 @@ def test_both_routes_are_the_tree_order_sum_on_the_card(card, n_outputs,
             routes[0].cpu().numpy(),
             ref.fused_predict(*(a.cpu() for a in (xn, borders, sf, sb, lv)))
             .numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_outputs", (1, 7, 20, 33))
+@pytest.mark.parametrize("n_borders", (63, 300))
+def test_dm_routes_are_soa_and_the_tree_order_sum_on_the_card(
+        card, n_outputs, n_borders):
+    arrays = _case(1024, 54, n_borders, 300, 8, n_outputs, seed=n_borders)
+    _, dm = _dm_layouts(*arrays)
+    x, borders, sf, sb, lv = (torch.from_numpy(a).to(card) for a in arrays)
+    planes = [a.to(card) for a in (dm.split_features_dm, dm.split_bins_dm,
+                                   dm.pow2, dm.leaf_values)]
+    for n in (1, 16, 17, 1024):
+        xn = x[:n]
+        idx = ref.leaf_index(ref.binarize(xn, borders), sf, sb)
+        exact = _tree_order_sum(idx, lv)
+        for route in ("spread", "row"):
+            got = fused_k.fused_predict_dm(xn, borders, *planes, route=route)
+            assert torch.equal(got, exact), (route, n)
+            assert torch.equal(got, fused_k.fused_predict(
+                xn, borders, sf, sb, lv, route=route)), (route, n)

@@ -317,7 +317,8 @@ def test_build_hash_covers_every_source():
     assert {"binarize.cu", "leaf_index.cu", "leaf_gather.cu",
             "fused_predict.cu", "common.cuh", "leaf_index_dm.cu",
             "leaf_index_bp.cu", "fused_predict_dm.cu", "fused_predict_bp.cu",
-            "fused_planes.cuh", "leaf_index.cuh", "histogram.cu"} <= sources
+            "fused_planes.cuh", "fused_spread.cuh", "leaf_index.cuh",
+            "histogram.cu"} <= sources
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
 
@@ -522,7 +523,9 @@ def test_new_wrappers_on_cuda_typed_tensors_launch_or_raise(op,
                         lambda name, device, *a: launched.append(name))
     out = wrapper(*_meta(args))
     assert out.device.type == "meta"
-    assert launched == [f"repro_{op}"]
+    # a few rows take the dm fused kernel's spread route
+    assert launched == [f"repro_{op}_spread" if op == "fused_predict_dm"
+                        else f"repro_{op}"]
     assert ops.launch_counts() == {k: int(k == op) for k in ops.KERNELS}
 
 
