@@ -79,7 +79,12 @@ It checks:
     fused_predict_dm's spread and row routes, each also equal to soa's
     route of the same name on the same model, at every row count above and
     at C = 33, and each dm route that takes a caps shape past the feature
-    caps gives soa's plan's bits;
+    caps gives soa's plan's bits; so do fused_predict_bp's, on the
+    one-group model with uint8 and int32 planes, from uint8 and int32 bins
+    (the border table padded with +inf rows), at every row count above and
+    at C = 33 (also at 61 trees, T % 4 != 0), each also equal to soa's
+    route of the same name, and past the feature caps wherever its spread
+    route fits;
   * caps: at C = 33 the fused, pool and staged routes of every layout
     give the same bits, depth_major = soa, bitpacked = depth_grouped and
     one-group bitpacked fused = soa fused; every index kernel equals its
@@ -95,8 +100,8 @@ could take (`bound_ms`, from the leaf rows the inputs touch): the serving
 kernels at the bulk shape and the 1,024-row bucket, the histogram at each
 level, the distance kernels at the test split's shape (the matrix also at
 4,096 x 22,464; TF32 off for its `addmm` yardstick), leaf_gather on both
-of its routes at both shapes, fused_predict and fused_predict_dm on both
-of their routes at both shapes and at the 16-row bucket (each also as the
+of its routes at both shapes, the three fused kernels on both of their
+routes at both shapes and at the 16-row bucket (each also as the
 kernel's device time: CUDA events opened behind a spacer kernel, and
 `torch.profiler`'s where it sees the card), fused_predict also at the
 kNN head;
@@ -657,21 +662,25 @@ def check_binarize_odd_tables(x, borders, check_rows):
 
 
 def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
-                                  launches, check_rows: tuple[int, ...]):
+                                  soa_one, launches,
+                                  check_rows: tuple[int, ...]):
     """Hold the depth_major and bitpacked kernels against their plain
     versions on the card at each row count in `check_rows`, then time
     them at the bulk shape and at the largest serving bucket.
 
     `soa`, `dm` and `bp` are the truncated model's soa, depth_major and
     bitpacked layouts (8 depth groups, uint8 threshold planes except the
-    int32 group of the clamped depth-0 trees), `bp_one` the untruncated
-    model's bitpacked layout (one group).  leaf_index_bp runs on every
-    group of `bp` and on the one group with its planes as uint8 and
-    widened to int32, each from uint8 and int32 bins; fused_predict_bp on
-    the one group with both plane dtypes.  fused_predict_dm's spread and
-    row routes must each give the tree-order sum and soa's routes' scores
-    bit for bit; both are timed at the bulk shape, the largest bucket and
-    the smallest, beside the route the plan picks."""
+    int32 group of the clamped depth-0 trees), `bp_one` and `soa_one` the
+    untruncated model's bitpacked (one group, the trees in model order)
+    and soa layouts.  leaf_index_bp runs on every group of `bp` and on the
+    one group with its planes as uint8 and widened to int32, each from
+    uint8 and int32 bins.  fused_predict_dm's spread and row routes must
+    each give the tree-order sum and soa's routes' scores bit for bit; so
+    must fused_predict_bp's on the one group, with both plane dtypes, from
+    uint8 bins and from int32 bins (the border table padded past 255 with
+    +inf rows, which bin every x alike).  Both kernels' routes are timed
+    at the bulk shape, the largest bucket and the smallest, beside the
+    route the plan picks."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.binarize import binarize
@@ -693,6 +702,10 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
     check(plane_dtypes == ["torch.int32", "torch.uint8"],
           f"bitpacked planes cover {plane_dtypes}, not uint8 and int32")
     bins8 = binarize(x, borders, out_dtype=torch.uint8)
+    # the same bins as int32: no x passes an +inf border
+    wide = torch.cat([borders, torch.full(
+        (ref.MAX_U8_BORDERS + 1 - borders.shape[0], borders.shape[1]),
+        math.inf, device=dev)])
 
     errs = dict.fromkeys(("leaf_index_dm", "leaf_index_bp",
                           "fused_predict_dm", "fused_predict_bp"), 0.0)
@@ -735,6 +748,28 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
         of_limit["fused_predict_dm"] = max(of_limit["fused_predict_dm"],
                                            share)
         idx = ref.leaf_index_bitpacked(b8, *bp_planes[-2])
+        # both of fused_predict_bp's routes, both plane dtypes, uint8 and
+        # int32 bins: the tree-order sum and soa's routes, bit for bit
+        exact = tree_order_sum(idx, one.leaf_values)
+        for table in (borders, wide):
+            for route in FUSED_ROUTES:
+                want = fused_predict(xn, table, soa_one.split_features,
+                                     soa_one.split_bins,
+                                     soa_one.leaf_values, route=route)
+                check(torch.equal(want, exact), f"fused_predict ({route}) "
+                      f"at {n} rows, {table.shape[0]} borders is not the "
+                      "tree-order sum")
+                for sf, sb in bp_planes[-2:]:
+                    kind = (f"({route}, {str(sb.dtype)[6:]} planes, "
+                            f"{table.shape[0]} borders) at {n} rows")
+                    got = fused_predict_bp(xn, table, sf, sb,
+                                           one.leaf_values, route=route)
+                    check(torch.equal(got, exact),
+                          f"fused_predict_bp {kind} is not the tree-order "
+                          "sum")
+                    check(torch.equal(got, want), f"fused_predict_bp "
+                          f"{kind} differs from soa fused_predict's")
+        del exact, got, want
         for sf, sb in bp_planes[-2:]:
             err, share = compare_sums(
                 f"fused_predict_bp ({str(sb.dtype)[6:]} planes) at {n} rows",
@@ -777,11 +812,14 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
             out[f"fused_predict_{name}"] = dict(
                 kernel=lambda k=fused_k, p=planes, lv=lv:
                     k(xn, borders, *p, lv),
+                routed=lambda r, k=fused_k, p=planes, lv=lv:
+                    k(xn, borders, *p, lv, route=r),
                 plain=lambda k=fused_ref, p=planes, lv=lv:
                     k(xn, borders, *p, lv),
                 bytes=n * n_feat * 4 + n_b * n_feat * 4 + plane_bytes
                 + leaf_bytes + n * c * 4,
-                ops=n * n_feat * n_b + n * t * d + n * t * c, n_trees=t)
+                ops=n * n_feat * n_b + n * t * d + n * t * c, n_trees=t,
+                depth=d)
         return out
 
     sources = {
@@ -813,28 +851,29 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
             "bucket_bound_ms": bound(small["bytes"], small["ops"])[0],
             "bucket_bound_by": bound(small["bytes"], small["ops"])[1],
         })
-    # fused_predict_dm's two routes at the bulk shape, the largest bucket
-    # and the single-request bucket, and the one its plan picks at each
-    fused = next(row for row in rows if row["name"] == "fused_predict_dm")
-    fused["routes"] = {}
-    d, t = dm_planes[0].shape
-    for label, n in (("bulk", len(x)), ("bucket", MAX_BATCH),
-                     ("single", check_rows[-1])):
-        xn = x[:n]
-        small = cases(n)["fused_predict_dm"]
-        timing = {"rows": n, "plan": fused_plan(
-            n, t, d, c, n_feat, n_b <= 255, planes=True).route,
-            "bound_ms": bound(small["bytes"], small["ops"])[0]}
-        for route in FUSED_ROUTES:
-            fn = (lambda xn=xn, r=route: fused_predict_dm(
-                xn, borders, *dm_planes, dm.leaf_values, route=r))
-            timing[f"{route}_ms"] = time_ms(fn, 20 if label == "bulk"
-                                            else 50, flush)
-            (timing[f"{route}_device_ms"],
-             timing[f"{route}_profiled_ms"]) = fused_device_ms(fn, flush)
-        fused["routes"][label] = timing
-    fused["single_ms"] = fused["routes"]["single"][
-        f"{fused['routes']['single']['plan']}_ms"]
+    # the dm and bp fused kernels' two routes at the bulk shape, the
+    # largest bucket and the single-request bucket, and the one each plan
+    # picks at each
+    for name, splits in (("fused_predict_dm", "planes"),
+                         ("fused_predict_bp", "bitpacked")):
+        fused = next(row for row in rows if row["name"] == name)
+        fused["routes"] = {}
+        for label, n in (("bulk", len(x)), ("bucket", MAX_BATCH),
+                         ("single", check_rows[-1])):
+            small = cases(n)[name]
+            timing = {"rows": n, "plan": fused_plan(
+                n, small["n_trees"], small["depth"], c, n_feat, n_b <= 255,
+                splits=splits).route,
+                "bound_ms": bound(small["bytes"], small["ops"])[0]}
+            for route in FUSED_ROUTES:
+                fn = (lambda k=small["routed"], r=route: k(r))
+                timing[f"{route}_ms"] = time_ms(fn, 20 if label == "bulk"
+                                                else 50, flush)
+                (timing[f"{route}_device_ms"],
+                 timing[f"{route}_profiled_ms"]) = fused_device_ms(fn, flush)
+            fused["routes"][label] = timing
+        fused["single_ms"] = fused["routes"]["single"][
+            f"{fused['routes']['single']['plan']}_ms"]
     return rows, of_limit
 
 
@@ -1718,6 +1757,7 @@ CAPS_FEATURES = ((1005, 63), (1021, 63), (1533, 63), (6145, 63),
                  (252, 300), (256, 300), (384, 300), (1537, 300),
                  (30_000, 63), (7_500, 300))
 CAPS_STATS = 66
+CAPS_ODD_TREES = 61                # T % 4 = 1 for the bp spread route
 
 
 def random_ensemble(n_trees, depth, n_features, n_borders, n_outputs,
@@ -1756,14 +1796,14 @@ def tree_order_sum(idx, leaf_values):
 
 
 def spread_fits(n_rows: int, n_features: int, u8: bool,
-                planes: bool = False) -> bool:
-    """Whether the spread route of the soa (or, with `planes`, the dm)
-    fused kernel takes a caps model (48 trees of depth 8, 3 outputs) at
-    this shape."""
+                splits: str = "rows") -> bool:
+    """Whether the spread route of the soa fused kernel (or the dm one,
+    `splits="planes"`, or the bp one, "bitpacked") takes a caps model (48
+    trees of depth 8, 3 outputs) at this shape."""
     from repro_torch.kernels import tuning
     try:
         tuning.fused_plan(n_rows, 48, 8, 3, n_features, u8, route="spread",
-                          planes=planes)
+                          splits=splits)
     except ValueError:
         return False
     return True
@@ -1774,12 +1814,14 @@ def check_caps() -> dict:
     version: C = 33 on every route and layout (fused = pool = staged,
     depth_major = soa, bitpacked = depth_grouped, one-group bitpacked
     fused = soa fused, bit for bit), leaf_gather's staged and direct
-    routes and the soa and dm fused kernels' spread and row routes bit for
-    bit against the tree-order sum; every index and fused kernel one
-    feature past its old cap and past the opt-in limit, uint8 and int32
-    bins and planes (each soa and dm fused route that takes the shape
-    giving soa's plan's bits); the histogram at 66 stats (two launches)
-    bit for bit against `ref.histogram_fixed`.  Returns what was run."""
+    routes and the three fused kernels' spread and row routes bit for bit
+    against the tree-order sum (bp with uint8 and int32 planes, also on
+    61 of the trees, whose uint8 plane rows start off 4-byte words); every
+    index and fused kernel one feature past its old cap and past the
+    opt-in limit, uint8 and int32 bins and planes (each soa, dm and bp
+    fused route that takes the shape giving soa's plan's bits); the
+    histogram at 66 stats (two launches) bit for bit against
+    `ref.histogram_fixed`.  Returns what was run."""
     import torch
     from repro_torch.core import layout as tlayout
     from repro_torch.core.predictor import Predictor
@@ -1876,6 +1918,35 @@ def check_caps() -> dict:
                               got),
                   f"fused_predict_dm ({route}) at C = {CAPS_OUTPUTS}, {n} "
                   "rows differs from soa's")
+            for p in (bp.split_bins_bp, bp.split_bins_bp.int()):
+                check(torch.equal(fused_predict_bp(
+                    xn, borders, bp.split_features_bp, p, bp.leaf_values,
+                    route=route), got),
+                      f"fused_predict_bp ({route}, {str(p.dtype)[6:]} "
+                      f"planes) at C = {CAPS_OUTPUTS}, {n} rows differs "
+                      "from soa's")
+    # a tree count that is no multiple of 4: rows of a uint8 plane start
+    # off 4-byte boundaries, so the bp spread route stages them by bytes
+    odd = full.slice_trees(0, CAPS_ODD_TREES)
+    (odd_bp,) = tlayout.lower(odd, "bitpacked").groups
+    check(odd_bp.split_bins_bp.dtype == torch.uint8,
+          "the odd-tree caps model lowers to int32 planes")
+    for n in CAPS_ROWS:
+        xn = x[:n]
+        exact = tree_order_sum(ref.leaf_index(ref.binarize(xn, borders),
+                                              odd.split_features,
+                                              odd.split_bins),
+                               odd.leaf_values)
+        for route in FUSED_ROUTES:
+            for p in (odd_bp.split_bins_bp, odd_bp.split_bins_bp.int()):
+                check(torch.equal(fused_predict_bp(
+                    xn, borders, odd_bp.split_features_bp, p,
+                    odd_bp.leaf_values, route=route), exact),
+                      f"fused_predict_bp ({route}, {str(p.dtype)[6:]} "
+                      f"planes) at {CAPS_ODD_TREES} trees, {n} rows is not "
+                      "the tree-order sum")
+    out["odd_trees"] = CAPS_ODD_TREES
+    del exact
 
     # --- rows past each old cap and past the opt-in limit
     cases = []
@@ -1931,13 +2002,12 @@ def check_caps() -> dict:
             # every dm route that takes the shape gives soa's plan's bits
             for route in FUSED_ROUTES:
                 if route == "spread" and not spread_fits(n, n_features, u8,
-                                                         planes=True):
+                                                         "planes"):
                     continue
                 check(torch.equal(fused_predict_dm(
                     xn, borders, *dm_planes, dm.leaf_values, route=route),
                     got), f"fused_predict_dm ({route}) at {what} differs "
                           "from soa's")
-            del got, want
             for p in planes:
                 held(f"fused_predict_bp at {what}",
                      fused_predict_bp(xn, borders, bp.split_features_bp, p,
@@ -1945,7 +2015,18 @@ def check_caps() -> dict:
                      ref.fused_predict_bitpacked(
                          xn, borders, bp.split_features_bp, p,
                          bp.leaf_values), limit)
-            del bins, idx, limit
+                # every bp route that takes the shape gives soa's plan's
+                # bits (one group, the trees in model order)
+                for route in FUSED_ROUTES:
+                    if route == "spread" and not spread_fits(
+                            n, n_features, u8, "bitpacked"):
+                        continue
+                    check(torch.equal(fused_predict_bp(
+                        xn, borders, bp.split_features_bp, p,
+                        bp.leaf_values, route=route), got),
+                          f"fused_predict_bp ({route}, {str(p.dtype)[6:]} "
+                          f"planes) at {what} differs from soa's")
+            del got, want, bins, idx, limit
         cases.append({
             "features": n_features, "borders": n_borders,
             "routes": {
@@ -1959,7 +2040,11 @@ def check_caps() -> dict:
                     for n in CAPS_WIDE_ROWS},
                 "fused_predict_dm_plan": {
                     n: tuning.fused_plan(n, 48, 8, 3, n_features, u8,
-                                         planes=True).route
+                                         splits="planes").route
+                    for n in CAPS_WIDE_ROWS},
+                "fused_predict_bp_plan": {
+                    n: tuning.fused_plan(n, 48, 8, 3, n_features, u8,
+                                         splits="bitpacked").route
                     for n in CAPS_WIDE_ROWS},
                 "fused_planes": tuning.tile_shape(n_features, u8,
                                                   planes=True).route}})
@@ -2058,7 +2143,8 @@ def main() -> None:
     _build.library()
     build_s = time.perf_counter() - t0
     ptxas = [line.strip() for line in _build.build_info.get("log", "")
-             .splitlines() if "registers" in line or "Compiling" in line]
+             .splitlines()
+             if any(k in line for k in ("registers", "Compiling", "spill"))]
     print(f"kernels built in {build_s:.1f} s: {_build.build_info['path']}")
     for line in ptxas:
         print(f"  ptxas {line}")
@@ -2256,7 +2342,8 @@ def main() -> None:
         x_test, paths["soa"]["plan"].lowered,
         paths["depth_major"]["plan"].lowered,
         paths["bitpacked"]["plan"].lowered,
-        paths["bitpacked_one_group"]["plan"].lowered, launches, check_rows)
+        paths["bitpacked_one_group"]["plan"].lowered, soa_full.lowered,
+        launches, check_rows)
     hist_row["launches"] = launches["histogram"]
     kernels += layout_kernels + [hist_row]
     control["kernel_err_over_limit"].update(layout_of_limit)

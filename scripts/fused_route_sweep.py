@@ -1,26 +1,28 @@
 #!/usr/bin/env python3
-"""Time the soa and depth_major fused kernels' two routes over a range of
-row counts on the card, and check each against the tree-order float32 sum
-bit for bit.
+"""Time the three fused kernels' two routes over a range of row counts on
+the card, and check each against the tree-order float32 sum bit for bit.
 
     python3 scripts/fused_route_sweep.py [--rows 16,1024,139440]
-        [--layout soa,depth_major] [--pairs 1024,2048] [--threads 256]
-        [--out build/sweep.json]
+        [--layout soa,depth_major,bitpacked] [--pairs 1024,2048]
+        [--threads 256] [--out build/sweep.json]
 
 The model is numpy-seeded at the Covertype serving shape (1,000 trees of
 depth 8, 7 outputs, 54 features, 63 borders) and, with `--knn`, also at
 the kNN head's (1,000 trees of depth 4, 20 outputs, 533 features).  For
-each layout (`--layout`: soa, whose kernel reads (T, D) split rows, and
+each layout (`--layout`: soa, whose kernel reads (T, D) split rows;
 depth_major, whose kernel reads the same splits as (D, T) planes with
-level weights 2^d), each shape, each row count and each spread setting
-(`--pairs`: the (row, tree) pairs a chunk, `tuning.SPREAD_PAIRS`;
-`--threads`: a block's threads), it prints the plan's route and both
-routes' median CUDA-event times with L2 flushed (as `chip_smoke.py`
-times), the kernel's own device time from `torch.profiler`, and the time
-a launch of 20 back to back: what `kernels/tuning.py fused_plan` is set
-from (its SPREAD_MAX_ROWS).  The layouts of one model alternate row count
-by row count, so their times come from one stretch of the card.  One JSON
-object a line; the last line is the card.  Needs one CUDA card.
+level weights 2^d; bitpacked, whose kernel reads them as the one group's
+(D, T) planes with uint8 thresholds), each shape, each row count and
+each spread setting (`--pairs`: the (row, tree) pairs a chunk,
+`tuning.SPREAD_PAIRS`; `--threads`: a block's threads), it prints the
+plan's route and both routes' median CUDA-event times with L2 flushed
+(as `chip_smoke.py` times), the kernel's own device time from
+`torch.profiler`, and the time a launch of 20 back to back: what
+`kernels/tuning.py fused_plan` is set from (its SPREAD_MAX_ROWS,
+SPREAD_MAX_ROWS_DM and SPREAD_MAX_ROWS_BP).  The layouts of one model
+alternate row count by row count, so their times come from one stretch
+of the card.  One JSON object a line; the last line is the card.  Needs
+one CUDA card.
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ def main() -> None:
     parser.add_argument("--pairs", default="1024")
     parser.add_argument("--threads", default="512")
     parser.add_argument("--layout", default="soa",
-                        help="comma-separated: soa, depth_major")
+                        help="comma-separated: soa, depth_major, "
+                        "bitpacked")
     parser.add_argument("--knn", action="store_true")
     parser.add_argument("--reps", type=int, default=30)
     parser.add_argument("--out", default=None)
@@ -67,10 +70,14 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import ref, tuning
     from repro_torch.kernels.fused_predict import (fused_predict,
+                                                   fused_predict_bp,
                                                    fused_predict_dm)
+    # the plan's `splits` of each layout's kernel
+    splits = {"soa": "rows", "depth_major": "planes",
+              "bitpacked": "bitpacked"}
     layouts = args.layout.split(",")
-    if not set(layouts) <= {"soa", "depth_major"}:
-        sys.exit(f"fused_route_sweep: --layout takes soa and depth_major, "
+    if not set(layouts) <= set(splits):
+        sys.exit(f"fused_route_sweep: --layout takes {', '.join(splits)}, "
                  f"not {args.layout}")
 
     def time_ms(fn, flush):
@@ -144,11 +151,16 @@ def main() -> None:
         sf_dm, sb_dm = sf.t().contiguous(), sb.t().contiguous()
         pow2 = (2.0 ** torch.arange(dims["d"], device="cuda")
                 ).reshape(-1, 1).float()
+        # bitpacked's: every tree at full depth, so one group of the same
+        # planes in model order, thresholds narrowed to uint8
+        sb_bp = sb_dm.to(torch.uint8)
         kernels = {
             "soa": lambda xn, r: fused_predict(xn, borders, sf, sb, lv,
                                                route=r),
             "depth_major": lambda xn, r: fused_predict_dm(
-                xn, borders, sf_dm, sb_dm, pow2, lv, route=r)}
+                xn, borders, sf_dm, sb_dm, pow2, lv, route=r),
+            "bitpacked": lambda xn, r: fused_predict_bp(
+                xn, borders, sf_dm, sb_bp, lv, route=r)}
         for pairs in (int(p) for p in args.pairs.split(",")):
             for threads in (int(t) for t in args.threads.split(",")):
                 tuning.SPREAD_PAIRS, tuning.SPREAD_THREADS = pairs, threads
@@ -157,15 +169,14 @@ def main() -> None:
                     exact = tree_order_sum(
                         ref.leaf_index(ref.binarize(xn, borders), sf, sb), lv)
                     for layout in layouts:
-                        planes = layout == "depth_major"
                         line = {"layout": layout, "shape": shape, "rows": n,
                                 "pairs": pairs, "threads": threads}
                         plan = tuning.fused_plan(
                             n, dims["t"], dims["d"], dims["c"], dims["f"],
-                            True, planes=planes)
+                            True, splits=splits[layout])
                         spread = tuning.fused_plan(
                             n, dims["t"], dims["d"], dims["c"], dims["f"],
-                            True, "spread", planes=planes)
+                            True, "spread", splits=splits[layout])
                         line.update(plan=plan.route, spread_rows=spread.rows,
                                     spread_chunk=spread.trees_per_chunk,
                                     spread_blocks=spread.n_blocks,

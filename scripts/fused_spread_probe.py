@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where one block of the soa fused kernel's spread route spends its time.
+"""Where one block of the soa or bp fused kernel's spread route spends its
+time.
 
-    python3 scripts/fused_spread_probe.py [--out build/probe.jsonl]
+    python3 scripts/fused_spread_probe.py [--layout soa|bitpacked]
+        [--out build/probe.jsonl]
 
 Copies `src/repro_torch/kernels/csrc/` into `build/fused_spread_probe/`,
 adds `clock64()` stamps to `fused_spread_kernel` (`fused_spread.cuh`;
-read back through two functions added to `fused_predict.cu`, the soa
-kernel's source; block 0, thread 0: after
+read back through two functions added to the layout's kernel source,
+`fused_predict.cu` for soa, `fused_predict_bp.cu` for bitpacked, whose
+model is soa's splits as one group's (D, T) planes with uint8
+thresholds; block 0, thread 0: after
 stage 1's binarize, after the first chunk's index, and in each chunk after
 the copies are issued, after the sum of the chunk before, after each of
 the two barriers' waits and the next chunk's index), builds that copy
@@ -71,7 +75,8 @@ def patched_source(text: str) -> str:
     return text
 
 
-# The soa kernel's stamps, read and cleared from the host.
+# The stamps of the kernels in the source they are added to, read and
+# cleared from the host.
 READERS = f"""
 extern "C" int repro_probe_read(void* dst) {{
   return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));
@@ -106,8 +111,12 @@ def phases(cycles: dict[int, int]) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--layout", default="soa",
+                        choices=("soa", "bitpacked"))
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    source = {"soa": "fused_predict.cu",
+              "bitpacked": "fused_predict_bp.cu"}[args.layout]
     import torch
     if not torch.cuda.is_available():
         sys.exit("fused_spread_probe: needs a CUDA card")
@@ -115,20 +124,21 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "scripts"))
     import fused_route_sweep as sweep
     from repro_torch.kernels import _build, tuning
-    from repro_torch.kernels.fused_predict import fused_predict
+    from repro_torch.kernels.fused_predict import (fused_predict,
+                                                   fused_predict_bp)
 
     src = ROOT / "build" / "fused_spread_probe" / "csrc"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC, src)
     header = src / "fused_spread.cuh"
     header.write_text(patched_source(header.read_text()))
-    with open(src / "fused_predict.cu", "a") as fh:
+    with open(src / source, "a") as fh:
         fh.write(READERS)
     _build.CSRC, _build.BUILD_DIR = src, src.parent / "lib"
     lib = _build.library()
     lib.repro_probe_read.argtypes = [ctypes.c_void_p]
     log = _build.build_info["log"]
-    for line in log[log.index("== fused_predict.cu"):].splitlines()[:40]:
+    for line in log[log.index(f"== {source}"):].splitlines()[:40]:
         if "spill" in line or "registers" in line:
             print(f"ptxas {line.strip()}")
 
@@ -137,24 +147,33 @@ def main() -> None:
     for shape, counts in (("covertype", (1, 16, 1024)), ("knn", (2841,))):
         a = {k: torch.as_tensor(v, device="cuda") for k, v in sweep.model(
             **sweep.SHAPES[shape], n=max(counts)).items()}
+        if args.layout == "soa":
+            kernel, splits = fused_predict, "rows"
+            model = (a["sf"], a["sb"], a["lv"])
+        else:
+            kernel, splits = fused_predict_bp, "bitpacked"
+            model = (a["sf"].t().contiguous(),
+                     a["sb"].t().contiguous().to(torch.uint8), a["lv"])
         for n in counts:
-            args_n = (a["x"][:n], a["borders"], a["sf"], a["sb"], a["lv"])
+            args_n = (a["x"][:n], a["borders"], *model)
             plan = tuning.fused_plan(n, *a["sf"].shape, a["lv"].shape[2],
-                                     a["x"].shape[1], True, "spread")
+                                     a["x"].shape[1], True, "spread",
+                                     splits=splits)
             for warm in (False, True):
-                fused_predict(*args_n, route="spread")
+                kernel(*args_n, route="spread")
                 torch.cuda.synchronize()
                 if not warm:
                     flush.zero_()
                 stamps = np.zeros(STAMPS, np.uint64)
                 lib.repro_probe_clear()
-                fused_predict(*args_n, route="spread")
+                kernel(*args_n, route="spread")
                 torch.cuda.synchronize()
                 lib.repro_probe_read(stamps.ctypes.data)
                 t0 = int(stamps[0])
                 cycles = {k: int(v) - t0 for k, v in enumerate(stamps)
                           if v}
-                line = {"shape": shape, "rows": n, "l2": "warm" if warm
+                line = {"layout": args.layout, "shape": shape, "rows": n,
+                        "l2": "warm" if warm
                         else "flushed", "rows_a_block": plan.rows,
                         "trees_a_chunk": plan.trees_per_chunk,
                         "threads": plan.threads, **phases(cycles)}

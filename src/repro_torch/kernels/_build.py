@@ -49,6 +49,7 @@ _SIGNATURES = {
     "repro_fused_predict_dm": (_PTR,) * 8 + (_LONG,) + (_INT,) * 9,
     "repro_fused_predict_dm_spread": (_PTR,) * 7 + (_LONG,) + (_INT,) * 10,
     "repro_fused_predict_bp": (_PTR,) * 7 + (_LONG,) + (_INT,) * 10,
+    "repro_fused_predict_bp_spread": (_PTR,) * 6 + (_LONG,) + (_INT,) * 11,
     "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
                         _INT, _INT, _INT, _INT, _INT, _INT, _INT),
     "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG, _INT, _INT),

@@ -1,8 +1,8 @@
-// The row route of the fused kernels over (D, T) split planes: the only
-// route of fused_predict_bp.cu (bitpacked: int32 features, uint8 or int32
-// thresholds, 32-row compare words) and the row route of
-// fused_predict_dm.cu (depth_major: int32 planes, level weights pow2),
-// whose serving buckets take fused_spread.cuh instead.  Both layouts hold
+// The row route of the fused kernels over (D, T) split planes:
+// fused_predict_bp.cu's (bitpacked: int32 features, uint8 or int32
+// thresholds, 32-row compare words) and fused_predict_dm.cu's
+// (depth_major: int32 planes, level weights pow2), whose serving buckets
+// take fused_spread.cuh instead.  Both layouts hold
 // the splits as planes, row d = every tree's level-d split; they differ
 // only in how a level's compare enters the index, which `kBitpacked`
 // selects.

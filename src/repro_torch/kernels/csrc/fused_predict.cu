@@ -34,8 +34,9 @@
 //     rows a block, so the bucket fills the SMs; the block binarizes its
 //     rows once, then walks the trees in chunks whose leaf values it copies
 //     into shared memory with cp.async and sums in tree order.  The route
-//     is fused_spread.cuh, shared with fused_predict_dm.cu; its design and
-//     what bounds it are described there.
+//     is fused_spread.cuh, shared with fused_predict_dm.cu and
+//     fused_predict_bp.cu; its design and what bounds it are described
+//     there.
 //
 // Any C and any F (kernels/tuning.py tile_shape, output_slabs, fused_plan):
 // a block walks its rows' outputs in slabs of at most 32, every slab summed
@@ -201,8 +202,8 @@ extern "C" int repro_fused_predict_spread(
     const void* lv, void* out, long long n_rows, int n_feat, int n_borders,
     int n_trees, int depth, int n_out, int bins_u8, int rows_per_block,
     int threads, int chunk, int slab, int device, void* stream) {
-  return spread_launcher<false>(x, borders, sf, sb, nullptr, lv, out, n_rows,
-                                n_feat, n_borders, n_trees, depth, n_out,
-                                bins_u8, rows_per_block, threads, chunk,
-                                slab, device, stream);
+  return spread_launcher<Splits::kRows>(
+      x, borders, sf, sb, nullptr, lv, out, n_rows, n_feat, n_borders,
+      n_trees, depth, n_out, bins_u8, rows_per_block, threads, chunk, slab,
+      device, stream);
 }

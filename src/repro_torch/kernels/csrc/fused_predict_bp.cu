@@ -3,19 +3,31 @@
 //   idx(b, t) = OR_d [b[sf_bp[d, t]] >= sb_bp[d, t]] << d.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_predict.py:
-// fused_predict_bp (_fused_bp_kernel).  Its index stage is
-// leaf_index_bp.cu's: per level, the 32 rows of a warp put their compare
-// bits into one word with __ballot_sync (the TPU's 32-doc uint32 lane
-// word), and each row ors its own bit of the word into its index; bins and
-// thresholds meet in int32 registers, so an int32 plane's PAD_SPLIT_BIN
-// never goes right.  Its leaf stage is a direct gather where the TPU
-// kernel runs a one-hot matmul.  The kernel is fused_planes.cuh over int32
-// split features and uint8 or int32 thresholds (the bins tile uint8 or
-// int32: four instantiations); its design and what bounds it are
-// described there.  BitpackedLayout.fused_raw calls it for a model of one
-// depth group; with more it binarizes once and runs leaf_index_bp per
-// group, as the JAX package does.
+// fused_predict_bp (_fused_bp_kernel), whose index stage packs the compare
+// bits of 32 rows into one uint32 lane word and whose leaf stage is a
+// one-hot matmul.  Here the leaf stage is a direct gather, bins and
+// thresholds meet in int32 registers (so an int32 plane's PAD_SPLIT_BIN
+// never goes right), and kernels/tuning.py fused_plan (splits="bitpacked")
+// picks one of two routes from the shape, as for soa and depth_major:
+//   * row (many rows): fused_planes.cuh over int32 split features and
+//     uint8 or int32 thresholds, a thread a row walking every tree; per
+//     level the 32 rows of a warp put their compare bits into one word with
+//     __ballot_sync (the TPU's 32-doc lane word) and each row ors its own
+//     bit into its index;
+//   * spread (a serving bucket): fused_spread.cuh with Splits::kBitpacked,
+//     N / 132 rows a block, row d of a chunk's splits taken from the
+//     contiguous slice of each plane (uint8 thresholds by byte loads), the
+//     level's bit or-ed in as soa's is: the same idx per (row, tree) pair,
+//     without the ballot words.
+// Each route has four instantiations (uint8 or int32 bins, uint8 or int32
+// thresholds).  Their designs and what bounds them are described in the
+// two headers.  Both sum every (row, output) in tree order, one add a tree
+// from 0.0f, so on a one-group model (trees in model order) both give
+// soa's scores bit for bit.  BitpackedLayout.fused_raw calls it for a
+// model of one depth group; with more it binarizes once and runs
+// leaf_index_bp per group, as the JAX package does.
 #include "fused_planes.cuh"
+#include "fused_spread.cuh"
 
 namespace {
 
@@ -76,4 +88,27 @@ extern "C" int repro_fused_predict_bp(const void* x, const void* borders,
   return launch<int32_t>(blocks, rows_per_block, s, xp, bp, sfp, sb_bp,
                          planes_u8, lp, op, scratch, n_rows, n_feat,
                          n_borders, n_trees, depth, n_out, stride, slab);
+}
+
+// The spread route (fused_spread.cuh): the arguments of
+// repro_fused_predict_dm_spread without pow2, with (depth, n_trees) planes
+// and sb_bp uint8 when planes_u8 else int32; `rows_per_block` rows and
+// `threads` threads a block, the trees in chunks of `chunk`, outputs in
+// slabs of `slab` <= 32 (kernels/tuning.py fused_plan).
+extern "C" int repro_fused_predict_bp_spread(
+    const void* x, const void* borders, const void* sf_bp, const void* sb_bp,
+    const void* lv, void* out, long long n_rows, int n_feat, int n_borders,
+    int n_trees, int depth, int n_out, int bins_u8, int planes_u8,
+    int rows_per_block, int threads, int chunk, int slab, int device,
+    void* stream) {
+  if (planes_u8) {
+    return spread_launcher<Splits::kBitpacked, uint8_t>(
+        x, borders, sf_bp, sb_bp, nullptr, lv, out, n_rows, n_feat,
+        n_borders, n_trees, depth, n_out, bins_u8, rows_per_block, threads,
+        chunk, slab, device, stream);
+  }
+  return spread_launcher<Splits::kBitpacked, int32_t>(
+      x, borders, sf_bp, sb_bp, nullptr, lv, out, n_rows, n_feat, n_borders,
+      n_trees, depth, n_out, bins_u8, rows_per_block, threads, chunk, slab,
+      device, stream);
 }

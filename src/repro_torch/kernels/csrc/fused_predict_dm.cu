@@ -11,12 +11,12 @@
 //
 // It computes soa's function from soa's model (the lowering sets pow2[d]
 // = 2^d), so it has soa's two routes, which kernels/tuning.py fused_plan
-// (planes=True) picks from the shape:
+// (splits="planes") picks from the shape:
 //   * row (many rows): fused_planes.cuh with int32 planes, a thread a row
 //     walking every tree, the planes staged a chunk of trees at a time;
-//   * spread (a serving bucket): fused_spread.cuh with kPlanes, N / 132
-//     rows a block, row d of a chunk's splits copied from the contiguous
-//     slice of plane d.
+//   * spread (a serving bucket): fused_spread.cuh with Splits::kPlanes,
+//     N / 132 rows a block, row d of a chunk's splits copied from the
+//     contiguous slice of plane d.
 // Their designs and what bounds them are described in the two headers.
 // Both sum every (row, output) in tree order, one add a tree from 0.0f, so
 // both routes give soa's scores bit for bit.
@@ -74,8 +74,8 @@ extern "C" int repro_fused_predict_dm_spread(
     int n_feat, int n_borders, int n_trees, int depth, int n_out,
     int bins_u8, int rows_per_block, int threads, int chunk, int slab,
     int device, void* stream) {
-  return spread_launcher<true>(x, borders, sf_dm, sb_dm, pow2, lv, out,
-                               n_rows, n_feat, n_borders, n_trees, depth,
-                               n_out, bins_u8, rows_per_block, threads,
-                               chunk, slab, device, stream);
+  return spread_launcher<Splits::kPlanes>(
+      x, borders, sf_dm, sb_dm, pow2, lv, out, n_rows, n_feat, n_borders,
+      n_trees, depth, n_out, bins_u8, rows_per_block, threads, chunk, slab,
+      device, stream);
 }

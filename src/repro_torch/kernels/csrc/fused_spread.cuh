@@ -1,10 +1,13 @@
 // The spread route of the fused kernels, for a serving bucket:
 //   pred[n, c] = sum_t lv[t, idx(bins[n], t), c],  bins = binarize(x),
 // shared by fused_predict.cu (soa: (T, D) split rows, level d weighs
-// 1 << d) and fused_predict_dm.cu (depth_major: (D, T) split planes,
-// level d weighs pow2[d]).  The template flag kPlanes says which.
+// 1 << d), fused_predict_dm.cu (depth_major: (D, T) int32 split planes,
+// level d weighs pow2[d]) and fused_predict_bp.cu (bitpacked: (D, T)
+// planes with uint8 or int32 thresholds, level d weighs 1 << d).  The
+// template parameters Splits and SplitT (the threshold type) say which.
 //
-// A bucket, up to tuning.SPREAD_MAX_ROWS rows, is spread over the card:
+// A bucket, up to tuning.SPREAD_MAX_ROWS rows (SPREAD_MAX_ROWS_DM and
+// SPREAD_MAX_ROWS_BP for the planes), is spread over the card:
 // R = N / 132 rows a block (1 at a 16-row bucket, 7 at 1,024), so the
 // bucket fills the SMs.  The block binarizes its R rows into a shared bins
 // tile (the compare loop, a thread a feature of 8 rows, so each border it
@@ -30,17 +33,25 @@
 // indexing and a fifth summing; the compares of stage 1 take most of a
 // block at the kNN head's 533 features.
 //
-// Where a chunk's splits come from is all that kPlanes changes:
-//   * soa (false): tree t's D splits are the row sf[t * D, t * D + D);
+// Where a chunk's splits come from is all that Splits changes:
+//   * kRows (soa): tree t's D splits are the row sf[t * D, t * D + D);
 //     consecutive threads copy consecutive (tree, level) entries, each to
 //     its level's row of the plane.  Level d weighs 1 << d.
-//   * planes (true): row d of the chunk is the contiguous slice
+//   * kPlanes (depth_major): row d of the chunk is the contiguous slice
 //     sf_dm[d * T + t0, d * T + t0 + Tc), copied by consecutive threads
 //     into row d of the same plane.  Level d weighs weight_s[d] =
 //     __float2int_rn(pow2[d]), 64 bytes of static shared memory
 //     (tuning.SPREAD_WEIGHT_BYTES), as fused_planes.cuh's row kernel
 //     weighs it; the lowering sets pow2[d] = 2^d, so both layouts give
 //     one idx and one sum, bit for bit.
+//   * kBitpacked: kPlanes' slices, and soa's 1 << d (no weights, so no
+//     static shared memory).  An int32 threshold plane is copied as
+//     kPlanes copies it; a uint8 one with plain byte loads widened to
+//     int32: cp.async copies only aligned 4, 8 or 16 bytes, and a byte
+//     slice starts at d * T + t0, aligned only when T % 4 == 0.  A chunk
+//     holds D * Tc <= 1,024 thresholds at the bucket against R * Tc * C
+//     = 6,272 leaf copies, so the loads cost little.  One-group bitpacked
+//     keeps the trees in model order, so it gives soa's sums bit for bit.
 //
 // A shape takes this route only where its R rows of bins fit shared
 // memory with the smallest chunk (tuning.fused_plan); past that the plan
@@ -50,6 +61,9 @@
 #include "common.cuh"
 
 namespace {
+
+// Where a spread block's chunk of splits comes from (see above).
+enum class Splits { kRows, kPlanes, kBitpacked };
 
 constexpr int kSpreadMaxAcc = 4;   // (row, output) sums a thread holds
 // Threads a spread block has at most: 128 registers a thread, so the sums
@@ -194,12 +208,13 @@ __device__ __forceinline__ void binarize_rows(
   }
 }
 
-// sf, sb: (T, D) rows when !kPlanes, (D, T) planes when kPlanes; pow2
-// (D, 1) f32 level weights, read only when kPlanes.
-template <typename BinT, bool kPlanes>
+// sf, sb: (T, D) rows for kRows, (D, T) planes otherwise; sb is int32
+// but for a uint8 bitpacked plane; pow2 (D, 1) f32 level weights, read
+// only for kPlanes.
+template <typename BinT, Splits kSplits, typename SplitT>
 __global__ void __launch_bounds__(kSpreadMaxThreads) fused_spread_kernel(
     const float* __restrict__ x, const float* __restrict__ borders,
-    const int32_t* __restrict__ sf, const int32_t* __restrict__ sb,
+    const int32_t* __restrict__ sf, const SplitT* __restrict__ sb,
     const float* __restrict__ pow2, const float* __restrict__ lv,
     float* __restrict__ out, long long n_rows, int n_feat, int n_borders,
     int n_trees, int depth, int n_out, int rows_per_block, int chunk,
@@ -225,7 +240,7 @@ __global__ void __launch_bounds__(kSpreadMaxThreads) fused_spread_kernel(
 
   // The level weights of the planes (read after the first barrier).
   int32_t* weight_s = nullptr;
-  if constexpr (kPlanes) {
+  if constexpr (kSplits == Splits::kPlanes) {
     __shared__ int32_t weights[kMaxDepth];
     if (tid < depth) weights[tid] = __float2int_rn(__ldg(pow2 + tid));
     weight_s = weights;
@@ -246,7 +261,22 @@ __global__ void __launch_bounds__(kSpreadMaxThreads) fused_spread_kernel(
   auto stage_splits = [&](int k) {
     const int t0 = k * chunk;
     const int tc = min(chunk, n_trees - t0);
-    if constexpr (kPlanes) {
+    if constexpr (kSplits == Splits::kBitpacked && sizeof(SplitT) == 1) {
+      // the planes' entries as below; each uint8 threshold a byte load
+      // widened into the pair (read after the barrier that follows this
+      // chunk's wait).  Not unrolled: unrolled four times the kernel took
+      // 110-112 registers, so one block an SM and 147 blocks in two waves
+      // at the 1,024-row bucket (PERF.md §6)
+      for (int i = tid; i < tc * depth; i += n_threads) {
+        const int d = i / tc;
+        const int t = i - d * tc;
+        const long long at = static_cast<long long>(d) * n_trees + t0 + t;
+        const int bin = __ldg(sb + at);
+        int2* dst = s_split + d * chunk + t;
+        copy_async4(&dst->x, sf + at);
+        dst->y = bin;
+      }
+    } else if constexpr (kSplits != Splits::kRows) {
       // entry i is (level i / tc, tree i % tc): row d of the chunk is
       // contiguous in each plane
       for (int i = tid; i < tc * depth; i += n_threads) {
@@ -289,7 +319,7 @@ __global__ void __launch_bounds__(kSpreadMaxThreads) fused_spread_kernel(
         const int2 split = s_split[d * chunk + t];
         // int32 compare: the 2^30 PAD_SPLIT_BIN never goes right
         const bool go = static_cast<int>(row[split.x]) >= split.y;
-        if constexpr (kPlanes) {
+        if constexpr (kSplits == Splits::kPlanes) {
           if (go) idx += weight_s[d];
         } else {
           idx |= go << d;
@@ -398,7 +428,7 @@ __global__ void __launch_bounds__(kSpreadMaxThreads) fused_spread_kernel(
   }
 }
 
-template <typename BinT, bool kPlanes>
+template <typename BinT, Splits kSplits, typename SplitT>
 int launch_spread(int rows_per_block, int threads, int chunk, int slab,
                   cudaStream_t s, const void* x, const void* borders,
                   const void* sf, const void* sb, const void* pow2,
@@ -406,9 +436,10 @@ int launch_spread(int rows_per_block, int threads, int chunk, int slab,
                   int n_borders, int n_trees, int depth, int n_out) {
   const SpreadLayout lay = spread_layout(rows_per_block, chunk, slab, depth,
                                          n_feat, sizeof(BinT));
-  auto kernel = fused_spread_kernel<BinT, kPlanes>;
-  // the planes' level weights are static shared memory
-  const size_t weights = kPlanes ? sizeof(int32_t) * kMaxDepth : 0;
+  auto kernel = fused_spread_kernel<BinT, kSplits, SplitT>;
+  // dm's level weights are static shared memory
+  const size_t weights =
+      kSplits == Splits::kPlanes ? sizeof(int32_t) * kMaxDepth : 0;
   const cudaError_t err =
       allow_shared_memory(kernel, lay.total + weights, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -416,19 +447,19 @@ int launch_spread(int rows_per_block, int threads, int chunk, int slab,
       (n_rows + rows_per_block - 1) / rows_per_block));
   kernel<<<grid, threads, lay.total, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(borders),
-      static_cast<const int32_t*>(sf), static_cast<const int32_t*>(sb),
+      static_cast<const int32_t*>(sf), static_cast<const SplitT*>(sb),
       static_cast<const float*>(pow2), static_cast<const float*>(lv),
       static_cast<float*>(out), n_rows, n_feat, n_borders, n_trees, depth,
       n_out, rows_per_block, chunk, slab);
   return launch_status();
 }
 
-// The body of the spread launchers (fused_predict.cu, fused_predict_dm.cu):
-// the block shape checked (`slab` <= 32 outputs, `threads` a multiple of
-// 32 up to kSpreadMaxThreads, each thread at most kSpreadMaxAcc of the
-// block's (row, output) sums), then the launch over uint8 bins when
-// bins_u8, int32 otherwise.
-template <bool kPlanes>
+// The body of the spread launchers (fused_predict.cu, fused_predict_dm.cu,
+// fused_predict_bp.cu): the block shape checked (`slab` <= 32 outputs,
+// `threads` a multiple of 32 up to kSpreadMaxThreads, each thread at most
+// kSpreadMaxAcc of the block's (row, output) sums), then the launch over
+// uint8 bins when bins_u8, int32 otherwise.
+template <Splits kSplits, typename SplitT = int32_t>
 int spread_launcher(const void* x, const void* borders, const void* sf,
                     const void* sb, const void* pow2, const void* lv,
                     void* out, long long n_rows, int n_feat, int n_borders,
@@ -444,11 +475,11 @@ int spread_launcher(const void* x, const void* borders, const void* sf,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bins_u8) {
-    return launch_spread<uint8_t, kPlanes>(
+    return launch_spread<uint8_t, kSplits, SplitT>(
         rows_per_block, threads, chunk, slab, s, x, borders, sf, sb, pow2,
         lv, out, n_rows, n_feat, n_borders, n_trees, depth, n_out);
   }
-  return launch_spread<int32_t, kPlanes>(
+  return launch_spread<int32_t, kSplits, SplitT>(
       rows_per_block, threads, chunk, slab, s, x, borders, sf, sb, pow2, lv,
       out, n_rows, n_feat, n_borders, n_trees, depth, n_out);
 }

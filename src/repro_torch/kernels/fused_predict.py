@@ -19,18 +19,17 @@ any number of outputs (a block walks its rows' output slabs in turn) and
 any number of features (`tuning.tile_shape`: the bins tile in shared
 memory up to the opt-in limit, an (N, F) scratch array past it).
 
-The soa and depth_major kernels have two routes each, which
-`tuning.fused_plan` picks from the shape (`route=` forces one): `row`, a
-thread a row walking every tree, 128 rows a block, for many rows; and
-`spread` (`csrc/fused_spread.cuh`, one source for both layouts), for a
-serving bucket, whose blocks take N // 132 rows each (one at a 16-row
-bucket, 7 at 1,024) so the bucket fills the card, and walk the trees in
-chunks: the block's threads index a chunk's (row, tree) pairs, copy its
-leaf values into shared memory asynchronously, and lanes over (row,
-output) add them in tree order while the next chunk's copies are in
-flight.  Spread takes a shape only where its rows of bins fit shared
-memory; no route falls back to another.  The bitpacked kernel keeps the
-row route only.
+Each kernel has two routes, which `tuning.fused_plan` picks from the
+shape (`route=` forces one): `row`, a thread a row walking every tree,
+128 rows a block, for many rows; and `spread` (`csrc/fused_spread.cuh`,
+one source for the three layouts), for a serving bucket, whose blocks
+take N // 132 rows each (one at a 16-row bucket, 7 at 1,024) so the
+bucket fills the card, and walk the trees in chunks: the block's threads
+index a chunk's (row, tree) pairs, copy its leaf values into shared
+memory asynchronously, and lanes over (row, output) add them in tree
+order while the next chunk's copies are in flight.  Spread takes a shape
+only where its rows of bins fit shared memory; no route falls back to
+another.
 """
 from __future__ import annotations
 
@@ -141,9 +140,9 @@ def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
     (D, 1) f32 level weights -> (N, C) float32 raw tree sums.
 
     `route` ("spread" or "row") forces one of the kernel's routes; None
-    lets `tuning.fused_plan(..., planes=True)` pick.  A tensor on the CPU
-    goes through the plain version; a CUDA tensor launches the kernel (and
-    adds one to `fused_predict_dm.launches`)."""
+    lets `tuning.fused_plan(..., splits="planes")` pick.  A tensor on the
+    CPU goes through the plain version; a CUDA tensor launches the kernel
+    (and adds one to `fused_predict_dm.launches`)."""
     d, t = split_features_dm.shape
     _check_fused_args("fused_predict_dm", x, borders,
                       (split_features_dm, split_bins_dm), leaf_values, t, d)
@@ -167,7 +166,7 @@ def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
         u8 = n_borders <= ref.MAX_U8_BORDERS
-        plan = fused_plan(n, t, d, c, f, u8, route, planes=True)
+        plan = fused_plan(n, t, d, c, f, u8, route, splits="planes")
         if plan.route == "spread":
             _build.launch("repro_fused_predict_dm_spread", x.device, x,
                           borders, split_features_dm, split_bins_dm, pow2,
@@ -191,15 +190,19 @@ fused_predict_dm.launches = 0
 def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
                      split_features_bp: torch.Tensor,
                      split_bins_bp: torch.Tensor,
-                     leaf_values: torch.Tensor) -> torch.Tensor:
+                     leaf_values: torch.Tensor, route: str | None = None
+                     ) -> torch.Tensor:
     """Fused GBDT predict over the bitpacked (D, T) planes (int32 split
     features, uint8 or int32 thresholds) -> (N, C) float32 raw tree sums.
 
-    A tensor on the CPU goes through the plain version; a CUDA tensor
-    launches the kernel (and adds one to `fused_predict_bp.launches`)."""
+    `route` ("spread" or "row") forces one of the kernel's routes; None
+    lets `tuning.fused_plan(..., splits="bitpacked")` pick.  A tensor on
+    the CPU goes through the plain version; a CUDA tensor launches the
+    kernel (and adds one to `fused_predict_bp.launches`)."""
     d, t = split_features_bp.shape
     _check_fused_args("fused_predict_bp", x, borders,
                       (split_features_bp, split_bins_bp), leaf_values, t, d)
+    _check_route(route)
     if split_bins_bp.dtype not in (torch.int32, torch.uint8):
         raise ValueError(f"split_bins_bp is int32 or uint8, not "
                          f"{split_bins_bp.dtype}")
@@ -213,16 +216,26 @@ def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
         split_bins_bp=(split_bins_bp, split_bins_bp.dtype),
         leaf_values=(leaf_values, torch.float32))
     n, f = x.shape
+    n_borders = borders.shape[0]
     c = leaf_values.shape[2]
+    planes_u8 = int(split_bins_bp.dtype == torch.uint8)
     out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n and c:
-        u8, stride, rows, scratch, slab = _launch_args(x, borders.shape[0],
-                                                       c, True)
-        _build.launch("repro_fused_predict_bp", x.device, x, borders,
-                      split_features_bp, split_bins_bp, leaf_values, out,
-                      scratch, n, f, borders.shape[0], t, d, c, u8,
-                      int(split_bins_bp.dtype == torch.uint8), stride, rows,
-                      slab)
+        u8 = n_borders <= ref.MAX_U8_BORDERS
+        plan = fused_plan(n, t, d, c, f, u8, route, splits="bitpacked")
+        if plan.route == "spread":
+            _build.launch("repro_fused_predict_bp_spread", x.device, x,
+                          borders, split_features_bp, split_bins_bp,
+                          leaf_values, out, n, f, n_borders, t, d, c,
+                          int(u8), planes_u8, plan.rows, plan.threads,
+                          plan.trees_per_chunk, plan.slab)
+        else:
+            u8, stride, rows, scratch, slab = _launch_args(x, n_borders, c,
+                                                           True)
+            _build.launch("repro_fused_predict_bp", x.device, x, borders,
+                          split_features_bp, split_bins_bp, leaf_values, out,
+                          scratch, n, f, n_borders, t, d, c, u8, planes_u8,
+                          stride, rows, slab)
         fused_predict_bp.launches += 1
     return out
 

@@ -439,19 +439,21 @@ def gather_plan(n_rows: int, n_trees: int, n_leaves: int, n_outputs: int,
 
 
 # --------------------------------------------------------------------------
-# csrc/fused_predict.cu (soa) and csrc/fused_predict_dm.cu (depth_major)
+# csrc/fused_predict.cu (soa), csrc/fused_predict_dm.cu (depth_major) and
+# csrc/fused_predict_bp.cu (bitpacked, one depth group)
 # --------------------------------------------------------------------------
 # Two routes each.  `row`: one thread a row walks every tree (tile_shape's
-# bins tile, FUSED_MAX_ROWS rows a block; csrc/fused_planes.cuh for dm).
-# `spread` (csrc/fused_spread.cuh, one source for both): a block of a few
-# rows binarizes them into shared memory, then walks the trees in chunks;
-# its threads compute the (row, tree) indexes of a chunk, gather the
-# chunk's leaf values into a shared buffer with asynchronous copies, and
-# lanes over (row, output) add them in tree order while the next chunk's
-# copies are in flight.  A serving bucket then fills the card: N //
-# SM_COUNT rows a block.  The dm spread block stages a chunk's splits from
-# its (D, T) planes into the same shared layout and holds its level
-# weights in SPREAD_WEIGHT_BYTES of static shared memory.  Threads and
+# bins tile, FUSED_MAX_ROWS rows a block; csrc/fused_planes.cuh for dm and
+# bp).  `spread` (csrc/fused_spread.cuh, one source for all three): a
+# block of a few rows binarizes them into shared memory, then walks the
+# trees in chunks; its threads compute the (row, tree) indexes of a chunk,
+# gather the chunk's leaf values into a shared buffer with asynchronous
+# copies, and lanes over (row, output) add them in tree order while the
+# next chunk's copies are in flight.  A serving bucket then fills the
+# card: N // SM_COUNT rows a block.  The dm and bp spread blocks stage a
+# chunk's splits from their (D, T) planes into the same shared layout
+# (bp's uint8 thresholds widened to int32); dm holds its level weights in
+# SPREAD_WEIGHT_BYTES of static shared memory, bp has none.  Threads and
 # pairs a chunk were set from scripts/fused_route_sweep.py on the H100
 # (PERF.md §6): 512 threads beat 256 by 23-31% at the kNN head's 533
 # features and lose up to 6% at Covertype's 54.
@@ -469,6 +471,11 @@ SPREAD_MAX_ROWS = 16_384
 # rows on both shapes, at parity at 40,960 on Covertype's and slower from
 # 49,152 there (PERF.md §6).
 SPREAD_MAX_ROWS_DM = 32_768
+# The bp kernel's: the sweep with `--layout bitpacked` found spread faster
+# up to 32,768 rows on Covertype's shape (device ms 0.765 against the row
+# route's 0.909) and slower from 40,960 (0.961 against 0.915), as dm's;
+# at the kNN head's it wins to 65,536 (PERF.md §6).
+SPREAD_MAX_ROWS_BP = 32_768
 SPREAD_SMEM_LIMIT = SMEM_OPTIN_LIMIT - SMEM_RESERVED_PER_BLOCK
 SPREAD_WEIGHT_BYTES = 4 * 16       # the dm kernel's kMaxDepth int32 weights
 
@@ -497,11 +504,16 @@ def spread_smem_bytes(rows: int, chunk: int, slab: int, depth: int,
             + _align16(rows * n_features * bin_bytes))
 
 
+# Where a fused kernel's splits come from, csrc/fused_spread.cuh's Splits:
+# soa's (T, D) rows, dm's (D, T) planes with level weights, bp's planes.
+SPLITS = ("rows", "planes", "bitpacked")
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """One soa or dm fused launch: `n_blocks` blocks of `threads` threads,
-    each owning `rows` rows; output slabs of `slab` (`n_slabs` of them).
-    Spread blocks walk the trees `trees_per_chunk` at a time in
+    """One soa, dm or bp fused launch: `n_blocks` blocks of `threads`
+    threads, each owning `rows` rows; output slabs of `slab` (`n_slabs` of
+    them).  Spread blocks walk the trees `trees_per_chunk` at a time in
     `smem_bytes` of dynamic shared memory (the dm kernel adds
     SPREAD_WEIGHT_BYTES of static); row blocks (a thread a row) walk them
     all and hold the bins tile of `tile` (its global route past the opt-in
@@ -519,29 +531,33 @@ class FusedPlan:
 
 def fused_plan(n_rows: int, n_trees: int, depth: int, n_outputs: int,
                n_features: int, u8: bool, route: str | None = None,
-               planes: bool = False) -> FusedPlan:
-    """The fused launch of soa (`planes` False) or depth_major (`planes`
-    True: (D, T) split planes and level weights).  `route=None` picks
-    spread up to SPREAD_MAX_ROWS rows (SPREAD_MAX_ROWS_DM for
-    depth_major) where its smallest chunk fits shared memory beside the
-    block's rows of bins, row otherwise; "spread" raises where it does not
-    fit.  Spread: R = N // SM_COUNT rows a block (1 to
+               splits: str = "rows") -> FusedPlan:
+    """The fused launch of soa (`splits` "rows"), depth_major ("planes":
+    (D, T) split planes and level weights) or one bitpacked group
+    ("bitpacked": (D, T) planes, no weights).  `route=None` picks spread
+    up to SPREAD_MAX_ROWS rows (SPREAD_MAX_ROWS_DM for depth_major,
+    SPREAD_MAX_ROWS_BP for bitpacked) where its smallest chunk fits shared
+    memory beside the block's rows of bins, row otherwise; "spread" raises
+    where it does not fit.  Spread: R = N // SM_COUNT rows a block (1 to
     SPREAD_MAX_BLOCK_ROWS), so the blocks reach min(N, SM_COUNT); trees a
     chunk up to SPREAD_PAIRS // R, in whole warps from 32 on, as many as
     fit (counted with each buffer's padding at its most).  At the
     1,024-row bucket (T = 1,000, depth 8, C = 7, 54 uint8 features): 7
     rows a block, 147 blocks of 512 threads, 128 trees a chunk; at 16
-    rows one row a block and 1,000 trees a chunk; on either layout.  Row:
-    `tile_shape(n_features, u8, planes)`."""
+    rows one row a block and 1,000 trees a chunk; on every layout.  Row:
+    `tile_shape(n_features, u8, planes=splits != "rows")`."""
     if route not in (None, "spread", "row"):
         raise ValueError(f"route is spread, row or None, not {route!r}")
+    if splits not in SPLITS:
+        raise ValueError(f"splits is one of {SPLITS}, not {splits!r}")
     spans = output_slabs(max(n_outputs, 1))
     slab = spans[0][1] - spans[0][0]
     bin_bytes = 1 if u8 else 4
     rows = min(SPREAD_MAX_BLOCK_ROWS, SPREAD_MAX_ACC * SPREAD_THREADS // slab,
                max(1, n_rows // SM_COUNT))
     n_trees, depth = max(n_trees, 1), max(depth, 0)
-    limit = SPREAD_SMEM_LIMIT - (SPREAD_WEIGHT_BYTES if planes else 0)
+    limit = SPREAD_SMEM_LIMIT - (SPREAD_WEIGHT_BYTES if splits == "planes"
+                                 else 0)
 
     fits = spread_smem_bytes(rows, 1, slab, depth, n_features,
                              bin_bytes) <= limit
@@ -550,7 +566,8 @@ def fused_plan(n_rows: int, n_trees: int, depth: int, n_outputs: int,
             f"{rows} rows of {n_features} bins and one tree's leaf values "
             f"pass {limit} bytes of shared memory: the spread route does "
             "not take this shape")
-    max_rows = SPREAD_MAX_ROWS_DM if planes else SPREAD_MAX_ROWS
+    max_rows = {"rows": SPREAD_MAX_ROWS, "planes": SPREAD_MAX_ROWS_DM,
+                "bitpacked": SPREAD_MAX_ROWS_BP}[splits]
     if route == "spread" or (route is None and fits and n_rows <= max_rows):
         # spread_smem_bytes at its most: each buffer padded by 15 bytes,
         # each row of leaf values by 31 words
@@ -565,7 +582,7 @@ def fused_plan(n_rows: int, n_trees: int, depth: int, n_outputs: int,
                          len(spans), -(-n_rows // rows),
                          spread_smem_bytes(rows, chunk, slab, depth,
                                            n_features, bin_bytes))
-    tile = tile_shape(n_features, u8, planes)
+    tile = tile_shape(n_features, u8, planes=splits != "rows")
     return FusedPlan("row", tile.rows, tile.rows, n_trees, slab, len(spans),
                      -(-n_rows // tile.rows), tile.smem_bytes, tile)
 

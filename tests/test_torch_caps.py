@@ -228,17 +228,23 @@ def test_wrappers_launch_at_33_outputs(launches):
     fused_k.fused_predict_dm(x, borders, _meta(d, t, dtype=i32),
                              _meta(d, t, dtype=i32), _meta(d, 1),
                              _meta(t, 8, c))
-    fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
-                             _meta(d, t, dtype=torch.uint8), _meta(t, 8, c))
-    assert [a[-1] for _, a in launches[1:]] == [17, 17, 17]     # the slab
-    # a 1,024-row bucket takes the soa and dm kernels' spread routes,
-    # which have no scratch argument; the bp kernel's tile needs no scratch
+    for route in (None, "row"):
+        fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
+                                 _meta(d, t, dtype=torch.uint8),
+                                 _meta(t, 8, c), route=route)
+    assert [a[-1] for _, a in launches[1:]] == [17, 17, 17, 17]  # the slab
+    # a 1,024-row bucket takes the three fused kernels' spread routes,
+    # which have no scratch argument; the bp kernel's row route tile needs
+    # no scratch
     assert launches[1][0] == "repro_fused_predict_spread" and not any(
         isinstance(a, torch.Tensor) for a in launches[1][1][6:])
     assert launches[2][0] == "repro_fused_predict_dm_spread" and not any(
         isinstance(a, torch.Tensor) for a in launches[2][1][7:])
-    assert launches[3][1][6] is None
-    assert sum(ops.launch_counts().values()) == 4
+    assert launches[3][0] == "repro_fused_predict_bp_spread" and not any(
+        isinstance(a, torch.Tensor) for a in launches[3][1][6:])
+    assert launches[4][0] == "repro_fused_predict_bp"
+    assert launches[4][1][6] is None
+    assert sum(ops.launch_counts().values()) == 5
 
 
 def test_wrappers_launch_past_the_feature_caps(launches):
@@ -268,16 +274,20 @@ def test_wrappers_launch_past_the_feature_caps(launches):
         for route in (None, "row"):
             fused_k.fused_predict(x, borders, _meta(t, d, dtype=i32),
                                   _meta(t, d, dtype=i32), lv, route=route)
-        fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
-                                 _meta(d, t, dtype=u8), lv)
-        assert launches[-3][0] == "repro_fused_predict_spread"
+        for route in (None, "row"):
+            fused_k.fused_predict_bp(x, borders, _meta(d, t, dtype=i32),
+                                     _meta(d, t, dtype=u8), lv, route=route)
+        assert launches[-4][0] == "repro_fused_predict_spread"
+        assert launches[-2][0] == "repro_fused_predict_bp_spread"
+        assert launches[-2][1][6:8] == (n, f)
         global_route = f == 60_000
-        scratch = launches[-2][1][6]
-        assert (scratch is not None) == global_route
-        if global_route:
-            assert scratch.shape == (n, f) and scratch.dtype == u8
-            assert launches[-2][1][-3:-1] == (f, 128)
-    assert ops.launch_counts()["fused_predict_bp"] == 4
+        for _, row in (launches[-3], launches[-1]):    # the row routes
+            scratch = row[6]
+            assert (scratch is not None) == global_route
+            if global_route:
+                assert scratch.shape == (n, f) and scratch.dtype == u8
+                assert row[-3:-1] == (f, 128)
+    assert ops.launch_counts()["fused_predict_bp"] == 8
 
 
 def test_histogram_launches_once_a_stat_group(launches):

@@ -523,8 +523,8 @@ def test_new_wrappers_on_cuda_typed_tensors_launch_or_raise(op,
                         lambda name, device, *a: launched.append(name))
     out = wrapper(*_meta(args))
     assert out.device.type == "meta"
-    # a few rows take the dm fused kernel's spread route
-    assert launched == [f"repro_{op}_spread" if op == "fused_predict_dm"
+    # a few rows take the dm and bp fused kernels' spread routes
+    assert launched == [f"repro_{op}_spread" if op.startswith("fused")
                         else f"repro_{op}"]
     assert ops.launch_counts() == {k: int(k == op) for k in ops.KERNELS}
 
