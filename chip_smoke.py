@@ -63,7 +63,10 @@ It checks:
   * kNN: each distance kernel gives the same bits on two launches, no
     negative value, and lies within the distance rule of its plain version
     (`l2dist.matrix_limit` / `rowwise_limit`) on both splits and every test
-    query; the two routes within the sum of their limits; each route's
+    query, the matrix kernel (3xTF32 on the tensor cores) also at 4,096 x
+    22,464 and at ragged shapes (one tile, K = 90 and 533, a slice one row
+    into its buffer, M = 3 against the references, one column); the two
+    routes within the sum of their limits; each route's
     features obey the feature rule against the plain distances' (exempt
     queries counted); the head's training contracts as above, its first 5
     trees' splits, and the histogram at 533 features x 40 stats for depths
@@ -99,8 +102,12 @@ call where one computes the same function, and the least time the card
 could take (`bound_ms`, from the leaf rows the inputs touch): the serving
 kernels at the bulk shape and the 1,024-row bucket, the histogram at each
 level, the distance kernels at the test split's shape (the matrix also at
-4,096 x 22,464; TF32 off for its `addmm` yardstick), leaf_gather on both
-of its routes at both shapes, the three fused kernels on both of their
+4,096 x 22,464, with its split pass alone, its device time behind a
+spacer, its product's bound in fp32 and on the tensor cores, the time
+its own three TF32 products would take there, and its kernels' `-Xptxas
+-v` registers and spills; TF32 off for its `addmm` yardstick),
+leaf_gather on both of its routes at both shapes, the three fused
+kernels on both of their
 routes at both shapes and at the 16-row bucket (each also as the
 kernel's device time: CUDA events opened behind a spacer kernel, and
 `torch.profiler`'s where it sees the card), fused_predict also at the
@@ -132,6 +139,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # adds and index arithmetic of these kernels are all non-tensor work).
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
+TF32_TENSOR_OPS_PER_S = 495e12    # dense TF32 on the tensor cores
 
 SEED = 0
 N_TREES = 1000          # CatBoost's default `iterations`
@@ -297,11 +305,12 @@ def time_ms(fn, reps: int, flush) -> float:
     return float(np.median(times))
 
 
-def fused_device_ms(fn, flush, reps: int = 10) -> tuple[float, float | None]:
-    """Device time of the one fused kernel `fn` launches, L2 flushed
-    before each launch: the kernel alone.  `time_ms`'s event window also
-    holds the host's work before the launch, which at a serving bucket is
-    about as long as the kernel.
+def device_ms(fn, flush, reps: int = 10, key: str = "fused"
+              ) -> tuple[float, float | None]:
+    """Device time of the kernels `fn` launches, L2 flushed before each
+    call: the kernels alone.  `time_ms`'s event window also holds the
+    host's work before the launch, which at a serving bucket is about as
+    long as the kernel.
 
     Returns the median of CUDA event windows that open only once the
     launch is queued: a `torch.cuda._sleep` spacer keeps the card busy
@@ -309,7 +318,8 @@ def fused_device_ms(fn, flush, reps: int = 10) -> tuple[float, float | None]:
     had already fired when the host returned is dropped and the spacer
     doubled.  Beside it, the mean kernel time `torch.profiler` reports,
     or None where the profiler sees no device events (another tool may
-    hold the card's tracing)."""
+    hold the card's tracing), summed over the kernels whose names hold
+    `key`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -328,7 +338,7 @@ def fused_device_ms(fn, flush, reps: int = 10) -> tuple[float, float | None]:
         if late:
             cycles *= 2
             check(cycles <= 64 * SPACER_CYCLES, "the host never queued a "
-                  "fused launch before its spacer ran out")
+                  f"{key} launch before its spacer ran out")
             continue
         times.append(start.elapsed_time(end))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -337,8 +347,51 @@ def fused_device_ms(fn, flush, reps: int = 10) -> tuple[float, float | None]:
             fn()
         torch.cuda.synchronize()
     total = sum(e.device_time_total for e in prof.key_averages()
-                if "fused" in e.key)
+                if key in e.key)
     return float(np.median(times)), (total / reps / 1e3 if total else None)
+
+
+def kernel_name(mangled: str) -> str | None:
+    """The `*_kernel` identifier in a mangled name, whose identifiers
+    each follow their length in digits."""
+    i = 0
+    while i < len(mangled):
+        if not mangled[i].isdigit():
+            i += 1
+            continue
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        part = mangled[j:j + int(mangled[i:j])]
+        if part.endswith("_kernel"):
+            return part
+        i = j + len(part)
+    return None
+
+
+def ptxas_report(source: str) -> dict | None:
+    """Registers, stack and spills of each kernel in `source`, from the
+    build's `-Xptxas -v` output (None when the library was not built in
+    this process)."""
+    import re
+    from repro_torch.kernels import _build
+    log = _build.build_info.get("log", "")
+    if f"== {source}" not in log:
+        return None
+    section = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
+    report = {}
+    for entry in section.split("Compiling entry function '")[1:]:
+        name = kernel_name(entry.split("'")[0])
+        regs = re.search(r"Used (\d+) registers", entry)
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", entry)
+        if name and regs and spills:
+            report[name] = {
+                "registers": int(regs.group(1)),
+                "stack_bytes": int(spills.group(1)),
+                "spill_stores": int(spills.group(2)),
+                "spill_loads": int(spills.group(3))}
+    return report
 
 
 def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
@@ -538,7 +591,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
             timing[f"{route}_ms"] = time_ms(fn, 20 if label == "bulk"
                                             else 50, flush)
             (timing[f"{route}_device_ms"],
-             timing[f"{route}_profiled_ms"]) = fused_device_ms(fn, flush)
+             timing[f"{route}_profiled_ms"]) = device_ms(fn, flush)
         fused["routes"][label] = timing
     fused["single_ms"] = fused["routes"]["single"][
         f"{fused['routes']['single']['plan']}_ms"]
@@ -870,7 +923,7 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
                 timing[f"{route}_ms"] = time_ms(fn, 20 if label == "bulk"
                                                 else 50, flush)
                 (timing[f"{route}_device_ms"],
-                 timing[f"{route}_profiled_ms"]) = fused_device_ms(fn, flush)
+                 timing[f"{route}_profiled_ms"]) = device_ms(fn, flush)
             fused["routes"][label] = timing
         fused["single_ms"] = fused["routes"]["single"][
             f"{fused['routes']['single']['plan']}_ms"]
@@ -1382,6 +1435,11 @@ KNN_BULK_SCALE = 8      # image_embeddings(scale=8): 22,464 references
 KNN_BULK_QUERIES = 4096  # KNNFeaturizer.transform's default chunk
 KNN_SMALL_ROWS = 17     # a ragged row count for the C = 20 fused kernel
 KNN_PREDICT_REPEATS = 3  # pipeline calls timed after the path's own
+# The matrix kernel's ragged shapes (M, N, K, rows of `a` skipped at the
+# start of its buffer): one tile, K = 90 and 533, a slice one row in
+# (4-byte aligned rows), a partial tile on both sides, one column.
+MATRIX_RAGGED = ((64, 128, 32, 0), (37, 61, 90, 0), (50, 300, 533, 1),
+                 (300, 257, 256, 0), (129, 1, 7, 1))
 
 
 def run_knn_path(data):
@@ -1489,6 +1547,7 @@ def check_and_time_knn(data, run, flush):
               f"{float(err.max())}, {share:.3g} times its limit")
         errs[kernel] = max(errs[kernel], float(err.max()))
         of_limit[kernel] = max(of_limit[kernel], share)
+        return share
 
     # --- the matrix kernel on both splits, the rowwise kernel on every
     # test query, and the features each route gave the path
@@ -1524,6 +1583,41 @@ def check_and_time_knn(data, run, flush):
     checks["matrix_vs_rowwise"] = {"max_abs": float(routes.max()),
                                    "of_limits": share}
     del again, rw_want, routes
+    # the row's error columns are the two splits'; the rest go to checks
+    splits_err = errs["l2sq_matrix"], of_limit["l2sq_matrix"]
+
+    # --- the matrix kernel at ragged shapes (numpy-seeded): one tile, K
+    # not a multiple of 32, a slice one row into its buffer (rows 4-byte
+    # aligned only), M < 64 against the real references; then at one
+    # transform chunk against a reference set 8x the paper's
+    rng = np.random.default_rng(SEED)
+    ragged = {}
+    for m_, n_, k_, sliced in MATRIX_RAGGED:
+        a_all = torch.as_tensor(rng.normal(size=(m_ + sliced, k_)).astype(
+            np.float32), device=dev)
+        a = a_all[sliced:]
+        b = torch.as_tensor(rng.normal(size=(n_, k_)).astype(np.float32),
+                            device=dev)
+        case = f"{m_} x {n_} x {k_}" + (", one row in" if sliced else "")
+        ragged[case] = held("l2sq_matrix", case, l2dist.l2sq_matrix(a, b),
+                            l2dist.l2sq_matrix(a, b), ref.l2sq_matrix(a, b),
+                            l2dist.matrix_limit(a, b))
+    q3 = q_test[:3]
+    ragged["3 test queries"] = held(
+        "l2sq_matrix", "3 test queries", l2dist.l2sq_matrix(q3, refs),
+        l2dist.l2sq_matrix(q3, refs), ref.l2sq_matrix(q3, refs),
+        l2dist.matrix_limit(q3, refs))
+    bulk = image_embeddings(scale=KNN_BULK_SCALE)
+    bq = torch.as_tensor(bulk.emb_test[:KNN_BULK_QUERIES], device=dev)
+    br = torch.as_tensor(bulk.emb_train, device=dev)
+    del bulk
+    got = l2dist.l2sq_matrix(bq, br)
+    bulk_of_limit = held("l2sq_matrix", f"{len(bq)} x {len(br)}", got,
+                         l2dist.l2sq_matrix(bq, br), ref.l2sq_matrix(bq, br),
+                         l2dist.matrix_limit(bq, br))
+    del got
+    checks["matrix_ragged_of_limit"] = ragged
+    torch.cuda.empty_cache()
 
     # --- the fused kernel at C = 20 outputs and F = 533 columns (its
     # 32-output instance), as the pipeline's plan runs it
@@ -1607,37 +1701,62 @@ def check_and_time_knn(data, run, flush):
     m, k = q_test.shape
     n = refs.shape[0]
 
-    def matrix_bound(m, n, k):
-        return bound(4 * (m + n) * k + 4 * (m + n) + 4 * m * n,
-                     2 * m * n * k + 2 * (m + n) * k + 3 * m * n)
+    def matrix_bounds(prefix, m, n, k):
+        """The matrix form's bounds: bytes (each input and the output
+        once) against the function's product, 2·M·N·K operations, at the
+        card's fastest rate for it (the tensor cores'; `fp32_bound_ms`
+        is the same work outside them).  `design_3xtf32_ms` is the
+        kernel's own three TF32 products at that rate: a note on the
+        design, not a bound, since a design with fewer products could
+        beat it."""
+        bytes_ms, _ = bound(4 * (m + n) * k + 4 * (m + n) + 4 * m * n, 0)
+        fp32_ms = (2 * m * n * k + 2 * (m + n) * k + 3 * m * n) \
+            / NON_TENSOR_OPS_PER_S * 1e3
+        tensor_ms = 2 * m * n * k / TF32_TENSOR_OPS_PER_S * 1e3
+        ops_ms = min(fp32_ms, tensor_ms)
+        return {f"{prefix}bound_ms": max(bytes_ms, ops_ms),
+                f"{prefix}bound_by": "bytes" if bytes_ms >= ops_ms
+                else "operations",
+                f"{prefix}fp32_bound_ms": fp32_ms,
+                f"{prefix}tensor_bound_ms": tensor_ms,
+                f"{prefix}bytes_bound_ms": bytes_ms,
+                f"{prefix}design_3xtf32_ms": 3 * tensor_ms}
 
-    bound_ms, bound_by = matrix_bound(m, n, k)
-    bulk = image_embeddings(scale=KNN_BULK_SCALE)
-    bq = torch.as_tensor(bulk.emb_test[:KNN_BULK_QUERIES], device=dev)
-    br = torch.as_tensor(bulk.emb_train, device=dev)
-    del bulk
+    def matrix_times(prefix, a, b, reps):
+        plan = tuning.matrix_plan(len(a), len(b), a.shape[1])
+        dev_ms, profiled = device_ms(lambda: l2dist.l2sq_matrix(a, b),
+                                     flush, reps, key="l2sq")
+        return {f"{prefix}ms": time_ms(lambda: l2dist.l2sq_matrix(a, b),
+                                       reps, flush),
+                f"{prefix}split_ms": time_ms(lambda: l2dist.split_pass(
+                    a, b, plan.k_pad), reps, flush),
+                f"{prefix}device_ms": dev_ms,
+                f"{prefix}profiled_ms": profiled}
+
     bq_sq, br_sq = (bq * bq).sum(1), (br * br).sum(1)
-    bulk_bound = matrix_bound(len(bq), len(br), k)[0]
     matrix_row = {
         "name": "l2sq_matrix", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l2sq_matrix.cu",
         "replaces": "src/repro/kernels/l2dist.py:100",
-        "max_abs_err": errs["l2sq_matrix"],
-        "ms": time_ms(lambda: l2dist.l2sq_matrix(q_test, refs), 20, flush),
+        "max_abs_err": splits_err[0],
+        **matrix_times("", q_test, refs, 20),
         "plain_ms": time_ms(lambda: ref.l2sq_matrix(q_test, refs), 10,
                             flush),
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        **matrix_bounds("", m, n, k),
         "library_ms": time_ms(lambda: addmm(q_test, refs, a_sq, b_sq), 10,
                               flush),
         "library_call": "torch.addmm(a_sq + b_sq, a, b.T, alpha=-2)"
                         ".clamp_min_(0), norms precomputed, TF32 off",
-        "shape": [m, n, k], "err_over_limit": of_limit["l2sq_matrix"],
+        "shape": [m, n, k], "err_over_limit": splits_err[1],
         "bulk_shape": [len(bq), len(br), k],
-        "bulk_ms": time_ms(lambda: l2dist.l2sq_matrix(bq, br), 10, flush),
+        "bulk_err_over_limit": bulk_of_limit,
+        **matrix_times("bulk_", bq, br, 10),
         "bulk_plain_ms": time_ms(lambda: ref.l2sq_matrix(bq, br), 5, flush),
         "bulk_library_ms": time_ms(lambda: addmm(bq, br, bq_sq, br_sq), 5,
                                    flush),
-        "bulk_bound_ms": bulk_bound}
+        **matrix_bounds("bulk_", len(bq), len(br), k),
+        "plan": dataclasses.asdict(tuning.matrix_plan(m, n, k)),
+        "ptxas": ptxas_report("l2sq_matrix.cu")}
     del bq, br, bq_sq, br_sq
     q0 = q_test[0]
 

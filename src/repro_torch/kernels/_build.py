@@ -53,8 +53,8 @@ _SIGNATURES = {
     "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
                         _INT, _INT, _INT, _INT, _INT, _INT, _INT),
     "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG, _INT, _INT),
-    "repro_l2sq_matrix": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                          _INT),
+    "repro_l2sq_split": (_PTR,) * 6 + (_INT,) * 4,
+    "repro_l2sq_matrix": (_PTR,) * 5 + (_INT,) * 5,
 }
 
 _lock = threading.Lock()

@@ -7,17 +7,21 @@ Two kernels, one for each form the kNN featurizer uses:
                 `src/repro/kernels/l2dist.py:l2sq_rowwise`.  Plain
                 version `ref.l2sq_rowwise`.
   l2sq_matrix   `csrc/l2sq_matrix.cu`: the (M, N) matrix
-                max(||a||^2 + ||b||^2 - 2 a.b^T, 0) with the cross term as
-                a hand-tiled fp32 FFMA product (no TF32); replaces
+                max(||a||^2 + ||b||^2 - 2 a.b^T, 0) with the cross term
+                on the tensor cores as 3xTF32 (`wgmma` fed by TMA: a_hi.b_hi
+                + a_hi.b_lo + a_lo.b_hi into one fp32 accumulator); a split
+                pass first writes each operand's TF32 hi and lo parts, K
+                padded to a multiple of 32, and its row norms.  Replaces
                 `src/repro/kernels/l2dist.py:l2sq_matrix`.  Plain version
-                `ref.l2sq_matrix`.  The norms are plain sums outside the
-                kernel, as the JAX package takes them outside its
-                `pallas_call`.
+                `ref.l2sq_matrix` (full fp32); `ref.l2sq_matrix_tf32`
+                emulates the kernel's arithmetic.  Its launch plan is
+                `tuning.matrix_plan`.
 
 Both sum each output in a fixed order, so two launches give the same
 bits.  `rowwise_limit` and `matrix_limit` are the distance rule of
 PERF.md §2: how far two float32 evaluations of the same distances, summed
-in different orders, may lie apart.
+in different orders, may lie apart.  One TF32 product breaks the matrix
+rule about 5x; three stay within a tenth of it (tests/test_torch_l2sq.py).
 """
 from __future__ import annotations
 
@@ -27,20 +31,10 @@ import torch
 
 from repro_torch.kernels import _build, ref, tuning
 
-# csrc/l2sq_matrix.cu: a block of 256 threads owns a 128 x 128 output
-# tile, an 8 x 8 micro-tile a thread, and walks K in slabs of 8.  On
-# sm_90 that is 64 accumulators plus 16 operands and 8 prefetched values a
-# thread (about 128 of the 255 registers, so two blocks fill an SM's
-# 65,536), and two double-buffered 8 x 132-float slabs of a and b, 16.5 KB
-# of static shared memory a block, well inside the default 48 KB.
-MATRIX_TILE = 128
-MATRIX_SLAB = 8
-MATRIX_THREADS = 256
 # csrc/l2sq_rowwise.cu stages q in dynamic shared memory: K floats, within
 # what one block may opt in to.
 ROWWISE_MAX_K = (tuning.SMEM_OPTIN_LIMIT
                  - tuning.SMEM_RESERVED_PER_BLOCK) // 4
-_GRID_LIMIT = 65535                # gridDim.y of the matrix kernel
 
 U = 2.0 ** -24            # unit roundoff of float32
 K_SIGMA = 8.0             # width of the limit, in rounding walks
@@ -99,12 +93,42 @@ def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
 l2sq_rowwise.launches = 0
 
 
+def split_pass(a: torch.Tensor, b: torch.Tensor, k_pad: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The matrix kernel's first pass: (a_split, b_split, a_sq, b_sq), each
+    split (2, rows, k_pad) float32 holding the TF32 hi part of the rows,
+    then the lo part, K padded with zeros; a_sq and b_sq the row norms.
+
+    A tensor on the CPU goes through the plain version; on CUDA tensors it
+    launches `csrc/l2sq_matrix.cu`'s split kernel (counted by the caller,
+    `l2sq_matrix`, not here)."""
+    m, k = a.shape
+    if a.device.type == "cpu":
+        def parts(x):
+            hi, lo = ref.tf32_split(
+                torch.nn.functional.pad(x, (0, k_pad - k)))
+            return torch.stack([hi, lo]), (x * x).sum(dim=1)
+        (sa, a_sq), (sb, b_sq) = parts(a), parts(b)
+        return sa, sb, a_sq, b_sq
+    n = b.shape[0]
+    sa = torch.empty((2, m, k_pad), dtype=torch.float32, device=a.device)
+    sb = torch.empty((2, n, k_pad), dtype=torch.float32, device=a.device)
+    a_sq = torch.empty((m,), dtype=torch.float32, device=a.device)
+    b_sq = torch.empty((n,), dtype=torch.float32, device=a.device)
+    _build.launch("repro_l2sq_split", a.device, a, b, sa, sb, a_sq, b_sq,
+                  m, n, k, k_pad)
+    return sa, sb, a_sq, b_sq
+
+
 def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """out[m, n] = max(||a[m]||^2 + ||b[n]||^2 - 2 a[m].b[n], 0) -> (M, N)
-    float32, the cross term in full fp32.
+    float32, the cross term as 3xTF32 on the tensor cores, launched as
+    `tuning.matrix_plan` plans it.
 
     A tensor on the CPU goes through the plain version; a CUDA tensor
-    launches the kernel (and adds one to `l2sq_matrix.launches`)."""
+    launches the split pass and the product kernel (and adds one to
+    `l2sq_matrix.launches`)."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"l2sq_matrix takes a (M, K) and b (N, K), got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -114,14 +138,12 @@ def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                               b=(b, torch.float32))
     m, k = a.shape
     n = b.shape[0]
-    if -(-m // MATRIX_TILE) > _GRID_LIMIT or n >= 2 ** 31:
-        raise ValueError(f"l2sq_matrix grid too large: {m} x {n}")
+    plan = tuning.matrix_plan(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m and n:
-        a_sq = (a * a).sum(dim=1)
-        b_sq = (b * b).sum(dim=1)
-        _build.launch("repro_l2sq_matrix", a.device, a, b, a_sq, b_sq, out,
-                      m, n, k, int(_vec_ok(k, a, b)))
+        sa, sb, a_sq, b_sq = split_pass(a, b, plan.k_pad)
+        _build.launch("repro_l2sq_matrix", a.device, sa, sb, a_sq, b_sq, out,
+                      m, n, plan.k_pad, plan.stages, plan.smem_bytes)
         l2sq_matrix.launches += 1
     return out
 

@@ -240,7 +240,8 @@ def _l2sq_ref(a, b):
 @registry.register("l2sq", "cuda", dtypes=("float32",), layouts=ALL_LAYOUTS,
                    constraints="rowwise (K,)x(N,K), q in shared memory: "
                                "csrc/l2sq_rowwise.cu; matrix (M,K)x(N,K), "
-                               "fp32 FFMA: csrc/l2sq_matrix.cu")
+                               "3xTF32 wgmma fed by TMA: "
+                               "csrc/l2sq_matrix.cu")
 def _l2sq_cuda(a, b):
     if a.ndim == 1:
         return _l2_k.l2sq_rowwise(a, b)

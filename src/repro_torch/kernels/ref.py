@@ -26,6 +26,8 @@ Training (`histogram`):
 
 kNN features (`l2sq_rowwise`, `l2sq_matrix`): squared L2 distances in
 float32, the paper's L2SqrDistance, one query at a time or as a matrix.
+The CUDA matrix kernel takes its cross term from the tensor cores as
+3xTF32; `tf32_split` and `l2sq_matrix_tf32` emulate that on the CPU.
 """
 from __future__ import annotations
 
@@ -259,3 +261,49 @@ def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b_sq = (b * b).sum(dim=-1)[None, :]
     cross = a @ b.T
     return torch.clamp_min(a_sq + b_sq - 2.0 * cross, 0.0)
+
+
+# TF32 keeps 10 of float32's 23 mantissa bits: the low 13 are dropped.
+TF32_DROPPED_BITS = 13
+_TF32_MASK = ~((1 << TF32_DROPPED_BITS) - 1)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 mantissa bits cleared: what a tensor core reads
+    of a float32 operand in TF32.  NaN and +-inf pass through."""
+    bits = x.contiguous().view(torch.int32)
+    return torch.where(torch.isfinite(x),
+                       (bits & _TF32_MASK).view(torch.float32), x)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 x, as the matrix kernel's split pass makes them:
+    hi = x rounded to TF32, to nearest with ties away from zero
+    (`cvt.rna.tf32.f32`: half a TF32 unit added to the magnitude bits,
+    then truncated), and lo = x - hi, exact in float32."""
+    bits = x.contiguous().view(torch.int32)
+    half = 1 << (TF32_DROPPED_BITS - 1)
+    hi = torch.where(torch.isfinite(x),
+                     ((bits + half) & _TF32_MASK).view(torch.float32), x)
+    return hi, x - hi
+
+
+def l2sq_matrix_tf32(a: torch.Tensor, b: torch.Tensor,
+                     products: int = 3) -> torch.Tensor:
+    """`l2sq_matrix` with its cross term as the tensor cores give it, in
+    the CUDA kernel's epilogue order.  products=3 is 3xTF32: a_hi.b_hi +
+    a_hi.b_lo + a_lo.b_hi, lo read as TF32; products=1 is a_hi.b_hi alone.
+    Products of TF32 values are exact in float32, so one float32 matmul
+    over the concatenated parts models one float32 accumulator."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if products == 1:
+        cross = a_hi @ b_hi.T
+    elif products == 3:
+        cross = torch.cat([a_hi, a_hi, tf32_truncate(a_lo)], dim=1) \
+            @ torch.cat([b_hi, tf32_truncate(b_lo), b_hi], dim=1).T
+    else:
+        raise ValueError(f"products must be 1 or 3, got {products}")
+    a_sq = (a * a).sum(dim=-1)[:, None]
+    b_sq = (b * b).sum(dim=-1)[None, :]
+    return torch.clamp_min((-2.0 * cross + a_sq) + b_sq, 0.0)

@@ -1,8 +1,9 @@
 """Physical-layout selection for `PredictConfig(layout="auto")`, and the
 launch plans of the CUDA kernels: shared-memory tiles and their route,
-output slabs, the leaf-gather and bitpacked-index grids, and the
-training histogram's grid and stat groups.  Every plan is plain Python,
-so the CPU tests check it at any shape.
+output slabs, the leaf-gather and bitpacked-index grids, the training
+histogram's grid and stat groups, and the distance matrix's ring and
+tiles.  Every plan is plain Python, so the CPU tests check it at any
+shape.
 
 The port's copy of the layout rule in `src/repro/kernels/tuning.py`: the
 leaf-table and lowered-array byte costs of each layout, from the
@@ -629,3 +630,65 @@ def bp_plan(n_rows: int, n_trees: int, depth: int, n_features: int,
     per_group = -(-rounds // groups)
     return BitpackedPlan(tile, row_tiles, -(-rounds // per_group),
                          per_group)
+
+
+# --------------------------------------------------------------------------
+# The distance matrix (csrc/l2sq_matrix.cu) on sm_90
+# --------------------------------------------------------------------------
+# A block of MATRIX_THREADS (a producer warpgroup and two consumer
+# warpgroups of 64 rows) owns a MATRIX_TILE_M x MATRIX_TILE_N output tile
+# and walks K in stages of MATRIX_K_BLOCK fp32 (one 128-byte swizzle row),
+# each stage the TF32 hi and lo parts of both operands' rows: 64 KB.  The
+# split pass pads K with zeros to a multiple of MATRIX_K_BLOCK.
+MATRIX_TILE_M = 128                # csrc/l2sq_matrix.cu kTileM
+MATRIX_TILE_N = 128                # kTileN
+MATRIX_K_BLOCK = 32                # kKBlock
+MATRIX_THREADS = 384               # kThreads
+MATRIX_STAGE_BYTES = 2 * (MATRIX_TILE_M + MATRIX_TILE_N) * MATRIX_K_BLOCK * 4
+MATRIX_ALIGN = 1024                # slack to align the ring to the swizzle
+MATRIX_BARRIER_BYTES = 16          # a full and an empty mbarrier a stage
+GRID_X_LIMIT = 2 ** 31 - 1         # largest gridDim.x
+TMA_COORD_LIMIT = 2 ** 31          # TMA coordinates are int32
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixPlan:
+    """One distance-matrix launch: K padded to `k_pad`, a ring of
+    `stages` stages in `smem_bytes` of dynamic shared memory, and one
+    block for each of the m_tiles x n_tiles output tiles (M fastest)."""
+    k_pad: int
+    stages: int
+    smem_bytes: int
+    m_tiles: int
+    n_tiles: int
+
+    @property
+    def grid(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def matrix_smem_bytes(stages: int) -> int:
+    """Dynamic shared memory of a ring of `stages` stages."""
+    return MATRIX_ALIGN + stages * (MATRIX_STAGE_BYTES + MATRIX_BARRIER_BYTES)
+
+
+def matrix_max_stages() -> int:
+    """The deepest ring the opt-in limit holds: 3 stages."""
+    return (SMEM_OPTIN_LIMIT - SMEM_RESERVED_PER_BLOCK - MATRIX_ALIGN) \
+        // (MATRIX_STAGE_BYTES + MATRIX_BARRIER_BYTES)
+
+
+def matrix_plan(m: int, n: int, k: int) -> MatrixPlan:
+    """The launch of `l2sq_matrix` for a (m, k) by (n, k) product, with
+    the deepest ring that fits.  Raises where the grid or a TMA coordinate
+    would overflow."""
+    if max(m, n) >= TMA_COORD_LIMIT:
+        raise ValueError(f"l2sq_matrix rows past int32: {m} x {n}")
+    k_pad = max(MATRIX_K_BLOCK, -(-k // MATRIX_K_BLOCK) * MATRIX_K_BLOCK)
+    m_tiles = -(-m // MATRIX_TILE_M)
+    n_tiles = -(-n // MATRIX_TILE_N)
+    if m_tiles * n_tiles > GRID_X_LIMIT:
+        raise ValueError(f"l2sq_matrix grid too large: {m} x {n}")
+    stages = matrix_max_stages()
+    return MatrixPlan(k_pad, stages, matrix_smem_bytes(stages), m_tiles,
+                      n_tiles)

@@ -433,7 +433,12 @@ def test_wrappers_off_the_cpu_launch_or_raise(name, monkeypatch):
     out = wrapper(first, b)
     assert out.device.type == "meta"
     assert out.shape == ((7,) if name == "l2sq_rowwise" else (5, 7))
-    assert launched == [(f"repro_{name}", 1)]      # K = 12: float4 loads
+    if name == "l2sq_rowwise":
+        assert launched == [("repro_l2sq_rowwise", 1)]   # K = 12: float4s
+    else:   # the split pass (K padded to 32), then the product kernel
+        from repro_torch.kernels import tuning
+        assert launched == [("repro_l2sq_split", 32), (
+            "repro_l2sq_matrix", tuning.matrix_plan(5, 7, 12).smem_bytes)]
     assert ops.launch_counts() == {k: int(k == name) for k in ops.KERNELS}
 
 
@@ -468,14 +473,17 @@ def test_pipeline_refuses_a_featurizer_on_another_device():
 
 
 def test_matrix_tiling_constants_match_the_kernel_source():
+    from repro_torch.kernels import tuning
     src = (_build.CSRC / "l2sq_matrix.cu").read_text()
-    for name, value in (("kTile", l2dist.MATRIX_TILE),
-                        ("kSlab", l2dist.MATRIX_SLAB),
-                        ("kThreads", l2dist.MATRIX_THREADS)):
+    for name, value in (("kTileM", tuning.MATRIX_TILE_M),
+                        ("kTileN", tuning.MATRIX_TILE_N),
+                        ("kKBlock", tuning.MATRIX_K_BLOCK),
+                        ("kThreads", tuning.MATRIX_THREADS)):
         assert f"constexpr int {name} = {value};" in src
     assert {"l2sq_rowwise.cu", "l2sq_matrix.cu"} <= {
         p.name for p in _build._sources()}
     assert set(_build._SIGNATURES) >= {"repro_l2sq_rowwise",
+                                       "repro_l2sq_split",
                                        "repro_l2sq_matrix"}
 
 
@@ -509,12 +517,20 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", MATRIX_SHAPES + [(3, 2808, 512)])
-def test_kernels_on_the_card_match_their_plain_versions(m, n, k, card):
+@pytest.mark.parametrize("sliced", [False, True],
+                         ids=["whole", "one_row_in"])
+@pytest.mark.parametrize("m,n,k", MATRIX_SHAPES + [
+    (3, 2808, 512), (64, 128, 32), (50, 70, 533)])
+def test_kernels_on_the_card_match_their_plain_versions(m, n, k, sliced,
+                                                        card):
+    # sliced: `a` starts one row into its buffer, 16-byte misaligned
+    # whenever 4 k % 16 != 0 (K = 90, 533)
     rng = np.random.default_rng(7)
-    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    a_all = torch.from_numpy(rng.normal(size=(m + 1, k)).astype(np.float32))
+    a = a_all[1:] if sliced else a_all[:m]
     b = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
-    ga, gb = a.to(card), b.to(card)
+    ga = a_all.to(card)[1:] if sliced else a.to(card)
+    gb = b.to(card)
     got = l2dist.l2sq_matrix(ga, gb)
     assert torch.equal(got, l2dist.l2sq_matrix(ga, gb))
     assert (got >= 0).all()
