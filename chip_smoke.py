@@ -88,6 +88,11 @@ It checks:
     at C = 33 (also at 61 trees, T % 4 != 0), each also equal to soa's
     route of the same name, and past the feature caps wherever its spread
     route fits;
+  * leaf_index and leaf_index_dm (one kernel body) equal their plain
+    versions bit for bit at the edges of its design (1, 31, 33, 255 and
+    257 trees at depth 1 and 16, numpy-seeded splits with padded trees and
+    thresholds past the last bin and past 255) and on each depth group of
+    the truncated model, at 1,024, 16 and 1 rows, on uint8 and int32 bins;
   * caps: at C = 33 the fused, pool and staged routes of every layout
     give the same bits, depth_major = soa, bitpacked = depth_grouped and
     one-group bitpacked fused = soa fused; every index kernel equals its
@@ -112,6 +117,11 @@ routes at both shapes and at the 16-row bucket (each also as the
 kernel's device time: CUDA events opened behind a spacer kernel, and
 `torch.profiler`'s where it sees the card), fused_predict also at the
 kNN head;
+leaf_index and leaf_index_dm at the bulk shape, the largest and the
+smallest bucket and each depth group (int32 bins, as that layout
+binarizes), each also as its device time behind a spacer and beside the
+plan's choice, with their ptxas registers and spills a template
+instantiation;
 profiles 10 training trees;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
@@ -369,10 +379,30 @@ def kernel_name(mangled: str) -> str | None:
     return None
 
 
-def ptxas_report(source: str) -> dict | None:
+TEMPLATE_ARGS = {"h": "uint8", "i": "int32", "Lb0E": "false",
+                 "Lb1E": "true"}
+
+
+def template_args(mangled: str, name: str) -> str:
+    """`<...>` of the template arguments that follow `name` in a mangled
+    name (bins type and bools spelled out), or "" for no template."""
+    rest = mangled.split(name, 1)[1]
+    if not rest.startswith("I"):
+        return ""
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        token = rest[i:rest.index("E", i) + 1] if rest[i] == "L" \
+            else rest[i]
+        args.append(TEMPLATE_ARGS.get(token, token))
+        i += len(token)
+    return "<" + ", ".join(args) + ">"
+
+
+def ptxas_report(source: str, instances: bool = False) -> dict | None:
     """Registers, stack and spills of each kernel in `source`, from the
     build's `-Xptxas -v` output (None when the library was not built in
-    this process)."""
+    this process); with `instances`, one entry a template instantiation,
+    named with its arguments."""
     import re
     from repro_torch.kernels import _build
     log = _build.build_info.get("log", "")
@@ -385,6 +415,8 @@ def ptxas_report(source: str) -> dict | None:
         regs = re.search(r"Used (\d+) registers", entry)
         spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                            r"stores, (\d+) bytes spill loads", entry)
+        if name and instances:
+            name += template_args(entry.split("'")[0], name)
         if name and regs and spills:
             report[name] = {
                 "registers": int(regs.group(1)),
@@ -928,6 +960,109 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
         fused["single_ms"] = fused["routes"]["single"][
             f"{fused['routes']['single']['plan']}_ms"]
     return rows, of_limit
+
+
+# The leaf-index body's edges: one tree, a lane short of and past a warp's
+# 32-tree tile, a lane short of and past a 256-tree round; depth 1 and 16.
+INDEX_EDGE_TREES = (1, 31, 33, 255, 257)
+INDEX_EDGE_DEPTHS = (1, 16)
+
+
+def check_and_time_index_kernels(x_test: np.ndarray, soa, grouped, rows,
+                                 small_rows: int) -> dict:
+    """leaf_index and leaf_index_dm, one kernel body (csrc/leaf_index.cuh),
+    against their plain versions bit for bit at the edges of its design:
+    INDEX_EDGE_TREES x INDEX_EDGE_DEPTHS on numpy-seeded splits (a padded
+    tree every 7th, thresholds 0, past the last bin and past 255), each
+    depth group of the truncated model (`grouped`), at the bucket, at
+    `small_rows` and at one row, on uint8 and int32 bins.  Then each
+    kernel's time beside its device time (spacer events) and the plan's
+    choice, at the bulk shape, the bucket, `small_rows` and each depth
+    group at the bucket (int32 bins, as the grouped layout binarizes),
+    and its ptxas registers and spills a template instantiation: put in
+    `rows`' two entries under "device" and "ptxas".  Returns the checks."""
+    import torch
+    from repro_torch.kernels import ref, tuning
+    from repro_torch.kernels.binarize import binarize
+    from repro_torch.kernels.leaf_index import leaf_index, leaf_index_dm
+    from repro_torch.kernels.ops import PAD_SPLIT_BIN
+
+    dev = soa.borders.device
+    x = torch.as_tensor(x_test, device=dev)
+    bins8 = binarize(x, soa.borders, out_dtype=torch.uint8)
+    n_feat, n_bins = bins8.shape[1], soa.borders.shape[0] + 1
+
+    def pow2(d):
+        return (2.0 ** torch.arange(d, dtype=torch.float32, device=dev)
+                ).reshape(d, 1)
+
+    def held(what, sf, sb):
+        for n in (MAX_BATCH, small_rows, 1):
+            for bins in (bins8[:n], bins8[:n].int()):
+                want = ref.leaf_index(bins, sf, sb)
+                kind = f"{what}, {str(bins.dtype)[6:]} bins, {n} rows"
+                check(torch.equal(leaf_index(bins, sf, sb), want),
+                      f"leaf_index differs from its plain version at {kind}")
+                check(torch.equal(leaf_index_dm(
+                    bins, sf.t().contiguous(), sb.t().contiguous(),
+                    pow2(sf.shape[1])), want),
+                      f"leaf_index_dm differs from its plain version at "
+                      f"{kind}")
+
+    rng = np.random.default_rng(SEED + 22)
+    checked = []
+    for t in INDEX_EDGE_TREES:
+        for d in INDEX_EDGE_DEPTHS:
+            sf = rng.integers(0, n_feat, (t, d)).astype(np.int32)
+            sb = rng.integers(-1, n_bins + 2, (t, d)).astype(np.int32)
+            sb[rng.random((t, d)) < 0.05] = 300
+            sb[::7] = PAD_SPLIT_BIN
+            held(f"T = {t}, depth {d}", torch.as_tensor(sf, device=dev),
+                 torch.as_tensor(sb, device=dev))
+            checked.append(f"T={t} D={d}")
+    for g in grouped.groups:
+        held(f"the depth-{g.depth} group ({g.n_trees} trees)",
+             g.split_features, g.split_bins)
+        checked.append(f"group D={g.depth} T={g.n_trees}")
+    torch.cuda.synchronize()
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    shapes = [("bulk", bins8, soa.split_features, soa.split_bins),
+              ("bucket", bins8[:MAX_BATCH], soa.split_features,
+               soa.split_bins),
+              ("single", bins8[:small_rows], soa.split_features,
+               soa.split_bins)]
+    shapes += [(f"group_d{g.depth}", bins8[:MAX_BATCH].int(),
+                g.split_features, g.split_bins) for g in grouped.groups]
+    for name, source in (("leaf_index", "leaf_index.cu"),
+                         ("leaf_index_dm", "leaf_index_dm.cu")):
+        row = next(r for r in rows if r["name"] == name)
+        row["device"] = {}
+        for label, bins, sf, sb in shapes:
+            (n, f), (t, d) = bins.shape, sf.shape
+            if name == "leaf_index":
+                fn = (lambda b=bins, sf=sf, sb=sb: leaf_index(b, sf, sb))
+            else:
+                planes = (sf.t().contiguous(), sb.t().contiguous(), pow2(d))
+                fn = (lambda b=bins, p=planes: leaf_index_dm(b, *p))
+            plan = tuning.index_plan(n, t, d, f, bins.element_size())
+            bound_ms, bound_by = bound(
+                n * f * bins.element_size() + t * d * 8 + n * t * 4,
+                n * t * d)
+            dev_ms, profiled = device_ms(fn, flush, key="leaf_index")
+            row["device"][label] = {
+                "rows": n, "trees": t, "depth": d,
+                "bins": str(bins.dtype)[6:],
+                "plan": {"rows": plan.tile.rows, "route": plan.tile.route,
+                         "tree_groups": plan.n_tree_groups,
+                         "rounds_per_group": plan.rounds_per_group,
+                         "blocks": plan.n_blocks},
+                "ms": time_ms(fn, 20 if label == "bulk" else 50, flush),
+                "device_ms": dev_ms, "profiled_ms": profiled,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        row["ptxas"] = ptxas_report(source, instances=True)
+    return {"edges": checked, "rows": [MAX_BATCH, small_rows, 1],
+            "bins": ["uint8", "int32"]}
 
 
 # --------------------------------------------------------------------------
@@ -2149,7 +2284,9 @@ def check_caps() -> dict:
         cases.append({
             "features": n_features, "borders": n_borders,
             "routes": {
-                "leaf_index": tuning.tile_rows(n_features, bin_bytes).route,
+                "leaf_index": tuning.index_plan(
+                    max(CAPS_WIDE_ROWS), 48, 8, n_features,
+                    bin_bytes).tile.route,
                 "leaf_index_bp": tuning.bp_plan(
                     max(CAPS_WIDE_ROWS), 48, 8, n_features,
                     bin_bytes).tile.route,
@@ -2463,8 +2600,12 @@ def main() -> None:
         paths["bitpacked"]["plan"].lowered,
         paths["bitpacked_one_group"]["plan"].lowered, soa_full.lowered,
         launches, check_rows)
+    kernels += layout_kernels
+    index_checks = check_and_time_index_kernels(
+        x_test, paths["soa"]["plan"].lowered,
+        paths["depth_grouped"]["plan"].lowered, kernels, buckets[0])
     hist_row["launches"] = launches["histogram"]
-    kernels += layout_kernels + [hist_row]
+    kernels += [hist_row]
     control["kernel_err_over_limit"].update(layout_of_limit)
 
     # --- the kNN path's checks: its training contracts and the histogram
@@ -2505,6 +2646,7 @@ def main() -> None:
                            "per cell from the f64 plain version; plus "
                            "1.05*(n+1)*u*sum|gh| from the f32 one",
         "tolerance_control": control, "tree_padding": tree_padding,
+        "index_edges": index_checks,
         "training": training_checks, "knn": knn_checks, "caps": caps,
         "distance_limit": f"matrix {K_SIGMA:g}*sqrt(K)*u*(|a|^2 + |b|^2 + "
                           f"2*sum|a_k*b_k|), rowwise {K_SIGMA:g}*sqrt(K)*u*"

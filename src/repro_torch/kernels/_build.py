@@ -40,11 +40,11 @@ _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # Every launcher ends with (device index, stream).
 _SIGNATURES = {
     "repro_binarize": (_PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT),
-    "repro_leaf_index": (_PTR,) * 4 + (_LONG,) + (_INT,) * 6,
+    "repro_leaf_index": (_PTR,) * 4 + (_LONG,) + (_INT,) * 8,
     "repro_leaf_gather": (_PTR,) * 3 + (_LONG,) + (_INT,) * 10,
     "repro_fused_predict": (_PTR,) * 7 + (_LONG,) + (_INT,) * 9,
     "repro_fused_predict_spread": (_PTR,) * 6 + (_LONG,) + (_INT,) * 10,
-    "repro_leaf_index_dm": (_PTR,) * 5 + (_LONG,) + (_INT,) * 6,
+    "repro_leaf_index_dm": (_PTR,) * 5 + (_LONG,) + (_INT,) * 8,
     "repro_leaf_index_bp": (_PTR,) * 4 + (_LONG,) + (_INT,) * 9,
     "repro_fused_predict_dm": (_PTR,) * 8 + (_LONG,) + (_INT,) * 9,
     "repro_fused_predict_dm_spread": (_PTR,) * 7 + (_LONG,) + (_INT,) * 10,

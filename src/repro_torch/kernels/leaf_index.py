@@ -14,14 +14,20 @@ Three kernels, one for each way a layout holds its splits:
 
 Each takes int32 or uint8 bins, and any number of features: the rows of
 a block are staged in shared memory while they fit the opt-in limit and
-read from global memory past it (`tuning.tile_rows`, `tuning.bp_plan`).
+read from global memory past it.  `leaf_index` and `leaf_index_dm` are one
+kernel body (`csrc/leaf_index.cuh`): a block stages its rows once as a
+transposed tile, walks the trees in rounds of 256 (one a lane), reads 4
+rows' bins of a feature in one shared word and compares uint8 bins 4 at
+a time inside it; `tuning.index_plan` picks its rows a block and splits
+the trees into groups where the row blocks alone would not fill the card.
+`leaf_index_bp` has its own (`tuning.bp_plan`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.tuning import bp_plan, tile_rows
+from repro_torch.kernels.tuning import bp_plan, index_plan
 
 # Deepest tree the kernels take (csrc/common.cuh kMaxDepth).
 MAX_DEPTH = 16
@@ -58,10 +64,11 @@ def leaf_index(bins: torch.Tensor, split_features: torch.Tensor,
     out = torch.empty((n, t), dtype=torch.int32, device=bins.device)
     if n and t:
         u8 = bins.dtype == torch.uint8
-        plan = tile_rows(f, 1 if u8 else 4)
+        plan = index_plan(n, t, d, f, 1 if u8 else 4)
         _build.launch("repro_leaf_index", bins.device, bins, split_features,
-                      split_bins, out, n, f, t, d, int(u8), plan.rows,
-                      int(plan.route == "global"))
+                      split_bins, out, n, f, t, d, int(u8), plan.tile.rows,
+                      int(plan.tile.route == "global"), plan.n_tree_groups,
+                      plan.rounds_per_group)
         leaf_index.launches += 1
     return out
 
@@ -99,10 +106,12 @@ def leaf_index_dm(bins: torch.Tensor, split_features_dm: torch.Tensor,
     out = torch.empty((n, t), dtype=torch.int32, device=bins.device)
     if n and t:
         u8 = bins.dtype == torch.uint8
-        plan = tile_rows(f, 1 if u8 else 4)
+        plan = index_plan(n, t, d, f, 1 if u8 else 4)
         _build.launch("repro_leaf_index_dm", bins.device, bins,
                       split_features_dm, split_bins_dm, pow2, out, n, f, t,
-                      d, int(u8), plan.rows, int(plan.route == "global"))
+                      d, int(u8), plan.tile.rows,
+                      int(plan.tile.route == "global"), plan.n_tree_groups,
+                      plan.rounds_per_group)
         leaf_index_dm.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 """Physical-layout selection for `PredictConfig(layout="auto")`, and the
 launch plans of the CUDA kernels: shared-memory tiles and their route,
-output slabs, the leaf-gather and bitpacked-index grids, the training
-histogram's grid and stat groups, and the distance matrix's ring and
-tiles.  Every plan is plain Python, so the CPU tests check it at any
+output slabs, the leaf-index, leaf-gather and bitpacked-index grids, the
+training histogram's grid and stat groups, and the distance matrix's
+ring and tiles.  Every plan is plain Python, so the CPU tests check it at any
 shape.
 
 The port's copy of the layout rule in `src/repro/kernels/tuning.py`: the
@@ -290,21 +290,8 @@ def _tile(n_features: int, bin_bytes: int, *, max_rows: int, granule: int,
     return TilePlan(max_rows, n_features, "global", 0, static_bytes)
 
 
-# csrc/leaf_index.cuh: up to 128 rows a block, in multiples of its 8 row
-# groups (warps), unpadded rows.
-INDEX_MAX_ROWS = 128
-INDEX_ROW_GROUPS = 8
-
-
-def tile_rows(n_features: int, bin_bytes: int) -> TilePlan:
-    """The bins tile of `leaf_index` and `leaf_index_dm`."""
-    return _tile(n_features, bin_bytes, max_rows=INDEX_MAX_ROWS,
-                 granule=INDEX_ROW_GROUPS, static_bytes=0, odd_stride=False)
-
-
-def strided_tile(n_features: int, bin_bytes: int, static_bytes: int = 0,
-                 max_rows: int = INDEX_MAX_ROWS, warp: int = 32
-                 ) -> TilePlan:
+def strided_tile(n_features: int, bin_bytes: int, static_bytes: int,
+                 max_rows: int, warp: int = 32) -> TilePlan:
     """A bins tile whose rows a warp reads one row a lane: the stride is
     an odd number of 4-byte words, so the 32 rows read at one feature sit
     in 32 distinct shared-memory banks.  Rows come in whole warps."""
@@ -586,6 +573,81 @@ def fused_plan(n_rows: int, n_trees: int, depth: int, n_outputs: int,
     tile = tile_shape(n_features, u8, planes=splits != "rows")
     return FusedPlan("row", tile.rows, tile.rows, n_trees, slab, len(spans),
                      -(-n_rows // tile.rows), tile.smem_bytes, tile)
+
+
+# --------------------------------------------------------------------------
+# csrc/leaf_index.cuh (leaf_index and leaf_index_dm)
+# --------------------------------------------------------------------------
+# A block of 8 warps owns `rows` rows, staged once as a transposed
+# (F + 1, rows + 4) tile (a zero row last; the pitch an odd number of
+# words), and walks the trees in rounds of 256, one a thread, staging each
+# round's (D, 256) splits as 8-byte (feature offset, threshold) pairs.  A
+# warp walks up to 32 rows (8 uint8 or 4 int32 words of 4 rows) of a
+# 32-tree tile at a time.
+INDEX_WARPS = 8
+INDEX_ROUND_TREES = INDEX_WARPS * 32
+INDEX_PAIR_BYTES = 8
+INDEX_PITCH_PAD = 4
+# Rows a block, largest first: the plan takes the first whose blocks fill
+# the SMs (and that fits shared memory, or the global route).  64 is the
+# bulk shape's best, 128 no better (scripts/leaf_index_probe.py); the
+# kernel takes 8, 16 or a multiple of 32.
+INDEX_ROWS = (64, 32, 16, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexPlan:
+    """The bins tile (staged, `tile.stride` is the pitch of a feature's
+    column of `tile.rows` rows; on the global route, n_features, the
+    bins' own row pitch), and a grid of (row blocks, tree groups), each
+    group `rounds_per_group` rounds of INDEX_ROUND_TREES trees."""
+    tile: TilePlan
+    n_row_tiles: int
+    n_tree_groups: int
+    rounds_per_group: int
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n_row_tiles * self.n_tree_groups
+
+
+def index_tile_bytes(rows: int, n_features: int, bin_bytes: int) -> int:
+    """Shared bytes of a staged (F + 1, rows + 4) bins tile."""
+    return (n_features + 1) * (rows + INDEX_PITCH_PAD) * bin_bytes
+
+
+def index_plan(n_rows: int, n_trees: int, depth: int, n_features: int,
+               bin_bytes: int) -> IndexPlan:
+    """The launch of `leaf_index` / `leaf_index_dm`: the first of
+    INDEX_ROWS whose row blocks, times the tree rounds, reach SM_COUNT
+    blocks (else the fewest rows, which gives the most blocks there are),
+    among those whose tile fits the opt-in limit beside the round's split
+    pairs (else the global route, rows read where they lie); then the
+    trees in as many groups as the row blocks need to reach SM_COUNT (one
+    group when they already do).  At Covertype's width (54 uint8
+    features, depth 8): 64 rows and one group at 139,440 rows; 16 rows and
+    4 groups of one round at the 1,024-row bucket of 1,000 trees; 8 rows
+    and one group for a depth group of a few trees at 1,024 rows, and 8
+    rows and 4 groups at 16 rows."""
+    pair_bytes = max(depth, 1) * INDEX_ROUND_TREES * INDEX_PAIR_BYTES
+    rounds = max(1, -(-n_trees // INDEX_ROUND_TREES))
+    fits = [r for r in INDEX_ROWS
+            if pair_bytes + index_tile_bytes(r, n_features, bin_bytes)
+            <= SMEM_OPTIN_LIMIT]
+    route = "shared" if fits else "global"
+    candidates = fits or list(INDEX_ROWS)
+    rows = next((r for r in candidates
+                 if -(-n_rows // r) * rounds >= SM_COUNT), candidates[-1])
+    if fits:
+        tile = TilePlan(rows, rows + INDEX_PITCH_PAD, route,
+                        index_tile_bytes(rows, n_features, bin_bytes),
+                        pair_bytes)
+    else:
+        tile = TilePlan(rows, n_features, route, 0, pair_bytes)
+    row_tiles = max(1, -(-n_rows // rows))
+    need = -(-SM_COUNT // row_tiles)
+    per_group = 1 if need >= rounds else rounds // need
+    return IndexPlan(tile, row_tiles, -(-rounds // per_group), per_group)
 
 
 # --------------------------------------------------------------------------

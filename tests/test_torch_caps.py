@@ -77,12 +77,17 @@ def _covers(spans, n):
 
 def _tiles(n_features, bin_bytes, depth=8):
     """Each capped kernel's tile plan, and the bytes of its fewest rows
-    with the kernel's other shared memory."""
+    with the kernel's other shared memory.  The leaf_index tile is
+    transposed: F + 1 feature columns `stride` rows apart (`_lines`)."""
     odd = ((n_features * bin_bytes + 3) // 4 | 1) * 4
     bp = tuning.bp_plan(139_440, 1000, depth, n_features, bin_bytes).tile
+    index = tuning.index_plan(139_440, 1000, depth, n_features, bin_bytes)
     return {
-        "leaf_index": (tuning.tile_rows(n_features, bin_bytes),
-                       tuning.INDEX_ROW_GROUPS * n_features * bin_bytes),
+        "leaf_index": (index.tile,
+                       tuning.index_tile_bytes(min(tuning.INDEX_ROWS),
+                                               n_features, bin_bytes)
+                       + depth * tuning.INDEX_ROUND_TREES
+                       * tuning.INDEX_PAIR_BYTES),
         "fused_predict": (tuning.tile_shape(n_features, bin_bytes == 1),
                           32 * odd),
         "fused_planes": (tuning.tile_shape(n_features, bin_bytes == 1,
@@ -90,6 +95,14 @@ def _tiles(n_features, bin_bytes, depth=8):
                          32 * odd + tuning.PLANE_BYTES),
         "leaf_index_bp": (bp, 32 * odd + tuning.BP_TRANSPOSE_BYTES
                           + depth * tuning.BP_ROUND_TREES * 8)}
+
+
+def _lines(name, plan, n_features):
+    """The lines a staged tile holds and the bins each must hold: rows of
+    F bins, or for leaf_index F + 1 feature columns of `rows` bins."""
+    if name == "leaf_index":
+        return n_features + 1, plan.rows
+    return plan.rows, n_features
 
 
 # --------------------------------------------------------------------------
@@ -105,9 +118,10 @@ def test_tile_plans_take_any_width(n_features, u8):
         if n_features <= OLD_CAPS[name][0 if u8 else 1]:
             assert plan.route == "shared", name
         assert (plan.route == "global") == (least > tuning.SMEM_OPTIN_LIMIT)
+        lines, length = _lines(name, plan, n_features)
         if plan.route == "shared":
-            assert plan.tile_bytes == plan.rows * plan.stride * bin_bytes
-            assert plan.stride >= n_features
+            assert plan.tile_bytes == lines * plan.stride * bin_bytes
+            assert plan.stride >= length
         else:
             assert plan.tile_bytes == 0 and plan.stride == n_features
 
@@ -121,8 +135,8 @@ def test_one_feature_past_each_old_cap_opts_in():
             assert plan.route == "shared" and plan.opt_in, name
     # 1,533 / 6,145 uint8 and 1,537 int32 features
     assert tuning.tile_shape(1533, True).rows == 128
-    assert tuning.tile_rows(6145, 1).rows == 32
-    assert tuning.tile_rows(1537, 4).rows == 32
+    assert tuning.index_plan(139_440, 1000, 8, 6145, 1).tile.rows == 16
+    assert tuning.index_plan(139_440, 1000, 8, 1537, 4).tile.rows == 16
 
 
 @GRID
@@ -257,15 +271,16 @@ def test_wrappers_launch_past_the_feature_caps(launches):
                            _meta(t, d, dtype=i32))
         index_k.leaf_index_dm(bins, *planes, _meta(d, 1))
         index_k.leaf_index_bp(bins, *planes)
-        plan = tuning.tile_rows(f, dtype.itemsize)
-        assert launches[-3][1][-2:] == (plan.rows,
-                                        int(plan.route == "global"))
-        assert launches[-2][1][-2:] == launches[-3][1][-2:]
+        plan = tuning.index_plan(n, t, d, f, dtype.itemsize)
+        assert launches[-3][1][-4:] == (
+            plan.tile.rows, int(plan.tile.route == "global"),
+            plan.n_tree_groups, plan.rounds_per_group)
+        assert launches[-2][1][-4:] == launches[-3][1][-4:]
         bp = tuning.bp_plan(n, t, d, f, dtype.itemsize)
         assert launches[-1][1][-4:] == (
             bp.tile.stride, int(bp.tile.route == "global"),
             bp.n_tree_groups, bp.rounds_per_group)
-    assert [a[-1] for _, a in launches[::3]] == [0, 0, 1]
+    assert [a[-3] for _, a in launches[::3]] == [0, 0, 1]   # global
     for f, n_borders in ((1533, 63), (1021, 63), (384, 300), (60_000, 63)):
         x, borders = _meta(n, f), _meta(n_borders, f)
         lv = _meta(t, 1 << d, 7)

@@ -261,9 +261,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_shared_memory_tiles_fit_and_avoid_bank_conflicts():
-    # Covertype width: 128 rows of 54 uint8 or int32 bins
-    assert index_k.tile_rows(54, 1).rows == 128
-    assert index_k.tile_rows(54, 4).rows == 128
+    # Covertype width in bulk: 64 rows of 54 uint8 or int32 bins, staged
+    # as a transposed tile whose feature columns are an odd number of
+    # words (uint8) or of 16-byte chunks (int32) apart
+    for bin_bytes in (1, 4):
+        tile = tuning.index_plan(139_440, 1000, 8, 54, bin_bytes).tile
+        assert (tile.rows, tile.route) == (64, "shared")
+        assert tile.stride % 4 == 0 and (tile.stride // 4) % 2 == 1
+        assert tile.tile_bytes == 55 * tile.stride * bin_bytes
+        assert tile.smem_bytes <= tuning.SMEM_DEFAULT_BYTES
     for n_feat, u8 in [(f, u8) for f in (1, 3, 54, 200) for u8 in (0, 1)] \
             + [(512, 1)]:
             plan = fused_k.tile_shape(n_feat, u8)
@@ -275,7 +281,7 @@ def test_shared_memory_tiles_fit_and_avoid_bank_conflicts():
             assert rows * stride * bin_bytes == plan.tile_bytes \
                 <= tuning.SMEM_DEFAULT_BYTES
     # rows too wide for the opt-in limit are read from global memory
-    for plan in (index_k.tile_rows(10_000, 4),
+    for plan in (tuning.index_plan(64, 40, 8, 10_000, 4).tile,
                  fused_k.tile_shape(10_000, False)):
         assert plan.route == "global" and plan.tile_bytes == 0
         assert plan.stride == 10_000
