@@ -24,7 +24,8 @@ to 0 before each path and read after it:
   * runs the paper's image-embeddings workload (2,808 train and 2,841 test
     embeddings of K = 512, 20 classes): kNN features (k = 16) of both
     splits with the `l2sq_matrix` kernel, of the test split again with one
-    `l2sq_rowwise` launch a query, a 1,000-tree MultiClass head (depth 4,
+    `l2sq` dispatch and one `l2sq_rowwise` launch a query (both counted),
+    a 1,000-tree MultiClass head (depth 4,
     lr 0.05) trained on the 533 augmented columns with `boosting.fit`, and
     `EmbeddingGBDTPipeline.predict` on the test split: accuracy and rows/s;
   * then the caps phase: the shapes the kernels once refused (33
@@ -65,14 +66,21 @@ It checks:
     (`l2dist.matrix_limit` / `rowwise_limit`) on both splits and every test
     query, the matrix kernel (3xTF32 on the tensor cores) also at 4,096 x
     22,464 and at ragged shapes (one tile, K = 90 and 533, a slice one row
-    into its buffer, M = 3 against the references, one column); the two
-    routes within the sum of their limits; each route's
-    features obey the feature rule against the plain distances' (exempt
-    queries counted); the head's training contracts as above, its first 5
-    trees' splits, and the histogram at 533 features x 40 stats for depths
-    0-3; the fused kernel at C = 20 and F = 533 within `sum_limit`; the
-    pipeline's class ids equal to a CPU pipeline's on 1,024 test rows
-    where the rows bin alike and the margin is clear;
+    into its buffer, M = 3 against the references, one column), the
+    rowwise kernel bit for bit its summation order
+    (`ref.l2sq_rowwise_lanes`) on every test query and at ragged shapes
+    (`ROWWISE_RAGGED`: K % 4 != 0, a slice one row in, K = 1, N = 1, a
+    ragged N, rows not 16-byte aligned, K = 1,028 and 60,000: all three
+    routes of `tuning.rowwise_plan`; N past one wave of warps at K = 128,
+    256, 512 and 1,028: the blocks striding), the route's `out=` rows
+    equal to lone launches; the two forms within the sum of their limits;
+    each route's features obey the feature rule against the plain
+    distances' (exempt queries counted); the head's training contracts
+    as above, its first 5 trees' splits, and the histogram at 533 features
+    x 40 stats for depths 0-3; the fused kernel at C = 20 and F = 533
+    within `sum_limit`; the pipeline's class ids equal to a CPU
+    pipeline's on 1,024 test rows where the rows bin alike and the margin
+    is clear;
   * leaf_gather's staged and direct routes, at every row count above and
     at C = 33, equal the tree-order float32 sum bit for bit (and the fused
     kernels equal it at C = 33); so do fused_predict's spread and row
@@ -110,7 +118,10 @@ level, the distance kernels at the test split's shape (the matrix also at
 4,096 x 22,464, with its split pass alone, its device time behind a
 spacer, its product's bound in fp32 and on the tensor cores, the time
 its own three TF32 products would take there, and its kernels' `-Xptxas
--v` registers and spills; TF32 off for its `addmm` yardstick),
+-v` registers and spills; TF32 off for its `addmm` yardstick; the
+rowwise kernel also as its device time behind a spacer, beside its plan
+and ptxas report, and the test split back to back as lone calls and
+through the route's own call, on events and on the host clock),
 leaf_gather on both of its routes at both shapes, the three fused
 kernels on both of their
 routes at both shapes and at the 16-row bucket (each also as the
@@ -385,7 +396,8 @@ TEMPLATE_ARGS = {"h": "uint8", "i": "int32", "Lb0E": "false",
 
 def template_args(mangled: str, name: str) -> str:
     """`<...>` of the template arguments that follow `name` in a mangled
-    name (bins type and bools spelled out), or "" for no template."""
+    name (bins type, ints and bools spelled out), or "" for no
+    template."""
     rest = mangled.split(name, 1)[1]
     if not rest.startswith("I"):
         return ""
@@ -393,7 +405,8 @@ def template_args(mangled: str, name: str) -> str:
     while i < len(rest) and rest[i] != "E":
         token = rest[i:rest.index("E", i) + 1] if rest[i] == "L" \
             else rest[i]
-        args.append(TEMPLATE_ARGS.get(token, token))
+        args.append(TEMPLATE_ARGS.get(
+            token, token[2:-1] if token.startswith("Li") else token))
         i += len(token)
     return "<" + ", ".join(args) + ">"
 
@@ -1575,20 +1588,33 @@ KNN_PREDICT_REPEATS = 3  # pipeline calls timed after the path's own
 # (4-byte aligned rows), a partial tile on both sides, one column.
 MATRIX_RAGGED = ((64, 128, 32, 0), (37, 61, 90, 0), (50, 300, 533, 1),
                  (300, 257, 256, 0), (129, 1, 7, 1))
+# The rowwise kernel's ragged shapes (N, K, floats the refs start into
+# their buffer): K % 4 != 0, a slice one row in at K = 533, K = 1, N = 1,
+# N not a multiple of a block's rows, K % 4 == 0 one float in (rows not
+# 16-byte aligned: the scalar route), the walk route (K > 1,024), K past
+# the old shared-memory cap of 57,856, and N past one wave of warps (the
+# blocks stride over the rows) at J = 4, 2, 1 and on the walk route.
+ROWWISE_RAGGED = ((37, 90, 0), (300, 533, 533), (64, 1, 0), (1, 512, 0),
+                  (2807, 512, 0), (300, 512, 1), (1000, 1028, 0),
+                  (5, 60_000, 0), (7000, 512, 0), (7000, 256, 0),
+                  (13000, 128, 0), (4000, 1028, 0))
+LANES_CHUNK = 64        # test queries a ref.l2sq_rowwise_lanes call
 
 
 def run_knn_path(data):
     """The paper's image-embeddings workload through the port's entry
     points, on the card: featurize the train split (matrix kernel) and the
     test split (matrix kernel, then the rowwise kernel one query at a
-    time), train the N_TREES-tree MultiClass head on the 533 augmented
-    columns with `boosting.fit`, and classify the test split with
+    time: one `l2sq` dispatch and one launch a query, counted), train the
+    N_TREES-tree MultiClass head on the 533 augmented columns with
+    `boosting.fit`, and classify the test split with
     `EmbeddingGBDTPipeline.predict`.  Returns what the checks read and the
     wall seconds of each phase."""
     import torch
     from repro_torch.core import boosting
     from repro_torch.core.knn import KNNFeaturizer, augment_with_knn
     from repro_torch.core.losses import MultiClass
+    from repro_torch.kernels import l2dist, registry
     from repro_torch.serving.engine import EmbeddingGBDTPipeline
 
     seconds = {}
@@ -1605,8 +1631,18 @@ def run_knn_path(data):
     x_train = timed("featurize_train", lambda: augment_with_knn(
         data.x_train, data.emb_train, feat))
     feats = timed("featurize_test", lambda: feat.transform(data.emb_test))
+    dispatched = registry.call_stats().get("l2sq", 0)
+    launched = l2dist.l2sq_rowwise.launches
     feats_rw = timed("featurize_test_rowwise", lambda: feat.transform(
         data.emb_test, rowwise=True))
+    rowwise_counts = {
+        "queries": len(data.emb_test),
+        "dispatches": registry.call_stats()["l2sq"] - dispatched,
+        "launches": l2dist.l2sq_rowwise.launches - launched}
+    check(rowwise_counts["dispatches"] == rowwise_counts["launches"]
+          == len(data.emb_test),
+          f"a rowwise transform of {len(data.emb_test)} queries made "
+          f"{rowwise_counts}: one l2sq dispatch and one launch a query")
     params = dataclasses.replace(data.params, n_trees=N_TREES,
                                  max_bins=MAX_BINS, seed=SEED)
     ens, history = timed("train", lambda: boosting.fit(
@@ -1617,7 +1653,7 @@ def run_knn_path(data):
     return {"feat": feat, "x_train": x_train, "feats": feats,
             "feats_rw": feats_rw, "ens": ens, "history": history,
             "params": params, "pipeline": pipeline, "pred": pred,
-            "seconds": seconds}
+            "seconds": seconds, "rowwise_counts": rowwise_counts}
 
 
 def feature_rule(feat, got_feats, got_d, want_d, limit, what):
@@ -1658,7 +1694,7 @@ def check_and_time_knn(data, run, flush):
     import torch
     from repro_torch.core.knn import KNNFeaturizer
     from repro_torch.data.synthetic import image_embeddings
-    from repro_torch.kernels import l2dist, ref, tuning
+    from repro_torch.kernels import l2dist, ops, ref, tuning
     from repro_torch.kernels.fused_predict import fused_predict
     from repro_torch.serving.engine import EmbeddingGBDTPipeline
 
@@ -1708,6 +1744,12 @@ def check_and_time_knn(data, run, flush):
     rw_want = torch.stack([ref.l2sq_rowwise(q, refs) for q in q_test])
     rw_limit = torch.stack([l2dist.rowwise_limit(q, refs) for q in q_test])
     held("l2sq_rowwise", "every test query", rw, again, rw_want, rw_limit)
+    check(all(torch.equal(rw[i:i + LANES_CHUNK], ref.l2sq_rowwise_lanes(
+        q_test[i:i + LANES_CHUNK], refs))
+        for i in range(0, len(q_test), LANES_CHUNK)),
+        "l2sq_rowwise (every test query) is not the kernel's summation "
+        "order (ref.l2sq_rowwise_lanes) bit for bit")
+    rw_err = errs["l2sq_rowwise"], of_limit["l2sq_rowwise"]
     exempt["rowwise_test"] = feature_rule(
         feat, run["feats_rw"], rw, rw_want, rw_limit, "rowwise features")
     routes = (mat.double() - rw.double()).abs()
@@ -1752,6 +1794,39 @@ def check_and_time_knn(data, run, flush):
                          l2dist.matrix_limit(bq, br))
     del got
     checks["matrix_ragged_of_limit"] = ragged
+
+    # --- the rowwise kernel at ragged shapes (numpy-seeded), each also
+    # bit for bit its summation order, and every route of its plan taken
+    rw_ragged = {}
+    for n_, k_, offset in ROWWISE_RAGGED:
+        buf = torch.as_tensor(rng.normal(size=offset + n_ * k_).astype(
+            np.float32), device=dev)
+        rr = buf[offset:].view(n_, k_)
+        qq = torch.as_tensor(rng.normal(size=k_).astype(np.float32),
+                             device=dev)
+        case = f"{n_} x {k_}" + (f", {offset} floats in" if offset else "")
+        got = l2dist.l2sq_rowwise(qq, rr)
+        share = held("l2sq_rowwise", case, got, l2dist.l2sq_rowwise(qq, rr),
+                     ref.l2sq_rowwise(qq, rr), l2dist.rowwise_limit(qq, rr))
+        check(torch.equal(got, ref.l2sq_rowwise_lanes(qq, rr)),
+              f"l2sq_rowwise ({case}) is not its summation order "
+              "(ref.l2sq_rowwise_lanes) bit for bit")
+        plan = tuning.rowwise_plan(n_, k_, l2dist._vec_ok(k_, qq, rr))
+        rw_ragged[case] = {"plan": dataclasses.asdict(plan),
+                           "of_limit": share}
+        del buf, rr, got
+    check({c["plan"]["route"] for c in rw_ragged.values()}
+          == set(tuning.ROWWISE_ROUTES),
+          f"the rowwise ragged shapes took routes {rw_ragged}")
+    strided = {(c["plan"]["route"], c["plan"]["chunks"])
+               for c in rw_ragged.values()
+               if c["plan"]["blocks"] * c["plan"]["warps"]
+               == tuning.SM_COUNT * tuning.ROWWISE_WAVE_WARPS}
+    check(strided >= {("registers", j) for j in (1, 2, 4)} | {("walk", 8)},
+          f"the rowwise ragged shapes strode past one wave only at "
+          f"{sorted(strided)}")
+    checks["rowwise_ragged"] = rw_ragged
+    checks["rowwise_route_counts"] = run["rowwise_counts"]
     torch.cuda.empty_cache()
 
     # --- the fused kernel at C = 20 outputs and F = 533 columns (its
@@ -1904,27 +1979,58 @@ def check_and_time_knn(data, run, flush):
                 .abs() <= 2 * l2dist.rowwise_limit(q0, refs)).all()),
           "cdist yardstick computes other distances")
     rw_bound, rw_by = bound(4 * n * k + 4 * k + 4 * n, 3 * n * k)
-    # the path's own pattern: every test query back to back, refs in L2
+    # every test query back to back, refs in L2: lone calls, then the
+    # route's own call (one dispatch a query into a preallocated row, the
+    # queries and refs checked once), on events and on the host clock
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for q in q_test:
-        l2dist.l2sq_rowwise(q, refs)
-    end.record()
-    end.synchronize()
+    lone_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start.record()
+        for q in q_test:
+            l2dist.l2sq_rowwise(q, refs)
+        end.record()
+        end.synchronize()
+        lone_ms.append(start.elapsed_time(end) / len(q_test))
+    batch = ops.rowwise_batch(q_test, refs)
+    dists = torch.empty((len(q_test), n), dtype=torch.float32, device=dev)
+    route = {"ms": [], "host_ms": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(len(q_test)):
+            ops.l2sq_rowwise(q_test[i], refs, out=dists[i], batch=batch)
+        route["host_ms"].append((time.perf_counter() - t0) * 1e3
+                                / len(q_test))
+        end.record()
+        end.synchronize()
+        route["ms"].append(start.elapsed_time(end) / len(q_test))
+    check(torch.equal(dists, rw), "the route's out= rows differ from lone "
+          "launches")
+    del dists
+    rw_device, rw_profiled = device_ms(lambda: l2dist.l2sq_rowwise(q0, refs),
+                                       flush, 20, key="l2sq_rowwise")
     rowwise_row = {
         "name": "l2sq_rowwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l2sq_rowwise.cu",
         "replaces": "src/repro/kernels/l2dist.py:50",
-        "max_abs_err": errs["l2sq_rowwise"],
+        "max_abs_err": rw_err[0],
         "ms": time_ms(lambda: l2dist.l2sq_rowwise(q0, refs), 50, flush),
+        "device_ms": rw_device, "profiled_ms": rw_profiled,
         "plain_ms": time_ms(lambda: ref.l2sq_rowwise(q0, refs), 20, flush),
         "bound_ms": rw_bound, "bound_by": rw_by,
         "library_ms": time_ms(lambda: cdist(q0), 20, flush),
         "library_call": "torch.cdist(q[None], refs, compute_mode="
                         "'donot_use_mm_for_euclid_dist').square_()",
-        "shape": [n, k], "err_over_limit": of_limit["l2sq_rowwise"],
-        "back_to_back_ms_per_query": start.elapsed_time(end) / len(q_test),
+        "shape": [n, k], "err_over_limit": rw_err[1],
+        "back_to_back_ms_per_query": lone_ms,
+        "route_back_to_back_ms_per_query": route["ms"],
+        "route_host_ms_per_query": route["host_ms"],
+        "plan": dataclasses.asdict(tuning.rowwise_plan(
+            n, k, l2dist._vec_ok(k, q0, refs))),
+        "ptxas": ptxas_report("l2sq_rowwise.cu", instances=True),
         "per": "one query against the train split"}
     return [matrix_row, rowwise_row], checks
 

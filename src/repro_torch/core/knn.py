@@ -7,9 +7,11 @@ Features produced per query embedding:
   - per-class fraction among the k nearest neighbours   (C features)
   - mean distance to the k nearest                      (1 feature)
 
-The distances come from the `l2sq` op: the hand-tiled fp32 matrix kernel
-by default (the batched form), or with `rowwise=True` one launch of the
-paper-faithful rowwise kernel per query.
+The distances come from the `l2sq` op: the matrix kernel by default (the
+batched form), or with `rowwise=True` one dispatch and one launch of the
+paper-faithful rowwise kernel per query, each writing its row of a
+preallocated (Q, M) buffer, the queries and references checked once
+(`ops.rowwise_batch`).
 
 Neighbours are chosen as `jax.lax.top_k(-dists, k)` chooses them: the k
 smallest distances, and among equal distances the lower reference index
@@ -72,17 +74,22 @@ class KNNFeaturizer:
                 f"expected (Q, {self.train_embeddings.shape[1]}) queries, "
                 f"got {tuple(q_all.shape)}")
         q_all = q_all.contiguous()
+        refs = self.train_embeddings
+        # the rowwise route checks the queries and refs once, then makes
+        # one dispatch and one launch a query into a preallocated row
+        run = ops.rowwise_batch(q_all, refs, backend=backend) \
+            if rowwise else None
         outs = []
         for s in range(0, q_all.shape[0], batch_size):
             q = q_all[s:s + batch_size]
             if rowwise:
-                dists = torch.stack([
-                    ops.l2sq_rowwise(q[i], self.train_embeddings,
-                                     backend=backend)
-                    for i in range(q.shape[0])])
+                dists = torch.empty((q.shape[0], refs.shape[0]),
+                                    dtype=torch.float32, device=self.device)
+                for i in range(q.shape[0]):
+                    ops.l2sq_rowwise(q[i], refs, backend=backend,
+                                     out=dists[i], batch=run)
             else:
-                dists = ops.l2sq_matrix(q, self.train_embeddings,
-                                        backend=backend)
+                dists = ops.l2sq_matrix(q, refs, backend=backend)
             outs.append(self._features_from_dists(dists))
         if not outs:
             return torch.zeros((0, self.n_features), device=self.device)

@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -52,7 +52,7 @@ _SIGNATURES = {
     "repro_fused_predict_bp_spread": (_PTR,) * 6 + (_LONG,) + (_INT,) * 11,
     "repro_histogram": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _LONG, _INT,
                         _INT, _INT, _INT, _INT, _INT, _INT, _INT),
-    "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG, _INT, _INT),
+    "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG) + (_INT,) * 5,
     "repro_l2sq_split": (_PTR,) * 6 + (_INT,) * 4,
     "repro_l2sq_matrix": (_PTR,) * 5 + (_INT,) * 5,
 }
@@ -160,6 +160,37 @@ def check_cuda_tensors(op: str, **tensors: tuple[torch.Tensor, torch.dtype]
         raise ValueError(f"{op}: tensors on several devices {devices}")
 
 
+def fixed_args(name: str, start: int, *values: int) -> tuple:
+    """`values` as the ctypes types of launcher `name`'s arguments from
+    `start` on: a caller that passes the same ints at every launch builds
+    them once, where ctypes would convert each Python int at every call."""
+    return tuple(c_type(v) for c_type, v in zip(_SIGNATURES[name][start:],
+                                                 values, strict=True))
+
+
+def _launch_failed(lib: ctypes.CDLL, name: str, status: int) -> None:
+    text = lib.repro_cuda_error_string(status).decode()
+    raise RuntimeError(f"{name} launch failed: CUDA error {status} "
+                       f"({text})")
+
+
+def bind(name: str, device: torch.device) -> Callable[..., None]:
+    """Launcher `name` bound to `device` and its current stream, both
+    looked up now: for a route that launches it many times in a row.
+    Call the result with data pointers and ints; it raises on a non-zero
+    CUDA status."""
+    lib = library()
+    fn = getattr(lib, name)
+    index = device.index
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def call(*c_args: int) -> None:
+        status = fn(*c_args, index, stream)
+        if status:
+            _launch_failed(lib, name, status)
+    return call
+
+
 def launch(name: str, device: torch.device, *args: Any) -> None:
     """Call launcher `name` on `device`'s current stream; tensors are
     passed as their data pointers.  Raises on a non-zero CUDA status."""
@@ -169,6 +200,4 @@ def launch(name: str, device: torch.device, *args: Any) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     status = getattr(lib, name)(*c_args, device.index, stream)
     if status:
-        text = lib.repro_cuda_error_string(status).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {status} "
-                           f"({text})")
+        _launch_failed(lib, name, status)

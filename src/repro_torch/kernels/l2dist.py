@@ -3,9 +3,16 @@
 Two kernels, one for each form the kNN featurizer uses:
 
   l2sq_rowwise  `csrc/l2sq_rowwise.cu`: one query against many reference
-                rows, a warp a row (the paper-faithful form); replaces
+                rows (the paper-faithful form), q in registers, a row a
+                warp with all its loads in flight, any K; the launch
+                plan is `tuning.rowwise_plan` (routes `registers`,
+                `walk`, `scalar`).  Replaces
                 `src/repro/kernels/l2dist.py:l2sq_rowwise`.  Plain
-                version `ref.l2sq_rowwise`.
+                version `ref.l2sq_rowwise`; `ref.l2sq_rowwise_lanes` is
+                the kernel's own summation order, bit for bit.  A run of
+                queries against one reference set checks it once
+                (`rowwise_batch`) and writes each query's row of a
+                preallocated output (`out=`).
   l2sq_matrix   `csrc/l2sq_matrix.cu`: the (M, N) matrix
                 max(||a||^2 + ||b||^2 - 2 a.b^T, 0) with the cross term
                 on the tensor cores as 3xTF32 (`wgmma` fed by TMA: a_hi.b_hi
@@ -25,16 +32,14 @@ rule about 5x; three stay within a tenth of it (tests/test_torch_l2sq.py).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
+from typing import Callable
 
 import torch
 
 from repro_torch.kernels import _build, ref, tuning
-
-# csrc/l2sq_rowwise.cu stages q in dynamic shared memory: K floats, within
-# what one block may opt in to.
-ROWWISE_MAX_K = (tuning.SMEM_OPTIN_LIMIT
-                 - tuning.SMEM_RESERVED_PER_BLOCK) // 4
 
 U = 2.0 ** -24            # unit roundoff of float32
 K_SIGMA = 8.0             # width of the limit, in rounding walks
@@ -64,33 +69,126 @@ def _vec_ok(k: int, *tensors: torch.Tensor) -> bool:
     return k % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
-    """out[n] = sum_k (refs[n, k] - q[k])^2 -> (N,) float32.
+@functools.lru_cache(maxsize=1024)
+def _rowwise_launch(n: int, k: int, aligned: bool
+                    ) -> tuple[tuning.RowwisePlan, tuple]:
+    """The plan for refs (n, k) and the launcher's arguments after its
+    three pointers, (n, k, *plan.launch_args), converted to their ctypes
+    types once a shape: ctypes would convert each int at every launch."""
+    plan = tuning.rowwise_plan(n, k, aligned)
+    return plan, _build.fixed_args("repro_l2sq_rowwise", 3, n, k,
+                                   *plan.launch_args)
+
+
+def _check_out(out: torch.Tensor, n: int, device: torch.device) -> None:
+    if out.device != device or out.dtype != torch.float32 or \
+            tuple(out.shape) != (n,) or not out.is_contiguous():
+        raise ValueError(f"l2sq_rowwise: out must be a contiguous ({n},) "
+                         f"float32 tensor on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowwiseBatch:
+    """A run of rowwise launches against one reference set, checked once
+    by `rowwise_batch`: the refs, their launch plan, and on the card
+    `launch(q_ptr, out_ptr)`, the launcher bound to the device, its
+    current stream, the refs and the plan (None on the CPU)."""
+    refs: torch.Tensor
+    plan: tuning.RowwisePlan
+    launch: Callable[[int, int], None] | None
+
+
+def rowwise_batch(queries: torch.Tensor, refs: torch.Tensor
+                  ) -> RowwiseBatch:
+    """Check queries (Q, K) and refs (N, K) once for a run of
+    `l2sq_rowwise(queries[i], refs, out=..., batch=...)` calls: what a lone
+    call checks every time (devices, dtypes, contiguity, alignment) is
+    checked here, the plan made and the stream looked up."""
+    if queries.ndim != 2 or refs.ndim != 2 or \
+            queries.shape[1] != refs.shape[1]:
+        raise ValueError(f"rowwise_batch takes queries (Q, K) and refs (N, "
+                         f"K), got {tuple(queries.shape)} and "
+                         f"{tuple(refs.shape)}")
+    n, k = refs.shape
+    if queries.device.type == "cpu":
+        return RowwiseBatch(refs, tuning.rowwise_plan(n, k), None)
+    _build.check_cuda_tensors("l2sq_rowwise", queries=(queries,
+                                                       torch.float32),
+                              refs=(refs, torch.float32))
+    plan, tail = _rowwise_launch(n, k, _vec_ok(k, queries, refs))
+    bound = _build.bind("repro_l2sq_rowwise", refs.device)
+    refs_ptr = refs.data_ptr()
+
+    def launch(q_ptr: int, out_ptr: int) -> None:
+        bound(q_ptr, refs_ptr, out_ptr, *tail)
+    return RowwiseBatch(refs, plan, launch)
+
+
+def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor, *,
+                 out: torch.Tensor | None = None,
+                 batch: RowwiseBatch | None = None) -> torch.Tensor:
+    """out[n] = sum_k (refs[n, k] - q[k])^2 -> (N,) float32, written into
+    `out` when given (a contiguous (N,) float32 tensor on q's device).
 
     A tensor on the CPU goes through the plain version; a CUDA tensor
-    launches the kernel (and adds one to `l2sq_rowwise.launches`)."""
+    launches the kernel as `tuning.rowwise_plan` plans it (and adds one to
+    `l2sq_rowwise.launches`).  With `batch` (from `rowwise_batch`, on these
+    refs), q must be a row of the queries it checked and `out` a row of a
+    float32 buffer on their device: the per-call checks shrink to shapes,
+    dtypes, devices, contiguity and q's alignment."""
+    if batch is not None:
+        return _rowwise_in_batch(q, refs, out, batch)
     if q.ndim != 1 or refs.ndim != 2 or refs.shape[1] != q.shape[0]:
         raise ValueError(f"l2sq_rowwise takes q (K,) and refs (N, K), got "
                          f"{tuple(q.shape)} and {tuple(refs.shape)}")
+    n, k = refs.shape
+    if out is not None:
+        _check_out(out, n, q.device)
     if q.device.type == "cpu":
-        return ref.l2sq_rowwise(q, refs)
+        if out is None:
+            return ref.l2sq_rowwise(q, refs)
+        return out.copy_(ref.l2sq_rowwise(q, refs))
     _build.check_cuda_tensors("l2sq_rowwise", q=(q, torch.float32),
                               refs=(refs, torch.float32))
-    n, k = refs.shape
-    if k > ROWWISE_MAX_K:
-        raise ValueError(f"l2sq_rowwise stages q in shared memory: K <= "
-                         f"{ROWWISE_MAX_K}, got {k}")
-    out = torch.empty((n,), dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty((n,), dtype=torch.float32, device=q.device)
     if n and not k:
         return out.zero_()
     if n:
-        _build.launch("repro_l2sq_rowwise", q.device, q, refs, out, n, k,
-                      int(_vec_ok(k, refs)))
+        _build.launch("repro_l2sq_rowwise", q.device, q, refs, out,
+                      *_rowwise_launch(n, k, _vec_ok(k, q, refs))[1])
         l2sq_rowwise.launches += 1
     return out
 
 
 l2sq_rowwise.launches = 0
+
+
+def _rowwise_in_batch(q, refs, out, batch):
+    n, k = refs.shape
+    if refs is not batch.refs or out is None or q.shape != (k,) or \
+            out.shape != (n,) or q.dtype != torch.float32 or \
+            out.dtype != torch.float32 or not q.is_contiguous() or \
+            not out.is_contiguous():
+        raise ValueError("l2sq_rowwise with a batch takes its refs, q a row "
+                         "of its queries and out a contiguous (N,) float32 "
+                         "row")
+    if q.device != refs.device or out.device != refs.device:
+        raise ValueError(f"l2sq_rowwise: the batch was checked on "
+                         f"{refs.device}; q and out must be there too")
+    if batch.launch is None:
+        return out.copy_(ref.l2sq_rowwise(q, refs))
+    if n and not k:
+        return out.zero_()
+    if n:
+        q_ptr = q.data_ptr()
+        if q_ptr % 16 and batch.plan.route != "scalar":
+            raise ValueError("l2sq_rowwise: q is not a row of the batch's "
+                             "queries (not 16-byte aligned)")
+        batch.launch(q_ptr, out.data_ptr())
+        l2sq_rowwise.launches += 1
+    return out
 
 
 def split_pass(a: torch.Tensor, b: torch.Tensor, k_pad: int

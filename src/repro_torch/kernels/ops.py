@@ -229,23 +229,35 @@ def _histogram_cuda(bins_t, leaf, g, *, n_bins, n_leaves):
 
 
 # The kNN distances read no model structure: every layout.  The op
-# dispatches on the query's rank, as the JAX package's `l2sq` does.
+# dispatches on the query's rank, as the JAX package's `l2sq` does; the
+# rowwise form takes `out=` and `batch=` (`l2dist.l2sq_rowwise`).
 @registry.register("l2sq", "torch_ref", dtypes=("float32",),
                    layouts=ALL_LAYOUTS,
                    constraints="rowwise (K,)x(N,K) or matrix (M,K)x(N,K)")
-def _l2sq_ref(a, b):
-    return _ref.l2sq_rowwise(a, b) if a.ndim == 1 else _ref.l2sq_matrix(a, b)
+def _l2sq_ref(a, b, *, out=None, batch=None):
+    if a.ndim != 1:
+        _matrix_takes_no_out(out, batch)
+        return _ref.l2sq_matrix(a, b)
+    # on CPU tensors the wrapper is the plain version (written into `out`)
+    return _l2_k.l2sq_rowwise(a, b, out=out, batch=batch)
 
 
 @registry.register("l2sq", "cuda", dtypes=("float32",), layouts=ALL_LAYOUTS,
-                   constraints="rowwise (K,)x(N,K), q in shared memory: "
+                   constraints="rowwise (K,)x(N,K), q in registers, any K: "
                                "csrc/l2sq_rowwise.cu; matrix (M,K)x(N,K), "
                                "3xTF32 wgmma fed by TMA: "
                                "csrc/l2sq_matrix.cu")
-def _l2sq_cuda(a, b):
+def _l2sq_cuda(a, b, *, out=None, batch=None):
     if a.ndim == 1:
-        return _l2_k.l2sq_rowwise(a, b)
+        return _l2_k.l2sq_rowwise(a, b, out=out, batch=batch)
+    _matrix_takes_no_out(out, batch)
     return _l2_k.l2sq_matrix(a, b)
+
+
+def _matrix_takes_no_out(out, batch):
+    if out is not None or batch is not None:
+        raise ValueError("l2sq: out= and batch= belong to the rowwise form "
+                         "(a (K,) query)")
 
 
 # --------------------------------------------------------------------------
@@ -344,9 +356,24 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
 
 
 def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor, *,
-                 backend: Backend = "auto") -> torch.Tensor:
-    """(K,), (N, K) -> (N,) squared L2 distances."""
-    return registry.dispatch("l2sq", backend, q, refs, dtype="float32")
+                 backend: Backend = "auto", out: torch.Tensor | None = None,
+                 batch: _l2_k.RowwiseBatch | None = None) -> torch.Tensor:
+    """(K,), (N, K) -> (N,) squared L2 distances, written into `out` when
+    given; `batch` (from `rowwise_batch`) carries the checks of a run of
+    queries against these refs (`l2dist.l2sq_rowwise`)."""
+    return registry.dispatch("l2sq", backend, q, refs, dtype="float32",
+                             out=out, batch=batch)
+
+
+def rowwise_batch(queries: torch.Tensor, refs: torch.Tensor, *,
+                  backend: Backend = "auto") -> _l2_k.RowwiseBatch:
+    """Check queries (Q, K) and refs (N, K) once for a run of
+    `l2sq_rowwise(queries[i], refs, out=..., batch=...)` calls on
+    `backend` (refused where that backend is, as `dispatch` would; not
+    counted as a dispatch)."""
+    registry.resolve("l2sq", backend, device=queries.device,
+                     dtype="float32")
+    return _l2_k.rowwise_batch(queries, refs)
 
 
 def l2sq_matrix(a: torch.Tensor, b: torch.Tensor, *,

@@ -26,6 +26,8 @@ Training (`histogram`):
 
 kNN features (`l2sq_rowwise`, `l2sq_matrix`): squared L2 distances in
 float32, the paper's L2SqrDistance, one query at a time or as a matrix.
+`l2sq_rowwise_lanes` is the rowwise kernel's own summation order (lanes,
+fmaf, a butterfly), bit for bit; `fmaf` the fused multiply-add it uses.
 The CUDA matrix kernel takes its cross term from the tensor cores as
 3xTF32; `tf32_split` and `l2sq_matrix_tf32` emulate that on the CPU.
 """
@@ -252,6 +254,43 @@ def l2sq_rowwise(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
     -> (N,) float32."""
     d = refs - q[None, :]
     return (d * d).sum(dim=-1)
+
+
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as CUDA's fmaf.  a * b is exact in
+    float64; the float64 sum is taken round-to-odd (its exact error from
+    TwoSum moves an inexact even result one ulp toward the true sum), and
+    a round-to-odd value of 53 bits rounds to 24 as the exact sum would."""
+    x = a.double() * b.double()
+    y = c.double()
+    s = x + y
+    t = s - x
+    err = (x - (s - t)) + (y - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def l2sq_rowwise_lanes(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+    """`l2sq_rowwise` in the CUDA kernel's order, the same bits on every
+    route of `csrc/l2sq_rowwise.cu`: lane l (of 32) sums columns 4i ..
+    4i + 3 for i = l, l + 32, l + 64, ... in that order with fmaf, then a
+    butterfly adds lane l ^ 16, ^ 8, ^ 4, ^ 2, ^ 1 in turn (float32).
+    q (K,) gives (N,); q (Q, K) gives each query's row, (Q, N)."""
+    n, k = refs.shape
+    k_pad = -(-k // 128) * 128
+    d = torch.nn.functional.pad(refs - q[..., None, :], (0, k_pad - k))
+    d = d.reshape(*d.shape[:-1], k_pad // 128, 32, 4)   # pass, lane, column
+    acc = torch.zeros(d.shape[:-3] + (32,), dtype=torch.float32,
+                      device=refs.device)
+    for i in range(k_pad // 128):
+        for c in range(4):
+            acc = fmaf(d[..., i, :, c], d[..., i, :, c], acc)
+    lanes = torch.arange(32, device=refs.device)
+    for offset in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ offset]
+    return acc[..., 0].contiguous()
 
 
 def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

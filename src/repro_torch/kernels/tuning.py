@@ -754,3 +754,80 @@ def matrix_plan(m: int, n: int, k: int) -> MatrixPlan:
     stages = matrix_max_stages()
     return MatrixPlan(k_pad, stages, matrix_smem_bytes(stages), m_tiles,
                       n_tiles)
+
+
+# --------------------------------------------------------------------------
+# One query against many reference rows (csrc/l2sq_rowwise.cu) on sm_90
+# --------------------------------------------------------------------------
+# A chunk is 128 columns: a float4 a lane.  A warp takes a row, holds J
+# chunks of q and of its row in registers and issues all J row loads
+# before its first multiply-add.  ptxas gives the instantiations 24-78
+# registers and no spill, so ROWWISE_WAVE_WARPS warps (80 registers each)
+# fit an SM.
+ROWWISE_ROUTES = ("registers", "walk", "scalar")   # the launcher's route ids
+ROWWISE_CHUNK = 128                # columns a chunk (32 lanes x 4)
+ROWWISE_CHUNKS = (1, 2, 4, 8)      # J the kernel is instantiated for
+ROWWISE_WARPS = (8, 4, 2, 1)       # warps a block, largest first
+ROWWISE_WAVE_WARPS = 24            # warps an SM holds at 80 registers
+
+
+@dataclasses.dataclass(frozen=True)
+class RowwisePlan:
+    """One `l2sq_rowwise` launch: the route, J chunks of 128 columns a
+    warp holds at once (a pass over K on the walk route), warps a block (a
+    row a warp), and blocks (one wave; the blocks stride over the rows
+    when the rows need more)."""
+    route: str
+    chunks: int
+    warps: int
+    blocks: int
+
+    @property
+    def launch_args(self) -> tuple[int, int, int, int]:
+        """The plan as the launcher takes it, after (n, k)."""
+        return (ROWWISE_ROUTES.index(self.route), self.chunks, self.warps,
+                self.blocks)
+
+
+def rowwise_warps(n_warps: int) -> int:
+    """Warps a block for `n_warps` warps of rows in one wave: the fewest
+    warps the busiest SM holds, blocks dealt out evenly over SM_COUNT, the
+    larger block on a tie.  Small blocks spread a ragged count evenly: at
+    2,808 warps, 8 a block leaves some SMs 24 and others 16."""
+    def busiest(w):
+        return -(-(-(-n_warps // w)) // SM_COUNT) * w
+    return min(ROWWISE_WARPS, key=lambda w: (busiest(w), -w))
+
+
+def rowwise_plan(n: int, k: int, aligned: bool = True) -> RowwisePlan:
+    """The launch of `l2sq_rowwise` for refs (n, k), a row a warp.
+
+    Routes: `scalar` where float4 loads cannot go (K % 4 != 0, or q or
+    the rows not 16-byte aligned: `aligned` False), masked scalar loads;
+    else `registers` where K fits ROWWISE_CHUNKS[-1] chunks (q held in
+    registers for every row, J the fewest chunks covering K, as a power of
+    two), and past that `walk` (J = 8 chunks a pass, q's chunks taken
+    again from L1).  Every route masks the rows past n and the columns
+    past k, and sums each row in one order.
+
+    Where the n warps fit one wave of SM_COUNT x ROWWISE_WAVE_WARPS, a
+    block a few of them (`rowwise_warps`); else one wave of 8-warp blocks
+    strides over the rows.  At the kNN shape (2,808 x 512): registers,
+    J = 4, 2 warps a block, 1,404 blocks."""
+    if not aligned or k % 4:
+        route, chunks = "scalar", 1
+    else:
+        need = max(1, -(-k // ROWWISE_CHUNK))
+        if need <= ROWWISE_CHUNKS[-1]:
+            route = "registers"
+            chunks = next(j for j in ROWWISE_CHUNKS if j >= need)
+        else:
+            route, chunks = "walk", ROWWISE_CHUNKS[-1]
+    wave = SM_COUNT * ROWWISE_WAVE_WARPS
+    if n <= wave:
+        warps = rowwise_warps(max(1, n))
+        blocks = -(-max(1, n) // warps)
+    else:
+        warps = ROWWISE_WARPS[0]
+        blocks = wave // warps
+    return RowwisePlan(route, chunks, warps, blocks)

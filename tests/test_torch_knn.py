@@ -429,16 +429,21 @@ def test_wrappers_off_the_cpu_launch_or_raise(name, monkeypatch):
     monkeypatch.setattr(_build, "check_cuda_tensors", lambda *a, **k: None)
     monkeypatch.setattr(_build, "launch",
                         lambda n, device, *args: launched.append(
-                            (n, args[-1])))
+                            (n, tuple(getattr(a, "value", a) for a in args
+                                      if not isinstance(a, torch.Tensor)))))
     out = wrapper(first, b)
     assert out.device.type == "meta"
     assert out.shape == ((7,) if name == "l2sq_rowwise" else (5, 7))
-    if name == "l2sq_rowwise":
-        assert launched == [("repro_l2sq_rowwise", 1)]   # K = 12: float4s
+    from repro_torch.kernels import tuning
+    if name == "l2sq_rowwise":   # (N, K) and the plan: K = 12, float4s
+        plan = tuning.rowwise_plan(7, 12)
+        assert plan.route == "registers"
+        assert launched == [("repro_l2sq_rowwise", (7, 12,
+                                                    *plan.launch_args))]
     else:   # the split pass (K padded to 32), then the product kernel
-        from repro_torch.kernels import tuning
-        assert launched == [("repro_l2sq_split", 32), (
-            "repro_l2sq_matrix", tuning.matrix_plan(5, 7, 12).smem_bytes)]
+        plan = tuning.matrix_plan(5, 7, 12)
+        assert launched == [("repro_l2sq_split", (5, 7, 12, 32)), (
+            "repro_l2sq_matrix", (5, 7, 32, plan.stages, plan.smem_bytes))]
     assert ops.launch_counts() == {k: int(k == name) for k in ops.KERNELS}
 
 
@@ -536,7 +541,13 @@ def test_kernels_on_the_card_match_their_plain_versions(m, n, k, sliced,
     assert (got >= 0).all()
     err = (got.cpu().double() - ref.l2sq_matrix(a, b).double()).abs()
     assert (err <= l2dist.matrix_limit(a, b)).all()
-    row = l2dist.l2sq_rowwise(ga[0], gb)
-    assert torch.equal(row, l2dist.l2sq_rowwise(ga[0], gb))
-    err = (row.cpu().double() - ref.l2sq_rowwise(a[0], b).double()).abs()
-    assert (err <= l2dist.rowwise_limit(a[0], b)).all()
+    # the rowwise kernel on all of b, on b one row in (16-byte misaligned
+    # whenever 4 k % 16 != 0: the scalar route) and on one row: the same
+    # bits twice, the kernel's lanes order bit for bit, the distance rule
+    for rows, grows in ((b, gb), (b[1:], gb[1:]), (b[:1], gb[:1])):
+        row = l2dist.l2sq_rowwise(ga[0], grows)
+        assert torch.equal(row, l2dist.l2sq_rowwise(ga[0], grows))
+        assert torch.equal(row.cpu(), ref.l2sq_rowwise_lanes(a[0], rows))
+        err = (row.cpu().double()
+               - ref.l2sq_rowwise(a[0], rows).double()).abs()
+        assert (err <= l2dist.rowwise_limit(a[0], rows)).all()
