@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's training, serving and kNN paths once on
+"""Drive the PyTorch/CUDA port's training, serving, bulk-scoring and kNN
 an H100 and check them.
 
 Run from the root of a checkout, on a machine with one Hopper card:
@@ -16,6 +16,24 @@ to 0 before each path and read after it:
     `TrainingMetrics`;
   * serves the trained model from a pool on soa (`GBDTServer`) over the
     139,440-row test split: rows/s and test accuracy;
+  * bulk-scores 1,115,520 rows (the test split served 8 times over by
+    `SyntheticSource`) with `BulkScorer` through three plans of one
+    schema (the trained model, its first 500 trees, and both halves put
+    back together with `concat_ensembles`), auto chunking (synchronous:
+    the prefetch worker pays only from 65,536-row chunks), uint8 pools,
+    into an `NpySink`, a `StatsSink` and a `TopKSink`: the first run and
+    the median of 3 more, then float chunks (`fused_predict`), 65,536-row
+    chunks with a prefetch worker two chunks ahead on a side stream, a
+    run killed at half its chunks and resumed, raw scores, and one
+    profiled run;
+  * drives the main path's other entry points: `raw_predict`, a CatBoost
+    JSON export of the trained model read back through
+    `Predictor.from_catboost_json`, `ModelRegistry.predict_multi` over the
+    model and its first half, `GBDTServer.score_source`;
+  * trains 20 trees with `GBDTTrainer.fit_source` from the training split
+    streamed by a `SyntheticSource`, then runs `python3 -m
+    repro_torch.launch.score --dataset covertype --scale 0.05 --models 2
+    --check` in a process of its own;
   * serves the trained model, with a tenth of its trees truncated (8 depth
     groups), on each layout in turn (soa, depth_major, depth_grouped,
     bitpacked), then the untruncated model on bitpacked (one group, whose
@@ -50,6 +68,26 @@ It checks:
     version `ref.histogram_fixed` bit for bit, in both of its variants,
     gives the same bits on two launches and lies within `hist_limits` of
     its f32 and f64 plain versions;
+  * bulk: one `binarize` launch a chunk (one schema), at most 2 chunk
+    shapes and 2 first calls of each pool entry; the model's scores equal
+    its plan's one-shot `proba` bit for bit (65,536 rows a call), the
+    joined model's top rows and raw scores equal the model's, float
+    chunks and the worker's chunks give the pool route's bits in all
+    three sinks, the resumed run the whole run's; its raw scores against
+    the CPU plan on 1,024 rows (class ids where the margin is clear, the
+    float limit); then, for each chunk size, chunk 0 and the tail chunk
+    as the scorer's prefetch transform builds them, through every plan:
+    the pool's bins and `leaf_index` equal their plain versions,
+    `leaf_gather` and `fused_predict` the tree-order float32 sum, bit for
+    bit;
+  * entry points: `raw_predict` and the JSON plan give the plan's raw
+    scores bit for bit; `predict_multi` launches `binarize` once and
+    equals each model's `predict_batch`; `score_source` equals
+    `predict_batch`;
+  * `fit_source`: its borders equal `compute_borders_chunked` on the
+    CPU, its pool `quantize_pool` of the whole matrix, its ensemble
+    `fit_pool` on that pool, bit for bit; its chunk metrics are filled;
+    the scoring CLI's `--check` passes;
   * serving: the fused, pool and staged routes of each path classify the
     same; depth_major gives soa's scores bit for bit on every route,
     bitpacked gives depth_grouped's, and one-group bitpacked fused gives
@@ -133,7 +171,8 @@ smallest bucket and each depth group (int32 bins, as that layout
 binarizes), each also as its device time behind a spacer and beside the
 plan's choice, with their ptxas registers and spills a template
 instantiation;
-profiles 10 training trees;
+profiles 10 training trees; the bulk path's rows/s, chunk shape, quantize
+share and the card's busy share over one run;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
 JSON, the serving and training JSON and the result line.  Any failed
@@ -1576,6 +1615,534 @@ def serve_trained(ens, x_test, y_test):
 
 
 # --------------------------------------------------------------------------
+# The bulk path, the main path's other entry points, fit_source, the CLI
+# --------------------------------------------------------------------------
+BULK_REPEAT = 8          # SyntheticSource repeat: 8 x 139,440 = 1,115,520 rows
+BULK_TIMED_RUNS = 3      # runs timed after the first
+BULK_STEP = 65536        # rows a one-shot call the bulk output is held to
+BULK_TOP_K = 100
+FIT_SOURCE_TREES = 20
+
+
+class Interrupted(Exception):
+    """Raised by `InterruptingSink`: a run killed part-way."""
+
+
+class InterruptingSink:
+    """A sink that dies at the first write at or past row `stop_row`, as a
+    killed process would, after flushing what it wrote."""
+
+    def __init__(self, inner, stop_row: int):
+        self.inner, self.stop_row = inner, stop_row
+
+    def open(self, n_rows: int, n_cols: int) -> None:
+        self.inner.open(n_rows, n_cols)
+
+    def write(self, start: int, scores) -> None:
+        if start >= self.stop_row:
+            self.inner.close()
+            raise Interrupted(start)
+        self.inner.write(start, scores)
+
+    def close(self):
+        return self.inner.close()
+
+
+def device_busy_share(run) -> float | None:
+    """The share of one call of `run`'s wall time in which the card ran
+    any kernel, copy or memset (the union of their intervals, so the two
+    streams' overlap counts once), from `torch.profiler`; None where the
+    profiler sees no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    return busy / wall_us
+
+
+def run_bulk_path(full, x_test, tmp: str):
+    """The paper's headline workload: `BulkScorer` sweeping 1,115,520 rows
+    (the test split served 8 times over by `SyntheticSource`) through three
+    plans that share one schema: `full`, `half` (its first 500 trees) and
+    `joined` (`concat_ensembles` of both halves: `full`'s trees in
+    `full`'s order), on soa, auto chunking, prefetch depth 2 (no worker
+    at the auto chunk: `tuning.prefetch_depth`), uint8 pools, proba out;
+    into an `NpySink`, a `StatsSink` and a `TopKSink`.  Then the same with
+    float chunks (the `fused_predict` route), with chunks large enough for
+    the prefetch worker on its side stream, a run killed at half its
+    chunks and resumed, raw scores of `full` and `joined`, and one run
+    under the profiler.  Returns the phase's line, the plans and the
+    source."""
+    import torch
+    from repro_torch.core.predictor import Predictor
+    from repro_torch.core.trees import concat_ensembles
+    from repro_torch.kernels import ops, tuning
+    from repro_torch.scoring import (ArraySink, BulkScorer, NpySink,
+                                     ScoreConfig, StatsSink,
+                                     SyntheticSource, TopKSink,
+                                     plan_chunks)
+    t_phase = time.perf_counter()
+    half = full.slice_trees(0, full.n_trees // 2)
+    joined = concat_ensembles(half, full.slice_trees(full.n_trees // 2,
+                                                     full.n_trees))
+    plans = {name: Predictor.build(e, device="cuda", layout="soa")
+             for name, e in (("full", full), ("half", half),
+                             ("joined", joined))}
+    source = SyntheticSource("covertype", split="test", repeat=BULK_REPEAT)
+    check(source.base_rows == len(x_test), "the bulk source is not the "
+          "test split")
+    cfg = ScoreConfig(output="proba", prefetch_depth=2, prequantize=True)
+    scorer = BulkScorer(plans, cfg)
+    chunk_rows = scorer.resolve_chunk_rows(source.n_rows)
+    spans = plan_chunks(source.n_rows, chunk_rows)
+    n_chunks = len(spans)
+    print(f"bulk: {source.n_rows} rows x {source.n_features} in "
+          f"{n_chunks} chunks of {chunk_rows} rows, 3 plans", flush=True)
+    full_path = os.path.join(tmp, "full.npy")
+
+    def sinks(path):
+        return {"full": NpySink(path), "half": StatsSink(),
+                "joined": TopKSink(BULK_TOP_K)}
+
+    def run(config, out_sinks, plans_=plans):
+        t0 = time.perf_counter()
+        res = BulkScorer(plans_, config).score(source, out_sinks)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    first, first_s = run(cfg, sinks(full_path))
+    launches = ops.launch_counts()
+    check(launches["binarize"] == n_chunks,
+          f"bulk: {launches['binarize']} binarize launches for {n_chunks} "
+          "chunks of one schema")
+    check(launches["fused_predict"] == 0,
+          "bulk: the pool route launched fused_predict")
+    check(first.chunk_rows == chunk_rows and len(first.chunk_shapes) <= 2,
+          f"bulk: chunk shapes {first.chunk_shapes}")
+    check(first.metrics["prefetch_depth"] == tuning.prefetch_depth(
+        cfg.prefetch_depth, chunk_rows, n_chunks,
+        scorer.device.type == "cuda"),
+          f"bulk: prefetch depth {first.metrics['prefetch_depth']}")
+    for name, plan in plans.items():
+        traces = plan.stats["traces"]
+        check(traces.get("raw_pool", 0) <= 2
+              and traces.get("proba_pool", 0) <= 2
+              and traces.get("proba", 0) == 0,
+              f"bulk: {name}'s first calls {traces}")
+    check(sum(p.stats["traces"].get("quantize", 0)
+              for p in plans.values()) == 1,
+          "bulk: more than one plan quantized")
+    timed = []
+    for i in range(BULK_TIMED_RUNS):
+        res, _ = run(cfg, sinks(os.path.join(tmp, f"timed{i}.npy")))
+        timed.append(res.metrics["rows_per_s"])
+
+    # the pool route against the plan's own float entry (fused_predict)
+    got = np.load(full_path, mmap_mode="r")
+    check(got.shape == (source.n_rows, full.n_outputs),
+          f"bulk: full's output shape {got.shape}")
+    for s in range(0, source.n_rows, BULK_STEP):
+        stop = min(s + BULK_STEP, source.n_rows)
+        want = plans["full"].proba(source.read(s, stop)).cpu().numpy()
+        check(np.array_equal(got[s:stop], want),
+              f"bulk: full's scores of rows [{s}, {stop}) differ from the "
+              "plan's one-shot proba")
+    check(bool(np.isfinite(got).all())
+          and bool(np.allclose(got.sum(1), 1.0, atol=1e-5)),
+          "bulk: full's probabilities")
+    order = np.argsort(-got[:, 0], kind="stable")[:BULK_TOP_K]
+    top = first.outputs["joined"]
+    check(np.array_equal(top["indices"], order)
+          and np.array_equal(top["scores"], got[order]),
+          "bulk: joined's top rows differ from full's")
+    stats = first.outputs["half"]
+    check(stats["count"] == source.n_rows
+          and bool(np.isfinite(stats["mean"]).all()),
+          "bulk: half's stats")
+
+    # float chunks: the fused route, the same bits
+    float_path = os.path.join(tmp, "float.npy")
+    second, second_s = run(dataclasses.replace(cfg, prequantize=False),
+                           sinks(float_path))
+    check(np.array_equal(np.load(float_path), np.load(full_path)),
+          "bulk: prequantize=False scores differ from the pool route's")
+    check(np.array_equal(second.outputs["joined"]["indices"],
+                         top["indices"])
+          and all(np.array_equal(second.outputs["half"][k], stats[k])
+                  for k in ("mean", "std", "min", "max")),
+          "bulk: prequantize=False streaming sinks differ")
+
+    # chunks large enough for the prefetch worker: the side stream and the
+    # worker's binarize launches, the same bits
+    worker_rows = max(chunk_rows, tuning.PREFETCH_MIN_CHUNK_ROWS)
+    worker_chunks = len(plan_chunks(source.n_rows, worker_rows))
+    worker_cfg = dataclasses.replace(cfg, chunk_rows=worker_rows)
+    worker_path = os.path.join(tmp, "worker.npy")
+    before = ops.launch_counts()["binarize"]
+    worker, worker_s = run(worker_cfg, sinks(worker_path))
+    check(worker.metrics["prefetch_depth"] == cfg.prefetch_depth,
+          f"bulk: {worker_rows}-row chunks ran without the prefetch worker")
+    check(ops.launch_counts()["binarize"] - before == worker_chunks,
+          f"bulk: the worker's binarize launches for {worker_chunks} chunks")
+    check(np.array_equal(np.load(worker_path), np.load(full_path)),
+          f"bulk: full's scores in {worker_rows}-row chunks with the "
+          "prefetch worker differ from the auto chunks'")
+    check(np.array_equal(worker.outputs["joined"]["indices"], top["indices"])
+          and np.array_equal(worker.outputs["joined"]["scores"],
+                             top["scores"]),
+          f"bulk: joined's top rows in {worker_rows}-row chunks differ")
+    # StatsSink merges a chunk's float64 moments at a time (Chan), so the
+    # mean and std move with the chunk boundaries by float64 rounding
+    got_stats = worker.outputs["half"]
+    check(got_stats["count"] == stats["count"]
+          and all(np.array_equal(got_stats[k], stats[k])
+                  for k in ("min", "max"))
+          and all(np.allclose(got_stats[k], stats[k], rtol=1e-12, atol=0)
+                  for k in ("mean", "std")),
+          f"bulk: half's stats in {worker_rows}-row chunks differ")
+    worker_timed = [run(worker_cfg, sinks(worker_path))[0]
+                    .metrics["rows_per_s"] for _ in range(BULK_TIMED_RUNS)]
+
+    # killed at half its chunks, then resumed into the same file
+    k = n_chunks // 2
+    part_path = os.path.join(tmp, "resumed.npy")
+    only_full = {"full": plans["full"]}
+    try:
+        run(cfg, InterruptingSink(NpySink(part_path), spans[k].start),
+            only_full)
+        fail("bulk: the interrupted run was not interrupted")
+    except Interrupted:
+        pass
+    resumed = BulkScorer(only_full, cfg).score(
+        source, NpySink(part_path, resume=True), resume_from=k)
+    check(resumed.metrics["resumed_from"] == k
+          and resumed.metrics["rows"] == source.n_rows - spans[k].start,
+          f"bulk: resumed run {resumed.metrics}")
+    check(np.array_equal(np.load(part_path), np.load(full_path)),
+          f"bulk: the run resumed at chunk {k} differs from the whole run")
+
+    # raw scores: joined sums full's trees in full's order
+    raw, _ = run(dataclasses.replace(cfg, output="raw"),
+                 {"full": ArraySink(), "joined": ArraySink()},
+                 {"full": plans["full"], "joined": plans["joined"]})
+    raw_full = raw.outputs["full"]
+    check(np.array_equal(raw.outputs["joined"], raw_full),
+          "bulk: joined's raw scores differ from full's")
+
+    # the card against the plain plan on the CPU: class ids on rows whose
+    # margin clears twice the float limit
+    from repro_torch.core.predictor import classify_from_raw
+    from repro_torch.kernels import ops as ops_mod
+    xs = x_test[:N_REFERENCE]
+    cpu_plan = Predictor.build(full, device="cpu", layout="soa")
+    raw_cpu = cpu_plan.raw(xs)
+    idx = ops_mod.leaf_index(cpu_plan.quantize(xs).bins,
+                             cpu_plan.ensemble.split_features,
+                             cpu_plan.ensemble.split_bins)
+    limit = sum_limit(idx, cpu_plan.ensemble.leaf_values,
+                      cpu_plan.ensemble.base_score)
+    raw_gpu = torch.from_numpy(raw_full[:N_REFERENCE])
+    err, share = compare_sums("bulk: card vs CPU raw scores", raw_gpu,
+                              raw_cpu, limit)
+    top2 = raw_cpu.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * limit.max(dim=1).values
+    c = full.n_outputs
+    agree = classify_from_raw(raw_gpu, c) == classify_from_raw(raw_cpu, c)
+    check(bool(agree[clear].all()), "bulk: card and CPU classify "
+          "differently")
+
+    busy = device_busy_share(
+        lambda: BulkScorer(plans, cfg).score(
+            source, sinks(os.path.join(tmp, "profiled.npy"))))
+    m = first.metrics
+    return {
+        "rows": source.n_rows, "features": source.n_features,
+        "plans": {n: p.ensemble.n_trees for n, p in plans.items()},
+        "chunk_rows": chunk_rows, "chunk_shapes": list(first.chunk_shapes),
+        "n_chunks": n_chunks, "binarize_launches": launches["binarize"],
+        "first_run": {"seconds": first_s, "rows_per_s": m["rows_per_s"],
+                      "quantize_s": m["quantize_s"],
+                      "score_s": m["score_s"],
+                      "quantize_frac": m["quantize_frac"],
+                      "chunk_p50_ms": m["chunk_p50_ms"],
+                      "chunk_p99_ms": m["chunk_p99_ms"],
+                      "compiles": m["compiles"]},
+        "rows_per_s_runs": timed,
+        "rows_per_s_median": float(np.median(timed)),
+        "prefetch_depth": m["prefetch_depth"],
+        "float_route": {"seconds": second_s,
+                        "rows_per_s": second.metrics["rows_per_s"],
+                        "quantize_frac": second.metrics["quantize_frac"]},
+        "worker_route": {"chunk_rows": worker_rows,
+                         "n_chunks": worker_chunks,
+                         "prefetch_depth": worker.metrics["prefetch_depth"],
+                         "seconds": worker_s,
+                         "rows_per_s": worker.metrics["rows_per_s"],
+                         "rows_per_s_runs": worker_timed,
+                         "rows_per_s_median": float(np.median(worker_timed)),
+                         "quantize_frac": worker.metrics["quantize_frac"]},
+        "resumed_from_chunk": k,
+        "card_vs_cpu": {"max_abs_err": err, "err_over_limit": share,
+                        "rows_compared": int(clear.sum())},
+        "device_busy_share": busy,
+        "seconds": time.perf_counter() - t_phase}, plans, source
+
+
+def check_bulk_kernels(plans, source, chunk_sizes) -> list:
+    """The bulk path's kernels against their plain versions at the shapes
+    that path gives them: for each chunk size it ran, chunk 0 and the
+    tail chunk, each built by the scorer's own prefetch transform
+    (`BulkScorer._prepare`: the copy through the pinned buffer on the side
+    stream, the pool quantized at the full chunk shape and the tail's pool
+    sliced and re-padded to its bucket, the float chunk zero-padded).  The
+    pool's bins and `leaf_index` equal the plain versions, `leaf_gather`
+    and `fused_predict` the tree-order float32 sum, bit for bit, on every
+    plan's lowered arrays.  Its launches are comparisons: the caller reads
+    the path's counts before it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.scoring import BulkScorer, ScoreConfig, plan_chunks
+    from repro_torch.scoring.scorer import _FLOAT, ScoringMetrics, _ChunkIO
+    checked = []
+    for chunk_rows in chunk_sizes:
+        spans = plan_chunks(source.n_rows, chunk_rows)
+        for span in (spans[0], spans[-1]):
+            x = np.asarray(source.read(span.start, span.stop), np.float32)
+            payload = {}
+            for prequantize in (True, False):
+                scorer = BulkScorer(plans, ScoreConfig(
+                    chunk_rows=chunk_rows, prequantize=prequantize))
+                io = _ChunkIO(scorer.device, max(chunk_rows, span.padded),
+                              scorer.n_features)
+                _, got, event = scorer._prepare(ScoringMetrics(), io,
+                                                chunk_rows)((span, x))
+                io.receive(got, event)
+                payload.update(got)
+            torch.cuda.synchronize()
+            xf = payload.pop(_FLOAT)
+            (pool,) = payload.values()
+            borders = next(iter(plans.values())).lowered.borders
+            xd = torch.zeros((max(chunk_rows, span.padded), x.shape[1]),
+                             device=borders.device)
+            xd[:span.n_valid] = torch.from_numpy(x).to(borders.device)
+            what = (f"{span.padded} rows ({span.n_valid} valid) of chunk "
+                    f"{span.index} of {chunk_rows}")
+            check(torch.equal(xf, xd[:span.padded]),
+                  f"bulk: the float chunk at {what} is not the source's rows")
+            want_bins = ref.binarize_u8(xd[:chunk_rows], borders)
+            if span.padded != chunk_rows:
+                want_bins = ops.pad_dim(want_bins[:span.n_valid], 0,
+                                        span.padded)
+            check(torch.equal(pool.bins, want_bins),
+                  f"bulk: binarize's pool at {what} differs from its plain "
+                  "version")
+            for name, plan in plans.items():
+                low = plan.lowered
+                blocks = low.tree_blocks or ((low.split_features,
+                                              low.split_bins,
+                                              low.leaf_values),)
+                for sf, sb, lv in blocks:
+                    idx = ops.leaf_index(pool.bins, sf, sb)
+                    check(torch.equal(idx, ref.leaf_index(pool.bins, sf, sb)),
+                          f"bulk: leaf_index ({name}, {sf.shape[0]} trees) "
+                          f"at {what} differs from its plain version")
+                    check(torch.equal(ops.leaf_gather(idx, lv),
+                                      tree_order_sum(idx, lv)),
+                          f"bulk: leaf_gather ({name}) at {what} is not the "
+                          "tree-order sum")
+                want = tree_order_sum(
+                    ref.leaf_index(ref.binarize(xf, low.borders),
+                                   low.split_features, low.split_bins),
+                    low.leaf_values)
+                check(torch.equal(ops.fused_predict(
+                    xf, low.borders, low.split_features, low.split_bins,
+                    low.leaf_values), want),
+                      f"bulk: fused_predict ({name}) at {what} is not the "
+                      "tree-order sum")
+            checked.append({"chunk_rows": chunk_rows, "chunk": span.index,
+                            "rows": span.padded, "valid": span.n_valid})
+    return checked
+
+
+def catboost_json(ens) -> dict:
+    """`ens` as a CatBoost JSON model export (the subset
+    `load_catboost_json` reads).  float32 values print as the shortest
+    decimal of their double and parse back to the same float32."""
+    from repro_torch.kernels.ops import PAD_SPLIT_BIN
+    sf = ens.split_features.cpu().numpy()
+    sb = ens.split_bins.cpu().numpy()
+    lv = ens.leaf_values.cpu().numpy()
+    borders = ens.borders.cpu().numpy()
+    nb = ens.n_borders.cpu().numpy()
+    depths = ens.true_depths
+    trees = []
+    for t in range(ens.n_trees):
+        d = int(depths[t])
+        check(bool(((sb[t, :d] >= 1) & (sb[t, :d] <= nb[sf[t, :d]])
+                    & (sb[t, :d] != PAD_SPLIT_BIN)).all()),
+              f"tree {t} has a split no CatBoost border expresses")
+        trees.append({
+            "splits": [{"split_type": "FloatFeature",
+                        "float_feature_index": int(sf[t, j]),
+                        "border": float(borders[sb[t, j] - 1, sf[t, j]])}
+                       for j in range(d)],
+            "leaf_values": [float(v) for v in lv[t, :1 << d].reshape(-1)]})
+    return {"features_info": {"float_features": [
+                {"flat_feature_index": f,
+                 "borders": [float(v) for v in borders[:nb[f], f]]}
+                for f in range(ens.n_features)]},
+            "oblivious_trees": trees,
+            "scale_and_bias": [1.0, [float(v) for v in
+                                     ens.base_score.cpu().numpy()]]}
+
+
+def run_entry_points(full, x_test, tmp: str) -> dict:
+    """The main path's other entry points on the card: the one-shot API,
+    a CatBoost JSON export of `full` read back, `ModelRegistry` with
+    `full` and `half`, and `GBDTServer.score_source`."""
+    import torch
+    from repro_torch.core.predict import raw_predict
+    from repro_torch.core.predictor import Predictor
+    from repro_torch.kernels import ops
+    from repro_torch.scoring import ArraySource
+    from repro_torch.serving.engine import ModelRegistry
+    t_phase = time.perf_counter()
+    xs = x_test[:N_REFERENCE]
+    plan = Predictor.build(full, device="cuda")
+    want = plan.raw(xs)
+    check(torch.equal(raw_predict(full, xs), want),
+          "raw_predict differs from Predictor.build(full).raw")
+
+    path = os.path.join(tmp, "full.json")
+    with open(path, "w") as fh:
+        json.dump(catboost_json(full), fh)
+    json_plan = Predictor.from_catboost_json(path)
+    check(json_plan.device == plan.device, "the JSON plan is off the card")
+    check(torch.equal(json_plan.raw(xs), want),
+          "the CatBoost JSON export read back scores differently")
+
+    reg = ModelRegistry(device="cuda", max_batch=MAX_BATCH)
+    try:
+        reg.register("full", full)
+        reg.register("half", full.slice_trees(0, full.n_trees // 2))
+        before = ops.launch_counts()["binarize"]
+        multi = reg.predict_multi(xs)
+        multi_binarize = ops.launch_counts()["binarize"] - before
+        check(multi_binarize == 1, f"predict_multi launched binarize "
+              f"{multi_binarize} times for one schema")
+        for name in reg.names():
+            check(np.array_equal(multi[name], reg.predict_batch(name, xs)),
+                  f"predict_multi differs from {name}'s predict_batch")
+        server = reg.get("full")
+        t0 = time.perf_counter()
+        res = server.score_source(ArraySource(x_test))
+        score_source_s = time.perf_counter() - t0
+        check(np.array_equal(res.output, server.predict_batch(x_test)),
+              "score_source differs from predict_batch")
+    finally:
+        reg.close()
+    return {"rows": len(x_test), "score_source_s": score_source_s,
+            "score_source_rows_per_s": res.metrics["rows_per_s"],
+            "predict_multi_binarize_launches": multi_binarize,
+            "json_bytes": os.path.getsize(path),
+            "seconds": time.perf_counter() - t_phase}
+
+
+def run_fit_source(data, params) -> dict:
+    """`GBDTTrainer.fit_source` on the training split streamed from a
+    `SyntheticSource`, FIT_SOURCE_TREES trees, against the same pieces
+    made in core."""
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.scoring import SyntheticSource, iter_chunks
+    from repro_torch.training.gbdt import GBDTTrainer
+    t_phase = time.perf_counter()
+    source = SyntheticSource("covertype", split="train")
+    check(source.n_rows == len(data.x_train), "fit_source's source is not "
+          "the training split")
+    p = dataclasses.replace(params, n_trees=FIT_SOURCE_TREES)
+
+    def trainer():
+        return GBDTTrainer(MultiClass(n_classes=data.n_classes), p,
+                           device="cuda")
+
+    tr = trainer()
+    t0 = time.perf_counter()
+    ens, hist = tr.fit_source(source, data.y_train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    snap = tr.metrics.snapshot()
+    chunk_rows = hist["chunk_rows"]
+    n_chunks = -(-source.n_rows // chunk_rows)
+    check(snap["n_chunks"] == hist["n_chunks"] == n_chunks > 1
+          and snap["chunk_rows"] == chunk_rows and snap["quantize_s"] > 0,
+          f"fit_source's metrics {snap}")
+    borders, n_borders = quantize.compute_borders_chunked(
+        iter_chunks(source, chunk_rows), p.max_bins)
+    check(torch.equal(ens.borders.cpu(), borders)
+          and torch.equal(ens.n_borders.cpu(), n_borders),
+          "fit_source's borders differ from compute_borders_chunked's")
+    pool = quantize.quantize_pool(
+        torch.as_tensor(data.x_train, device=tr.device),
+        borders.to(tr.device))
+    check(torch.equal(pool.bins, tr.pool_.bins),
+          "fit_source's pool differs from quantize_pool of the matrix")
+    ens_p, _ = trainer().fit_pool(pool, data.y_train, borders=borders,
+                                  n_borders=n_borders)
+    for f in ("split_features", "split_bins", "leaf_values", "base_score"):
+        check(torch.equal(getattr(ens, f).cpu(), getattr(ens_p, f).cpu()),
+              f"fit_source's {f} differ from fit_pool's")
+    return {"rows": source.n_rows, "trees": ens.n_trees,
+            "chunk_rows": chunk_rows, "n_chunks": n_chunks,
+            "quantize_s": snap["quantize_s"], "fit_s": fit_s,
+            "final_train_loss": snap["final_train_loss"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+SCORE_CLI = ("--dataset", "covertype", "--scale", "0.05", "--models", "2",
+             "--check")
+
+
+def run_score_cli() -> dict:
+    """`python3 -m repro_torch.launch.score ... --check` in a process of
+    its own: it trains a model on the card, bulk-scores the test split
+    through two plans and holds the output to the plans' own entries."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.score", *SCORE_CLI],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    secs = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-8:]:
+        print(f"  score_cli: {line}")
+    check(proc.returncode == 0, f"repro_torch.launch.score --check exited "
+          f"{proc.returncode}")
+    metrics = json.loads(proc.stdout.strip().splitlines()[-1])
+    return {"args": " ".join(SCORE_CLI), "seconds": secs,
+            "rows": metrics["rows"], "chunks": metrics["chunks"],
+            "rows_per_s": metrics["rows_per_s"]}
+
+
+# --------------------------------------------------------------------------
 # The kNN path: embeddings -> kNN features -> GBDT head
 # --------------------------------------------------------------------------
 KNN_K = 16              # neighbours (examples/embeddings_knn.py): 21 features
@@ -2465,6 +3032,10 @@ PATH_KERNELS = {
                             "fused_predict_bp"},
     "training": {"binarize", "histogram", "leaf_index", "leaf_gather"},
     "trained_soa_pool": {"binarize", "leaf_index", "leaf_gather"},
+    "bulk": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
+    "entry_points": {"binarize", "leaf_index", "leaf_gather",
+                     "fused_predict"},
+    "fit_source": {"binarize", "histogram", "leaf_index", "leaf_gather"},
     "knn": {"l2sq_matrix", "l2sq_rowwise", "binarize", "histogram",
             "leaf_index", "leaf_gather", "fused_predict"},
 }
@@ -2561,6 +3132,32 @@ def main() -> None:
         "trained_soa_pool")
     print(f"trained model served: {json.dumps(trained_serving)}",
           flush=True)
+
+    # --- the bulk path, the other entry points and fit_source, each with
+    # the launch counts set to 0 before it and read after it; then the
+    # scoring CLI in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        bulk, bulk_plans, bulk_source = run_bulk_path(full, x_test, tmp)
+        path_launches["bulk"] = path_launch_counts("bulk")
+        t0 = time.perf_counter()
+        bulk["kernels_vs_plain"] = check_bulk_kernels(
+            bulk_plans, bulk_source, sorted(
+                {bulk["chunk_rows"], bulk["worker_route"]["chunk_rows"]}))
+        bulk["kernels_vs_plain_s"] = time.perf_counter() - t0
+        del bulk_plans
+        print(f"bulk path: {json.dumps(bulk)}", flush=True)
+        ops.reset_launch_counts()
+        entry_points = run_entry_points(full, x_test, tmp)
+        path_launches["entry_points"] = path_launch_counts("entry_points")
+        print(f"entry points: {json.dumps(entry_points)}", flush=True)
+    ops.reset_launch_counts()
+    fit_source = run_fit_source(data, params)
+    path_launches["fit_source"] = path_launch_counts("fit_source")
+    print(f"fit_source: {json.dumps(fit_source)}", flush=True)
+    score_cli = run_score_cli()
+    print(f"score_cli: {json.dumps(score_cli)}", flush=True)
+    torch.cuda.empty_cache()
 
     ens = truncated(full)
     print(f"model: T={ens.n_trees} D={ens.depth} C={ens.n_outputs} "
@@ -2765,7 +3362,9 @@ def main() -> None:
                                    "rows": len(data.x_train),
                                    "metrics": snapshot,
                                    "profile": training_profile},
-                      "knn": knn_serving,
+                      "knn": knn_serving, "bulk": bulk,
+                      "entry_points": entry_points,
+                      "fit_source": fit_source, "score_cli": score_cli,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {

@@ -18,10 +18,13 @@ batches they stay bounded by (entries used x buckets).
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 import threading
 import time
 from typing import Any, Callable, Literal, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import layout as layout_mod
@@ -30,6 +33,7 @@ from repro_torch.core.quantize import (MAX_BINS, QuantizedPool,
                                        borders_fingerprint)
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.kernels import ops, registry, tuning
+from repro_torch.kernels.ops import PAD_SPLIT_BIN
 
 Strategy = Literal["auto", "staged", "fused"]
 
@@ -199,6 +203,16 @@ class Predictor:
         return cls(on_device, resolved, lowered, device, on_trace=on_trace,
                    lower_time_s=time.perf_counter() - t0)
 
+    @classmethod
+    def from_catboost_json(cls, path: str | pathlib.Path,
+                           config: Optional[PredictConfig] = None, *,
+                           device: torch.device | str = "cuda",
+                           **build_kw: Any) -> "Predictor":
+        """Build a plan straight from a CatBoost JSON model export, on
+        `device` (the card unless the caller passes "cpu")."""
+        return cls.build(load_catboost_json(path), config, device=device,
+                         **build_kw)
+
     # -- entries -----------------------------------------------------------
     def _raw_impl(self, x: torch.Tensor) -> torch.Tensor:
         cfg, p = self.config, self.lowered
@@ -315,3 +329,132 @@ class Predictor:
         return (f"<Predictor {c.strategy}/{c.backend}/{c.layout} "
                 f"on {self.device} trees={self.ensemble.n_trees} "
                 f"depth={self.ensemble.depth} C={self.ensemble.n_outputs}>")
+
+
+# --------------------------------------------------------------------------
+# CatBoost JSON ingestion
+# --------------------------------------------------------------------------
+def load_catboost_json(path: str | pathlib.Path) -> ObliviousEnsemble:
+    """Parse a CatBoost oblivious-tree JSON export into an ensemble on the
+    CPU (a plan moves it to its device).
+
+    Reads the subset of `save_model(..., format="json")` the paper's
+    workloads need: `features_info.float_features[*].borders`,
+    `oblivious_trees[*].splits` (float splits only: feature index +
+    border value) and flat `leaf_values`, plus `scale_and_bias`.  The
+    JAX package's `load_catboost_json` gives the same arrays.
+
+    Conventions mapped onto this repo's model:
+      * split j of a tree contributes bit j of the leaf index
+        (CatBoost lists splits bottom-up, matching `ref.leaf_index`)
+      * CatBoost's `x > border` with border at sorted index k becomes
+        `bins >= k + 1` in quantized space
+      * trees shallower than the deepest are padded with always-left
+        splits (`PAD_SPLIT_BIN`), their leaf values at indices < 2^d
+      * `leaf_values` is length 2^d * dim, leaf-major
+    """
+    obj = json.loads(pathlib.Path(path).read_text())
+    floats = obj.get("features_info", {}).get("float_features", [])
+    if not floats:
+        raise ValueError(f"{path}: no features_info.float_features — not a "
+                         "CatBoost JSON model export?")
+    trees = obj.get("oblivious_trees", [])
+    if not trees:
+        raise ValueError(f"{path}: no oblivious_trees (only oblivious-tree "
+                         "models are supported)")
+    for t, tree in enumerate(trees):
+        if "splits" not in tree or "leaf_values" not in tree:
+            raise ValueError(f"{path}: tree {t} is missing "
+                             "splits/leaf_values — truncated export?")
+
+    def flat_index(feat, i):
+        return int(feat.get("flat_feature_index",
+                            feat.get("feature_index", i)))
+
+    n_features = 1 + max(flat_index(f, i) for i, f in enumerate(floats))
+    per_feature: list[list[float]] = [[] for _ in range(n_features)]
+    for i, f in enumerate(floats):
+        per_feature[flat_index(f, i)] = [float(v)
+                                         for v in (f.get("borders") or [])]
+
+    depth = max(len(t["splits"]) for t in trees)
+    if depth < 1:
+        raise ValueError(f"{path}: model has splitless trees only")
+    d0 = len(trees[0]["splits"])
+    n_leaf0 = len(trees[0]["leaf_values"])
+    if n_leaf0 % (1 << d0):
+        raise ValueError(f"{path}: tree 0 has {n_leaf0} leaf values, not a "
+                         f"multiple of 2^depth={1 << d0}")
+    n_outputs = n_leaf0 // (1 << d0)
+
+    n_trees = len(trees)
+    sf = np.zeros((n_trees, depth), np.int32)
+    sb = np.full((n_trees, depth), PAD_SPLIT_BIN, np.int32)
+    lv = np.zeros((n_trees, 1 << depth, n_outputs), np.float32)
+    for t, tree in enumerate(trees):
+        splits = tree["splits"]
+        d = len(splits)
+        vals = np.asarray(tree["leaf_values"], np.float32)
+        if vals.size != (1 << d) * n_outputs:
+            raise ValueError(
+                f"{path}: tree {t} has {vals.size} leaf values; expected "
+                f"2^{d} * {n_outputs} (inconsistent approx dimension)")
+        for j, s in enumerate(splits):
+            stype = s.get("split_type", "FloatFeature")
+            if stype != "FloatFeature":
+                raise ValueError(f"{path}: tree {t} split {j} has type "
+                                 f"{stype!r}; only FloatFeature is "
+                                 "supported")
+            fi = int(s.get("float_feature_index",
+                           s.get("feature_index", -1)))
+            if not 0 <= fi < n_features:
+                raise ValueError(f"{path}: tree {t} split {j} references "
+                                 f"feature {fi} outside [0, {n_features})")
+            if "border" not in s:
+                raise ValueError(f"{path}: tree {t} split {j} has no "
+                                 "border value")
+            border = float(s["border"])
+            feature_borders = per_feature[fi]
+            if not feature_borders:
+                raise ValueError(f"{path}: tree {t} splits on feature {fi} "
+                                 "which has no borders")
+            k = int(np.argmin(np.abs(np.asarray(feature_borders) - border)))
+            if not np.isclose(feature_borders[k], border,
+                              rtol=1e-6, atol=1e-9):
+                raise ValueError(
+                    f"{path}: tree {t} split {j} border {border} not found "
+                    f"among feature {fi}'s borders")
+            sf[t, j] = fi
+            sb[t, j] = k + 1
+        lv[t, :1 << d, :] = vals.reshape(1 << d, n_outputs)
+
+    scale, bias = 1.0, np.zeros((n_outputs,), np.float32)
+    snb = obj.get("scale_and_bias")
+    if snb:
+        scale = float(snb[0])
+        raw_bias = snb[1]
+        if isinstance(raw_bias, (int, float)):
+            raw_bias = [raw_bias]
+        b = np.asarray(raw_bias, np.float32)
+        if b.size == 1:
+            bias = np.full((n_outputs,), float(b[0]), np.float32)
+        elif b.size == n_outputs:
+            bias = b
+        else:
+            raise ValueError(f"{path}: scale_and_bias bias has {b.size} "
+                             f"entries for {n_outputs} outputs")
+
+    n_borders = np.asarray([len(b) for b in per_feature], np.int32)
+    max_b = max(1, int(n_borders.max()))
+    borders = np.full((max_b, n_features), np.inf, np.float32)
+    for fi, vals in enumerate(per_feature):
+        borders[:len(vals), fi] = vals
+
+    return ObliviousEnsemble(
+        split_features=torch.from_numpy(sf),
+        split_bins=torch.from_numpy(sb),
+        leaf_values=torch.from_numpy(lv * np.float32(scale)),
+        borders=torch.from_numpy(borders),
+        n_borders=torch.from_numpy(n_borders),
+        base_score=torch.from_numpy(bias),
+    )

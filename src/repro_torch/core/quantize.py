@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -126,6 +127,91 @@ def quantize_pool(x, borders: torch.Tensor, *,
     x = torch.as_tensor(x, dtype=torch.float32, device=borders.device)
     bins = ops.binarize_u8(x.contiguous(), borders, backend=backend)
     return QuantizedPool(bins, borders_fingerprint(borders))
+
+
+def quantize_pool_chunked(x_iter, borders, *, backend: str = "auto",
+                          device: torch.device | str = "cuda"
+                          ) -> QuantizedPool:
+    """Build a `QuantizedPool` on `device` (the card unless the caller
+    passes "cpu") from an iterator of float row-chunks.
+
+    The streaming counterpart of `quantize_pool`: each (n_i, F) chunk is
+    moved to the device and binarized on its own, and only its uint8 bins
+    are kept (concatenated once, at the end), so float rows are in flight
+    one chunk at a time while the pool equals what `quantize_pool` gives
+    on the whole matrix (binarization is row-independent)."""
+    from repro_torch.core.predictor import resolve_device
+
+    borders = torch.as_tensor(borders, dtype=torch.float32)
+    if borders.shape[0] > MAX_BINS - 1:
+        raise ValueError(
+            f"quantize_pool_chunked needs <= {MAX_BINS - 1} borders for "
+            f"uint8 bins, got {borders.shape[0]}")
+    device = resolve_device(device)
+    on_device = borders.to(device).contiguous()
+    n_features = int(borders.shape[1])
+    parts: list[torch.Tensor] = []
+    for chunk in x_iter:
+        chunk = np.asarray(chunk, np.float32)
+        if chunk.ndim != 2 or chunk.shape[1] != n_features:
+            raise ValueError(
+                f"chunk shape {chunk.shape} does not match the "
+                f"(n, {n_features}) the borders describe")
+        if chunk.shape[0] == 0:
+            continue
+        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(device)
+        parts.append(ops.binarize_u8(x, on_device, backend=backend))
+    bins = (torch.cat(parts) if parts else
+            torch.zeros((0, n_features), dtype=torch.uint8, device=device))
+    return QuantizedPool(bins, borders_fingerprint(borders))
+
+
+def compute_borders_chunked(x_iter, max_bins: int = 64, *,
+                            sample_rows: int = 65536, seed: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`compute_borders` over a row-chunk iterator, via reservoir sample.
+
+    Streams (n_i, F) float chunks, keeping a uniform row reservoir of at
+    most `sample_rows` rows, then computes quantile borders on the sample
+    (on the CPU, as `compute_borders` returns them).  When the stream
+    holds <= `sample_rows` rows the result is exactly `compute_borders` on
+    the concatenated matrix; beyond that the borders are sample-quantile
+    approximations, drawn from `np.random.default_rng(seed)` as the JAX
+    package draws them, so both give the same borders bit for bit."""
+    rng = np.random.default_rng(seed)
+    reservoir: Optional[np.ndarray] = None
+    seen = 0
+    for chunk in x_iter:
+        chunk = np.asarray(chunk, np.float32)
+        if chunk.ndim != 2:
+            raise ValueError(f"chunks must be (n, F), got {chunk.shape}")
+        if chunk.shape[0] == 0:
+            continue
+        if reservoir is None:
+            reservoir = np.empty((0, chunk.shape[1]), np.float32)
+        if reservoir.shape[1] != chunk.shape[1]:
+            raise ValueError(f"ragged chunk widths: {reservoir.shape[1]} "
+                             f"then {chunk.shape[1]}")
+        take = min(max(sample_rows - reservoir.shape[0], 0),
+                   chunk.shape[0])
+        if take:
+            reservoir = np.concatenate([reservoir, chunk[:take]], axis=0)
+            chunk = chunk[take:]
+            seen += take
+        if chunk.shape[0] == 0:
+            continue
+        # classic reservoir replacement for the overflow rows: stream
+        # row k (0-based) replaces a uniform slot with prob S/(k+1);
+        # draws are vectorized, replacements applied in stream order so
+        # later rows overwrite earlier ones hitting the same slot
+        draws = rng.integers(0, seen + 1 + np.arange(chunk.shape[0]))
+        seen += chunk.shape[0]
+        for i in np.nonzero(draws < sample_rows)[0]:
+            reservoir[draws[i]] = chunk[i]
+    if reservoir is None:
+        raise ValueError("compute_borders_chunked needs at least one "
+                         "non-empty chunk")
+    return compute_borders(reservoir, max_bins)
 
 
 def binarize_matrix(x: torch.Tensor, borders: torch.Tensor, *,

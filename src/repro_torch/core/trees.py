@@ -14,6 +14,7 @@ split_bin = PAD_SPLIT_BIN, which always go left.
 from __future__ import annotations
 
 import dataclasses
+import json
 import pathlib
 from typing import Any, Optional
 
@@ -78,6 +79,12 @@ class ObliviousEnsemble:
             (sb == PAD_SPLIT_BIN)[:, ::-1], axis=1).sum(axis=1)
         return (sb.shape[1] - trailing_pad).astype(np.int32)
 
+    def lower(self, layout: str = "soa", **lower_kw):
+        """Lower the logical model into a physical `LoweredEnsemble`
+        layout (see `repro_torch.core.layout`) on its own device."""
+        from repro_torch.core import layout as layout_mod
+        return layout_mod.lower(self, layout, **lower_kw)
+
     def to(self, device: torch.device | str) -> "ObliviousEnsemble":
         """The same ensemble with every array on `device`."""
         return dataclasses.replace(self, **{
@@ -117,6 +124,27 @@ class ObliviousEnsemble:
                     n_outputs=self.n_outputs, n_features=self.n_features,
                     n_leaf_params=int(np.prod(self.leaf_values.shape)))
 
+    def describe_json(self) -> str:
+        return json.dumps(self.describe())
+
+
+def empty_ensemble(n_features: int, depth: int, n_outputs: int,
+                   borders: torch.Tensor, n_borders: torch.Tensor
+                   ) -> ObliviousEnsemble:
+    """A tree-less ensemble over `borders`, on their device: the start of
+    an ensemble grown tree by tree (`n_features` is the borders' width,
+    kept for the JAX package's signature)."""
+    device = torch.as_tensor(borders).device
+    return ObliviousEnsemble(
+        split_features=torch.zeros((0, depth), dtype=torch.int32,
+                                   device=device),
+        split_bins=torch.zeros((0, depth), dtype=torch.int32, device=device),
+        leaf_values=torch.zeros((0, 2 ** depth, n_outputs),
+                                dtype=torch.float32, device=device),
+        borders=borders,
+        n_borders=n_borders,
+    )
+
 
 def truncate_tree_depths(ensemble: ObliviousEnsemble,
                          depths) -> ObliviousEnsemble:
@@ -142,3 +170,35 @@ def truncate_tree_depths(ensemble: ObliviousEnsemble,
     return dataclasses.replace(
         ensemble, split_bins=torch.from_numpy(sb).to(device),
         leaf_values=torch.from_numpy(lv).to(device))
+
+
+def concat_ensembles(a: ObliviousEnsemble, b: ObliviousEnsemble
+                     ) -> ObliviousEnsemble:
+    """Append b's trees to a (a's borders and base score win).
+
+    Two ensembles are only summable when they agree on tree depth,
+    output width and the quantization borders: a mismatch silently
+    produces garbage leaf sums, so each is a hard error here."""
+    if a.depth != b.depth:
+        raise ValueError(f"cannot concat ensembles of different depth: "
+                         f"{a.depth} vs {b.depth}")
+    if a.n_outputs != b.n_outputs:
+        raise ValueError(f"cannot concat ensembles with different "
+                         f"n_outputs: {a.n_outputs} vs {b.n_outputs}")
+    if a.borders.shape != b.borders.shape:
+        raise ValueError(f"cannot concat ensembles quantized with "
+                         f"different border tables: "
+                         f"{tuple(a.borders.shape)} vs "
+                         f"{tuple(b.borders.shape)}")
+    if not torch.equal(a.borders.cpu(), b.borders.cpu()):
+        raise ValueError(
+            "cannot concat ensembles quantized with different border "
+            "values: split_bins index into incompatible bin spaces")
+    dev = a.device
+    return dataclasses.replace(
+        a,
+        split_features=torch.cat([a.split_features,
+                                  b.split_features.to(dev)]),
+        split_bins=torch.cat([a.split_bins, b.split_bins.to(dev)]),
+        leaf_values=torch.cat([a.leaf_values, b.leaf_values.to(dev)]),
+    )

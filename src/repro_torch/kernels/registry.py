@@ -26,6 +26,7 @@ quantized pool" is a checkable invariant.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Optional
 
 import torch
@@ -53,6 +54,9 @@ class KernelImpl:
 
 _REGISTRY: dict[str, dict[str, KernelImpl]] = {}
 _CALL_STATS: dict[str, int] = {}
+# The bulk scorer dispatches from two threads (its prefetch worker and the
+# caller's), so each count is a locked read-modify-write.
+_CALL_STATS_LOCK = threading.Lock()
 
 
 def register(op: str, name: str, *, dtypes: tuple[str, ...] = ("int32",),
@@ -170,7 +174,8 @@ def dispatch(op: str, backend: str, *args: Any,
     """Resolve against the first argument's device, count, and call."""
     impl = get(op, resolve(op, backend, device=args[0].device, dtype=dtype,
                            layout=layout))
-    _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
+    with _CALL_STATS_LOCK:
+        _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
     return impl.fn(*args, **kw)
 
 
@@ -182,11 +187,13 @@ def impls_for_layout(op: str, layout: str) -> list[str]:
 
 def call_stats() -> dict[str, int]:
     """Per-op dispatch counts since the last `reset_call_stats`."""
-    return dict(_CALL_STATS)
+    with _CALL_STATS_LOCK:
+        return dict(_CALL_STATS)
 
 
 def reset_call_stats() -> None:
-    _CALL_STATS.clear()
+    with _CALL_STATS_LOCK:
+        _CALL_STATS.clear()
 
 
 def table() -> list[dict[str, str]]:

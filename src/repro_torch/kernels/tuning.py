@@ -1,4 +1,5 @@
-"""Physical-layout selection for `PredictConfig(layout="auto")`, and the
+"""Physical-layout selection for `PredictConfig(layout="auto")`, the bulk
+scorer's chunk shape (`best_chunk_rows`) and prefetch depth, and the
 launch plans of the CUDA kernels: shared-memory tiles and their route,
 output slabs, the leaf-index, leaf-gather and bitpacked-index grids, the
 training histogram's grid and stat groups, and the distance matrix's
@@ -76,6 +77,80 @@ def best_layout(true_depths, n_outputs: int, n_features: int, *,
                 return "bitpacked"
             return "depth_grouped"
     return "soa"
+
+
+# --------------------------------------------------------------------------
+# Bulk-scoring chunk planner (`scoring.BulkScorer`)
+# --------------------------------------------------------------------------
+# The bytes one in-flight chunk may hold, on the host and the card together
+# (`chunk_row_bytes`), and the clamp on the chunk's rows: the JAX package's
+# constants (`src/repro/kernels/tuning.py`).  A chunk is a round trip of
+# the host's Python and a handful of launches, so the chunk is the largest
+# power of two whose working set fits.
+CHUNK_BUDGET_BYTES = 32 * 1024 * 1024
+MIN_CHUNK_ROWS = 256
+MAX_CHUNK_ROWS = 1 << 17
+# The smallest chunk at which the prefetch worker pays on the card: below
+# it the thread hand-off and the side stream's event wait cost about what
+# the overlap saves, or more (`scripts/bulk_probe.py` on an H100, three
+# plans of the 1,000-tree Covertype model on uint8 pools, depth 2 against
+# depth 0: 1.15-1.22 M rows/s against 1.51-1.71 M at 4,096 rows in one
+# run; 1.90-2.13 M against 2.21-2.22 M at 16,384 rows and 2.36-2.81 M
+# against 2.07-2.31 M at 65,536 in another).
+PREFETCH_MIN_CHUNK_ROWS = 1 << 16
+
+
+def chunk_row_bytes(n_features: int, n_outputs: int, *,
+                    n_borders: int = 0, n_trees: int = 0,
+                    n_leaves: int = 0) -> int:
+    """Bytes one row of a scoring chunk costs in what the port allocates.
+
+    The float32 row (the source's read and its pinned copy on the host,
+    the chunk on the card), its uint8 bins (the pool), the (N, T) int32
+    leaf-index panel the pool route writes (the fused route writes none)
+    and the float32 output row.  The JAX package counts the (F, B)
+    binarize comparison panel and the (T, L) gather one-hot of its staged
+    code instead, float32 a row; the port's kernels build neither (at the
+    smoke's 1,000-tree Covertype model: 4,298 bytes a row, where JAX's
+    count gives 1,037,906 and pins the chunk at `MIN_CHUNK_ROWS`).
+    `n_borders` and `n_leaves` count nothing here: they keep the JAX
+    signature."""
+    return (4 * n_features + n_features + 4 * n_trees
+            + 4 * max(n_outputs, 2))
+
+
+def best_chunk_rows(n_features: int, n_outputs: int, *,
+                    n_borders: int = 0, n_trees: int = 0,
+                    n_leaves: int = 0,
+                    budget_bytes: int = CHUNK_BUDGET_BYTES,
+                    n_rows: int | None = None) -> int:
+    """The bulk scorer's fixed chunk shape: the largest power-of-two row
+    count whose working set (`chunk_row_bytes`) fits the budget (pow2 so
+    the tail's bucket ladder divides it), clamped to [MIN_CHUNK_ROWS,
+    MAX_CHUNK_ROWS].  A known `n_rows` caps the chunk at the first power
+    of two that covers the whole dataset.  `n_borders` and `n_leaves`
+    keep the JAX signature and change nothing."""
+    per_row = chunk_row_bytes(n_features, n_outputs, n_trees=n_trees)
+    rows = MIN_CHUNK_ROWS
+    while rows * 2 <= MAX_CHUNK_ROWS and rows * 2 * per_row <= budget_bytes:
+        rows *= 2
+    if n_rows is not None and n_rows > 0:
+        cover = MIN_CHUNK_ROWS
+        while cover < n_rows:
+            cover *= 2
+        rows = min(rows, cover)
+    return rows
+
+
+def prefetch_depth(depth: int, chunk_rows: int, n_chunks: int,
+                   on_card: bool) -> int:
+    """How many chunks the bulk scorer's prefetch worker runs ahead: the
+    configured `depth`, or 0 (no worker thread) for a single chunk, and
+    on the card for chunks under PREFETCH_MIN_CHUNK_ROWS, where the
+    synchronous path is faster."""
+    if n_chunks < 2 or (on_card and chunk_rows < PREFETCH_MIN_CHUNK_ROWS):
+        return 0
+    return depth
 
 
 # --------------------------------------------------------------------------

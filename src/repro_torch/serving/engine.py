@@ -1,10 +1,11 @@
 """GBDT serving engine over a prepared prediction plan.
 
-The port's counterpart of `GBDTServer` and `EmbeddingGBDTPipeline` in
-`src/repro/serving/engine.py`.  Request aggregation and bucket padding
-live in `serving.batching`, per-model counters in `serving.metrics`.
-Mesh serving, replica groups, the model registry and bulk scoring are not
-ported yet.
+The port's counterpart of `GBDTServer`, `ModelRegistry` and
+`EmbeddingGBDTPipeline` in `src/repro/serving/engine.py`.  Request
+aggregation and bucket padding live in `serving.batching`, per-model
+counters in `serving.metrics`; `GBDTServer.score_source` hands a whole
+dataset to `scoring.BulkScorer`.  Mesh serving and replica groups are not
+ported yet (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.core.predictor import (PredictConfig, Predictor,
                                         resolve_device)
 from repro_torch.core.quantize import QuantizedPool
 from repro_torch.core.trees import ObliviousEnsemble
+from repro_torch.scoring.scorer import BulkScorer, ScoreConfig, ScoreResult
 from repro_torch.serving.batching import BucketedBatcher, bucket_for, chunks
 from repro_torch.serving.metrics import ServerMetrics
 
@@ -128,6 +130,27 @@ class GBDTServer:
             out.append(ys[:len(chunk)])
         return np.concatenate(out, axis=0)
 
+    def score_source(self, source, sinks=None, *,
+                     config: Optional[ScoreConfig] = None,
+                     resume_from: int = 0, **score_kw: Any) -> ScoreResult:
+        """Bulk-apply this server's plan to a whole dataset: the bridge
+        from online serving to offline jobs (a nightly rescore of the
+        deployed model, on the same plan).  `source` is a
+        `scoring.RowSource`, `sinks` a `ScoreSink` (or None for an
+        in-memory array); the `ScoreResult`'s metrics report `rows_per_s`
+        in the unit of this server's `metrics.snapshot()`.
+
+        Defaults to ``output="proba"``, what this server's online
+        predicts return, unless the config says otherwise."""
+        if config is None:
+            score_kw.setdefault("output", "proba")
+            config = ScoreConfig(**score_kw)
+        elif score_kw:
+            raise TypeError("pass either a ScoreConfig or config kwargs, "
+                            f"not both: {sorted(score_kw)}")
+        return BulkScorer(self.predictor, config).score(
+            source, sinks, resume_from=resume_from)
+
     def _empty_proba(self) -> np.ndarray:
         width = 2 if self.ensemble.n_outputs == 1 else \
             self.ensemble.n_outputs
@@ -135,6 +158,92 @@ class GBDTServer:
 
     def close(self):
         self.batcher.close()
+
+
+class ModelRegistry:
+    """Several named GBDT ensembles served from one process.
+
+    Each model gets its own `GBDTServer` (its own batcher thread, plan
+    and metrics), on the card unless the defaults or `register` pass
+    ``device="cpu"``; `metrics()` gathers the per-model snapshots.
+
+    A plan is immutable: it holds the model lowered for the ensemble it
+    was built from.  Swapping the ensemble under a name (``register(...,
+    replace=True)``) therefore closes the whole old server and builds a
+    new one.  Replica groups (``replicas > 1``) are not ported yet
+    (ROADMAP A7).
+    """
+
+    def __init__(self, **default_server_kw: Any):
+        self._default_kw = default_server_kw
+        self._servers: dict[str, GBDTServer] = {}
+
+    def register(self, name: str, ensemble: ObliviousEnsemble,
+                 replace: bool = False, *, replicas: int = 1,
+                 **server_kw: Any) -> GBDTServer:
+        if replicas > 1:
+            raise NotImplementedError(
+                "replica groups are not ported yet (ROADMAP A7)")
+        if name in self._servers:
+            if not replace:
+                raise KeyError(f"model {name!r} already registered "
+                               "(pass replace=True to swap it)")
+            self._servers.pop(name).close()
+        kw = {**self._default_kw, **server_kw, "name": name}
+        server = GBDTServer(ensemble, **kw)
+        self._servers[name] = server
+        return server
+
+    def load(self, name: str, path, **server_kw: Any) -> GBDTServer:
+        """Register the ensemble of an `.npz` either package saved."""
+        return self.register(name, ObliviousEnsemble.load(path),
+                             **server_kw)
+
+    def get(self, name: str) -> GBDTServer:
+        if name not in self._servers:
+            raise KeyError(f"unknown model {name!r}; registered: "
+                           f"{sorted(self._servers)}")
+        return self._servers[name]
+
+    def names(self) -> list[str]:
+        return sorted(self._servers)
+
+    def predict(self, name: str, x: np.ndarray,
+                timeout: float = 30.0) -> np.ndarray:
+        return self.get(name).predict(x, timeout=timeout)
+
+    def predict_batch(self, name: str, xs: np.ndarray) -> np.ndarray:
+        return self.get(name).predict_batch(xs)
+
+    def predict_multi(self, xs: np.ndarray,
+                      names: Optional[Sequence[str]] = None
+                      ) -> dict[str, np.ndarray]:
+        """Score one batch through several models, quantizing once per
+        feature schema: servers whose ensembles share borders (the same
+        `schema_fingerprint`) score one `QuantizedPool` through their
+        pool path, which never binarizes."""
+        if names is None:
+            names = self.names()
+        pools: dict[str, QuantizedPool] = {}
+        out: dict[str, np.ndarray] = {}
+        for name in names:
+            server = self.get(name)
+            fp = server.schema_fingerprint
+            if fp not in pools:
+                pools[fp] = server.quantize(xs)
+            out[name] = server.predict_pool(pools[fp])
+        return out
+
+    def metrics(self) -> dict[str, dict[str, Any]]:
+        return {n: s.metrics.snapshot() for n, s in self._servers.items()}
+
+    def unregister(self, name: str) -> None:
+        self._servers.pop(name).close()
+
+    def close(self) -> None:
+        for s in self._servers.values():
+            s.close()
+        self._servers.clear()
 
 
 class EmbeddingGBDTPipeline:

@@ -37,8 +37,12 @@ leaves, so a fit that grows any tree launches exactly `depth` shapes.
 Stage times are CUDA events on the card, read after the tree's one
 synchronization, and the host clock on the CPU.
 
+`fit_source` streams a `scoring.RowSource` into a pool chunk by chunk
+(borders from a reservoir sample, then the bins on the device) and boosts
+on it.
+
 Not ported yet (ROADMAP): `rsm < 1` and `ordered` boosting (both draw from
-JAX's threefry stream), `fit_source` (chunked ingest), tracer spans.
+JAX's threefry stream), tracer spans.
 With `rsm = 1` and plain boosting the JAX trainer splits its RNG key every
 tree but never reads it; the port carries the key unchanged in its
 `TrainState`, so checkpoints keep the JAX format and a JAX checkpoint
@@ -59,7 +63,7 @@ from repro_torch.core import predictor as predictor_mod
 from repro_torch.core import quantize
 from repro_torch.core.boosting import NEG_INF, BoostingParams, _gain_term
 from repro_torch.core.trees import ObliviousEnsemble
-from repro_torch.kernels import ops, registry
+from repro_torch.kernels import ops, registry, tuning
 from repro_torch.serving.metrics import PercentileReservoir
 from repro_torch.training.checkpoint import CheckpointManager
 
@@ -73,8 +77,8 @@ class TrainingMetrics:
     Stage timings flow through `PercentileReservoir`, throughput is
     `rows_per_s` (sample-rows per boosting iteration, N rows x T
     iterations), as `ServerMetrics` reports serving.  The chunked-ingest
-    keys (`quantize_s`, `n_chunks`, `chunk_rows`) stay 0 until
-    `fit_source` is ported."""
+    keys (`quantize_s`, `n_chunks`, `chunk_rows`) are filled by
+    `fit_source`."""
 
     MAX_SAMPLES = 8192
 
@@ -94,6 +98,13 @@ class TrainingMetrics:
         self._split = PercentileReservoir(self.MAX_SAMPLES, seed=2)
         self._leaf = PercentileReservoir(self.MAX_SAMPLES, seed=3)
         self._busy = {"hist": 0.0, "split": 0.0, "leaf": 0.0, "iter": 0.0}
+
+    def note_quantize(self, seconds: float, n_chunks: int,
+                      chunk_rows: int) -> None:
+        with self._lock:
+            self.quantize_s += seconds
+            self.n_chunks += n_chunks
+            self.chunk_rows = chunk_rows
 
     def note_iteration(self, n_rows: int, hist_s: float, split_s: float,
                        leaf_s: float, iter_s: float,
@@ -314,7 +325,7 @@ class GBDTTrainer:
             raise NotImplementedError(
                 "rsm < 1 and ordered boosting draw from JAX's threefry "
                 "stream, which the port has no counterpart of yet "
-                "(ROADMAP A9.1: the threefry counterpart)")
+                "(ROADMAP A5: the training remainders)")
         backends = ("auto",) + registry.known_backends()
         if backend not in backends:
             raise ValueError(f"backend must be one of {backends}, "
@@ -327,7 +338,9 @@ class GBDTTrainer:
         self.params = params
         self.backend = backend
         self.metrics = TrainingMetrics(name)
-        # the staged soa plan of the last fit on a pool (the handoff)
+        # the pool of the last `fit_pool` / `fit_source`, and the staged
+        # soa plan of the last fit on a pool (the handoff)
+        self.pool_: Optional[quantize.QuantizedPool] = None
         self.plan_: Optional[predictor_mod.Predictor] = None
 
     # -- entry points ------------------------------------------------------
@@ -343,6 +356,7 @@ class GBDTTrainer:
             raise ValueError(
                 f"pool was quantized under a different schema: pool "
                 f"fingerprint {pool.fingerprint} != borders {fp}")
+        self.pool_ = pool
         return self._fit_bins(pool.bins, y, borders=borders,
                               n_borders=n_borders, pool=pool,
                               checkpoint=checkpoint,
@@ -361,6 +375,47 @@ class GBDTTrainer:
                               checkpoint=checkpoint,
                               checkpoint_every=checkpoint_every,
                               resume_from=resume_from)
+
+    def fit_source(self, source, y, *, max_bins: Optional[int] = None,
+                   chunk_rows: int = 0, sample_rows: int = 65536,
+                   checkpoint: Optional[CheckpointManager] = None,
+                   checkpoint_every: int = 0,
+                   resume_from: Optional[int] = None
+                   ) -> tuple[ObliviousEnsemble, dict]:
+        """Out-of-core ingest: stream a `scoring.RowSource` chunk by chunk
+        through `quantize_pool_chunked` onto the trainer's device, then
+        boost on the pool.
+
+        Float rows exist one chunk at a time (the `BulkScorer` memory
+        contract); the retained representation is one byte per (sample,
+        feature).  Two streaming passes: the borders (a reservoir sample,
+        `compute_borders_chunked`) and the bins."""
+        from repro_torch.scoring import sources as sources_lib
+
+        if max_bins is None:
+            max_bins = self.params.max_bins
+        if chunk_rows <= 0:
+            chunk_rows = tuning.best_chunk_rows(source.n_features, 1)
+        t0 = time.perf_counter()
+        borders, n_borders = quantize.compute_borders_chunked(
+            sources_lib.iter_chunks(source, chunk_rows), max_bins,
+            sample_rows=sample_rows)
+        pool = quantize.quantize_pool_chunked(
+            sources_lib.iter_chunks(source, chunk_rows), borders,
+            backend=self.backend, device=self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n_chunks = -(-source.n_rows // chunk_rows)
+        self.metrics.note_quantize(time.perf_counter() - t0, n_chunks,
+                                   chunk_rows)
+        ens, history = self.fit_pool(pool, y, borders=borders,
+                                     n_borders=n_borders,
+                                     checkpoint=checkpoint,
+                                     checkpoint_every=checkpoint_every,
+                                     resume_from=resume_from)
+        history["chunk_rows"] = chunk_rows
+        history["n_chunks"] = n_chunks
+        return ens, history
 
     # -- core loop ---------------------------------------------------------
     def _fit_bins(self, bins, y, *, borders, n_borders, pool,
