@@ -34,6 +34,16 @@ to 0 before each path and read after it:
     streamed by a `SyntheticSource`, then runs `python3 -m
     repro_torch.launch.score --dataset covertype --scale 0.05 --models 2
     --check` in a process of its own;
+  * the training remainders on the Covertype training split: 100 trees
+    with rsm = 0.5, with ordered boosting and with both, beside a plain
+    fit, each also checkpointed at 50 trees and resumed; JAX's
+    permutation on the card; `boosting.fit_scan` on the 400 x 6 case of
+    tests/test_differential.py, plain and with rsm = 0.5 and ordered
+    boosting; then `repro_torch.launch.train_gbdt --rsm 0.5 --ordered
+    --check`, `repro_torch.launch.serve` (gbdt mode with 3 variants, and
+    `--show-kernels`) and the three `examples/torch/` scripts, each in a
+    process of its own (`python3 chip_smoke.py --launcher NAME`, as the
+    scoring CLI is), three at a time;
   * serves the trained model, with a tenth of its trees truncated (8 depth
     groups), on each layout in turn (soa, depth_major, depth_grouped,
     bitpacked), then the untruncated model on bitpacked (one group, whose
@@ -88,6 +98,25 @@ It checks:
     CPU, its pool `quantize_pool` of the whole matrix, its ensemble
     `fit_pool` on that pool, bit for bit; its chunk metrics are filled;
     the scoring CLI's `--check` passes;
+  * the remainders: each fit's loss decreases, its `final_raw` equals a
+    fresh staged soa plan's `raw(pool)` bit for bit, no binarize while
+    boosting; with rsm every tree splits only on features of its mask
+    (`prng.permutation` of the tree's key, exactly max(1, int(F * rsm))
+    features); 50 + 50 resumed trees equal 100 uninterrupted, bit for
+    bit, and the checkpoint's key is the key split 50 times on the host;
+    `prng.permutation` on the card equals the CPU's at 54 and at 325,360
+    rows; `fit_scan` gives the same bits twice, `fit`'s splits, and leaf
+    values and losses within rtol = atol = 1e-4 of `fit`'s;
+  * each launcher and example process (the scoring CLI's too) exits 0,
+    launches exactly its `PATH_KERNELS` (counts set to 0 in that process
+    before its `main`), and holds the first two launches of every kernel
+    at every input shape it gives that kernel to the plain version on CPU
+    copies of the inputs: binarize, leaf_index and the histogram
+    (`ref.histogram_fixed`) exactly, leaf_gather and fused_predict within
+    `sum_limit`, l2sq_matrix within the distance rule; a kernel launched
+    but never compared fails; quickstart's staged and fused routes agree
+    within 1e-4 and its float and pool predictions are equal, serve_gbdt
+    answers every request;
   * serving: the fused, pool and staged routes of each path classify the
     same; depth_major gives soa's scores bit for bit on every route,
     bitpacked gives depth_grouped's, and one-group bitpacked fused gives
@@ -2118,28 +2147,418 @@ def run_fit_source(data, params) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
-SCORE_CLI = ("--dataset", "covertype", "--scale", "0.05", "--models", "2",
-             "--check")
-
-
 def run_score_cli() -> dict:
     """`python3 -m repro_torch.launch.score ... --check` in a process of
-    its own: it trains a model on the card, bulk-scores the test split
-    through two plans and holds the output to the plans' own entries."""
+    its own (`run_launcher`): it trains a model on the card, bulk-scores
+    the test split through two plans and holds the output to the plans'
+    own entries."""
+    out, lines = read_launcher(*launch_process("score_cli"))
+    del out["result"]
+    metrics = json.loads(lines[-1])
+    return {**out, "rows": metrics["rows"], "chunks": metrics["chunks"],
+            "rows_per_s": metrics["rows_per_s"]}
+
+
+# --------------------------------------------------------------------------
+# The training remainders: rsm < 1, ordered boosting, the carried key,
+# fit_scan; then the launchers and the examples
+# --------------------------------------------------------------------------
+REMAINDER_TREES = 100    # of the Covertype model's 1,000: the time limit
+REMAINDER_HALF = 50      # trees checkpointed before the resumed half
+REMAINDER_RSM = 0.5
+REMAINDER_FITS = {"rsm": {"rsm": REMAINDER_RSM},
+                  "ordered": {"ordered": True},
+                  "rsm_ordered": {"rsm": REMAINDER_RSM, "ordered": True}}
+PERMUTATION_REPS = 10    # permutations of the training rows timed
+
+
+def run_training_remainders(data, full, params) -> dict:
+    """`GBDTTrainer.fit_pool` with rsm = 0.5, ordered boosting and both,
+    REMAINDER_TREES trees on the training split quantized under the full
+    model's borders, beside a plain fit; JAX's RNG stream on the card."""
+    import torch
+    from repro_torch.core import prng, quantize
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.core.predictor import Predictor
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.gbdt import GBDTTrainer, TrainState
+    t_phase = time.perf_counter()
+    pool = quantize.quantize_pool(
+        torch.as_tensor(data.x_train, device="cuda"), full.borders.cuda())
+    n_rows, n_feat = pool.bins.shape
+    base = dataclasses.replace(params, n_trees=REMAINDER_TREES)
+
+    def fit(p, **kw):
+        trainer = GBDTTrainer(MultiClass(n_classes=data.n_classes), p,
+                              device="cuda")
+        t0 = time.perf_counter()
+        ens, hist = trainer.fit_pool(pool, data.y_train,
+                                     borders=full.borders,
+                                     n_borders=full.n_borders, **kw)
+        torch.cuda.synchronize()
+        return ens, hist, time.perf_counter() - t0
+
+    def stages(hist):
+        m = hist["metrics"]
+        return {k: m[k] for k in ("iter_p50_ms", "hist_p50_ms",
+                                  "split_p50_ms", "leaf_p50_ms")}
+
+    _, hist, plain_s = fit(base)
+    out = {"trees": REMAINDER_TREES, "rows": n_rows,
+           "plain": {"s_per_tree": plain_s / REMAINDER_TREES,
+                     **stages(hist)}}
+    keep = max(1, int(n_feat * REMAINDER_RSM))
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    for name, options in REMAINDER_FITS.items():
+        p = dataclasses.replace(base, **options)
+        ens, hist, secs = fit(p)
+        loss = hist["train_loss"]
+        check(len(loss) == p.n_trees and bool(np.isfinite(loss).all())
+              and loss[-1] < loss[0],
+              f"{name}: train loss {loss[0]} -> {loss[-1]} over "
+              f"{len(loss)} trees")
+        plan = Predictor.build(ens, device="cuda", strategy="staged",
+                               layout="soa")
+        check(np.array_equal(plan.raw(pool).cpu().numpy(),
+                             hist["final_raw"]),
+              f"{name}: final_raw differs from a fresh staged soa plan's "
+              "raw(pool)")
+        check(hist["dispatch_delta"].get("binarize", 0) == 0,
+              f"{name}: binarize dispatched while boosting")
+        check(0 < hist["hist_first_calls"] <= p.depth,
+              f"{name}: {hist['hist_first_calls']} level histogram shapes")
+        used = set()
+        if p.rsm < 1.0:
+            key = prng.initial_key(p.seed)
+            for t, tree in enumerate(ens.split_features.numpy()):
+                key, sub, _ = prng.split(key, 3)
+                mask = set(prng.permutation(sub, n_feat)[:keep].tolist())
+                check(len(mask) == keep and set(tree.tolist()) <= mask,
+                      f"{name}: tree {t} splits on {sorted(set(tree))} "
+                      f"outside its {keep}-feature mask")
+                used |= set(tree.tolist())
+        # REMAINDER_HALF trees checkpointed, then resumed to the end
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            ck = CheckpointManager(tmp)
+            fit(dataclasses.replace(p, n_trees=REMAINDER_HALF),
+                checkpoint=ck, checkpoint_every=REMAINDER_HALF)
+            state = TrainState.from_tree(ck.restore(REMAINDER_HALF))
+            key = prng.initial_key(p.seed)
+            for _ in range(REMAINDER_HALF):
+                key = prng.split(key, 3)[0]
+            check(np.array_equal(state.key, key),
+                  f"{name}: checkpoint key {state.key} is not the key "
+                  f"split {REMAINDER_HALF} times on the host, {key}")
+            resumed, hist_r, _ = fit(p, checkpoint=ck, resume_from=-1)
+        for field in ("split_features", "split_bins", "leaf_values"):
+            check(torch_equal(getattr(resumed, field), getattr(ens, field)),
+                  f"{name}: the resumed run's {field} differ from the "
+                  "uninterrupted run's")
+        for k in ("train_loss", "final_raw"):
+            check(np.array_equal(hist_r[k], hist[k]),
+                  f"{name}: the resumed run's {k} differs from the "
+                  "uninterrupted run's")
+        out[name] = {"s_per_tree": secs / p.n_trees, **stages(hist),
+                     "first_loss": float(loss[0]),
+                     "last_loss": float(loss[-1]),
+                     "serve_drift": hist["serve_drift"],
+                     "features_split_on": len(used) if used else None,
+                     "resumed_bit_identical": True}
+    # the card's permutation is the CPU's, at the feature width and at
+    # the training rows (sort keys tie there)
+    key = prng.split(prng.initial_key(SEED), 3)[2]
+    for n in (n_feat, n_rows):
+        check(torch.equal(prng.permutation(key, n, "cuda").cpu(),
+                          prng.permutation(key, n)),
+              f"prng.permutation on the card differs from the CPU's at "
+              f"n = {n}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PERMUTATION_REPS):
+        prng.permutation(key, n_rows, "cuda")
+    torch.cuda.synchronize()
+    out["permutation_ms"] = (time.perf_counter() - t0) * 1e3 \
+        / PERMUTATION_REPS
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+FIT_SCAN_FITS = {"plain": {}, "rsm_ordered": {"rsm": REMAINDER_RSM,
+                                              "ordered": True}}
+
+
+def run_fit_scan() -> dict:
+    """The seed float trainer on tests/test_differential.py's case (400 x
+    6 rows, 8 trees, depth 3, 16 bins, seed 3): two runs give the same
+    bits, their splits equal `fit`'s, leaf values and losses lie within
+    rtol = atol = 1e-4 of `fit`'s."""
+    import torch
+    from repro_torch.core import boosting
+    from repro_torch.core.losses import make_loss
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(400, 6)).astype(np.float32)
+    y = (x[:, 0] - 2.0 * x[:, 2] + 0.3 * rng.normal(size=400)
+         ).astype(np.float32)
+    loss = make_loss("rmse")
+    out = {}
+    for name, options in FIT_SCAN_FITS.items():
+        params = boosting.BoostingParams(n_trees=8, depth=3, max_bins=16,
+                                         seed=3, **options)
+        t0 = time.perf_counter()
+        a, ha = boosting.fit_scan(x, y, loss=loss, params=params,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        b, hb = boosting.fit_scan(x, y, loss=loss, params=params,
+                                  device="cuda")
+        for f in ("split_features", "split_bins", "leaf_values",
+                  "base_score"):
+            check(torch.equal(getattr(a, f), getattr(b, f)),
+                  f"fit_scan {name}: two runs give different {f}")
+        check(np.array_equal(ha["train_loss"], hb["train_loss"]),
+              f"fit_scan {name}: two runs give different losses")
+        e, he = boosting.fit(x, y, loss=loss, params=params, device="cuda")
+        for f in ("split_features", "split_bins"):
+            check(torch.equal(getattr(a, f), getattr(e, f)),
+                  f"fit_scan {name}: {f} differ from fit's")
+        leaf_err = float((a.leaf_values - e.leaf_values).abs().max())
+        loss_err = float(np.abs(ha["train_loss"] - he["train_loss"]).max())
+        check(bool(np.allclose(a.leaf_values.numpy(), e.leaf_values.numpy(),
+                               rtol=1e-4, atol=1e-4))
+              and bool(np.allclose(ha["train_loss"], he["train_loss"],
+                                   rtol=1e-4, atol=1e-4)),
+              f"fit_scan {name}: leaf values ({leaf_err}) or losses "
+              f"({loss_err}) outside 1e-4 of fit's")
+        out[name] = {"seconds": secs, "leaf_max_abs_vs_fit": leaf_err,
+                     "loss_max_abs_vs_fit": loss_err,
+                     "final_loss": float(ha["train_loss"][-1])}
+    return out
+
+
+# --------------------------------------------------------------------------
+# The launchers and the examples, each in a process of its own
+# --------------------------------------------------------------------------
+# What `python3 chip_smoke.py --launcher NAME` runs: a module's or a
+# script's `main` and its arguments, at the JAX package's own sizes (the
+# examples' defaults).
+LAUNCHERS = {
+    "score_cli": ("repro_torch.launch.score", (
+        "--dataset", "covertype", "--scale", "0.05", "--models", "2",
+        "--check")),
+    "train_gbdt": ("repro_torch.launch.train_gbdt", (
+        "--dataset", "covertype", "--scale", "0.01", "--repeat", "4",
+        "--trees", "20", "--rsm", "0.5", "--ordered", "--check")),
+    "serve": ("repro_torch.launch.serve", ("--trees", "30", "--multi", "3")),
+    "show_kernels": ("repro_torch.launch.serve", ("--show-kernels",)),
+    "quickstart": ("examples/torch/quickstart.py", ()),
+    "serve_gbdt": ("examples/torch/serve_gbdt.py", ()),
+    "embeddings_knn": ("examples/torch/embeddings_knn.py", ()),
+}
+LAUNCHER_WORKERS = 3     # processes at a time
+PLAIN_CHECKS = 2         # launches of a kernel at one input shape held to
+#                          its plain version in a launcher's process
+QUICKSTART_DEVIATION = 1e-4   # examples/torch/quickstart.py's MISMATCH
+
+
+def plain_versions() -> dict:
+    """Kernel -> (its plain version, its limit or None where it must be
+    exact), each taking the launch's arguments and keywords on the CPU:
+    `leaf_gather` and `fused_predict` sum floats in another order
+    (`sum_limit`), the distance kernels obey the distance rule, the
+    histogram equals the plain fixed-point version."""
+    import torch
+    from repro_torch.kernels import l2dist, ref
+
+    def fused_limit(a, kw):
+        x, borders, sf, sb, lv = a
+        return sum_limit(ref.leaf_index(ref.binarize(x, borders), sf, sb), lv)
+
+    return {
+        "binarize": (lambda a, kw: (
+            ref.binarize_u8 if kw.get("out_dtype") == torch.uint8
+            else ref.binarize)(*a), None),
+        "leaf_index": (lambda a, kw: ref.leaf_index(*a), None),
+        "histogram": (lambda a, kw: ref.histogram_fixed(*a, **kw), None),
+        "leaf_gather": (lambda a, kw: ref.leaf_gather(*a),
+                        lambda a, kw: sum_limit(*a)),
+        "fused_predict": (lambda a, kw: ref.fused_predict(*a), fused_limit),
+        "l2sq_matrix": (lambda a, kw: ref.l2sq_matrix(*a),
+                        lambda a, kw: l2dist.matrix_limit(*a)),
+        "l2sq_rowwise": (lambda a, kw: ref.l2sq_rowwise(*a),
+                         lambda a, kw: l2dist.rowwise_limit(*a)),
+    }
+
+
+PLAIN_KEYWORDS = ("out_dtype", "n_bins", "n_leaves")   # the rest pick routes
+
+
+def held_to_plain(name: str, fn, plain, report: dict, failures: list):
+    """`fn`, a kernel's wrapper, whose first PLAIN_CHECKS launches at each
+    input shape are held to `plain` on CPU copies of their inputs; the
+    outcome goes into `report[name]` and any miss into `failures` (a
+    launch may come from a server's thread, so nothing raises here)."""
+    import threading
+
+    import torch
+    want_fn, limit_fn = plain
+    seen: dict = {}
+    lock = threading.Lock()
+
+    def wrapper(*args, **kw):
+        got = fn(*args, **kw)
+        if got.device.type != "cuda" or not got.numel():
+            return got
+        kw = {k: v for k, v in kw.items() if k in PLAIN_KEYWORDS}
+        key = (tuple((tuple(a.shape), str(a.dtype)) if torch.is_tensor(a)
+                     else a for a in args), tuple(sorted(kw.items())))
+        with lock:
+            if seen.get(key, 0) >= PLAIN_CHECKS:
+                return got
+            seen[key] = seen.get(key, 0) + 1
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        want, got_cpu = want_fn(cpu, kw), got.cpu()
+        if limit_fn is None:
+            err, share = (0.0, 0.0) if torch_equal(got_cpu, want) else (
+                float((got_cpu.double() - want.double()).abs().max()),
+                math.inf)
+        else:
+            diff = (got_cpu.double() - want.double()).abs()
+            err, share = float(diff.max()), over_limit(diff,
+                                                       limit_fn(cpu, kw))
+        with lock:
+            rec = report.setdefault(name, {"checked": 0, "shapes": 0,
+                                           "max_abs_err": 0.0,
+                                           "worst_over_limit": 0.0})
+            rec["checked"] += 1
+            rec["shapes"] = len(seen)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["worst_over_limit"] = max(rec["worst_over_limit"], share)
+            if share > 1.0:
+                shapes = ", ".join(
+                    "x".join(map(str, a.shape)) + f" {a.dtype}"
+                    if torch.is_tensor(a) else str(a) for a in args)
+                failures.append(f"{name}({shapes}; {kw}) differs from its "
+                                f"plain version by {err}, {share:.3g} times "
+                                "its limit")
+        return got
+
+    return wrapper
+
+
+def run_launcher(name: str) -> None:
+    """`python3 chip_smoke.py --launcher NAME`: LAUNCHERS[NAME]'s `main` in
+    this process, on the card, with the launch counts set to 0 just before
+    it and every kernel of `plain_versions` held to its plain version
+    (`held_to_plain`).  Its last line is a JSON object with what `main`
+    returned, the launch counts and the comparisons; a nonzero return,
+    a comparison outside its limit, or a kernel launched but never
+    compared exits 1."""
+    import importlib
+    import importlib.util
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this script measures the port on the card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import ops
+    report, failures = {}, []
+    for kernel, plain in plain_versions().items():
+        fn = ops.KERNELS[kernel]
+        wrapper = held_to_plain(kernel, fn, plain, report, failures)
+        # the wrapper's own `launches += 1` now lands on `wrapper`
+        setattr(sys.modules[fn.__module__], fn.__name__, wrapper)
+        ops.KERNELS[kernel] = wrapper
+    target, argv = LAUNCHERS[name]
+    if target.endswith(".py"):
+        spec = importlib.util.spec_from_file_location(
+            f"launched_{name}", os.path.join(ROOT, target))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    else:
+        module = importlib.import_module(target)
+    ops.reset_launch_counts()
+    result = module.main(list(argv))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(json.dumps({"launcher": name, "result": result,
+                      "launches": counts, "plain": report}, default=float),
+          flush=True)
+    check(not isinstance(result, int) or result == 0,
+          f"{name}: main returned {result}")
+    check(not failures, f"{name}: " + "; ".join(failures[:5]))
+    for kernel, count in counts.items():
+        check(count == 0 or kernel in report,
+              f"{name} launched {kernel} {count} times and none was held to "
+              "its plain version")
+
+
+def launch_process(name: str):
+    """LAUNCHERS[name] in a process of its own (`run_launcher`)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.score", *SCORE_CLI],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--launcher",
+         name], cwd=ROOT, capture_output=True, text=True, timeout=600,
         env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    secs = time.perf_counter() - t0
-    for line in proc.stderr.strip().splitlines()[-8:]:
-        print(f"  score_cli: {line}")
-    check(proc.returncode == 0, f"repro_torch.launch.score --check exited "
-          f"{proc.returncode}")
-    metrics = json.loads(proc.stdout.strip().splitlines()[-1])
-    return {"args": " ".join(SCORE_CLI), "seconds": secs,
-            "rows": metrics["rows"], "chunks": metrics["chunks"],
-            "rows_per_s": metrics["rows_per_s"]}
+    return name, proc, time.perf_counter() - t0
+
+
+def read_launcher(name: str, proc, secs: float):
+    """Print a launcher process's last lines; it must have exited 0 and
+    launched exactly PATH_KERNELS[name].  Returns its record and the
+    launcher's own stdout lines."""
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[-7:-1]:
+        print(f"  {name}: {line[:400]}")
+    for line in proc.stderr.strip().splitlines()[-3:]:
+        print(f"  {name} stderr: {line[:400]}")
+    check(proc.returncode == 0, f"chip_smoke.py --launcher {name} ("
+          f"{' '.join(LAUNCHERS[name][1])}) exited {proc.returncode}")
+    report = json.loads(lines[-1])
+    counts = report["launches"]
+    print(f"{name} launches: {counts}", flush=True)
+    for kernel, count in counts.items():
+        check((count > 0) == (kernel in PATH_KERNELS[name]),
+              f"the {name} process launched {kernel} {count} times; it "
+              f"launches exactly {sorted(PATH_KERNELS[name])}")
+    return {"wall_s": secs, "args": " ".join(LAUNCHERS[name][1]),
+            "launches": {k: c for k, c in counts.items() if c},
+            "plain": report["plain"], "result": report["result"]}, \
+        lines[:-1]
+
+
+def run_launchers() -> dict:
+    """Every launcher and example of LAUNCHERS but the scoring CLI, each in
+    a process of its own, LAUNCHER_WORKERS at a time (so each wall time
+    holds the others' contention and the plain comparisons).  Besides
+    `read_launcher`'s checks: quickstart's strategies agree and its float
+    and pool predictions are equal; serve_gbdt answers every request."""
+    names = [name for name in LAUNCHERS if name != "score_cli"]
+    with ThreadPoolExecutor(LAUNCHER_WORKERS) as workers:
+        results = list(workers.map(launch_process, names))
+    out = {}
+    for name, proc, secs in results:
+        out[name], lines = read_launcher(name, proc, secs)
+        out[name]["concurrent_wall_s"] = out[name].pop("wall_s")
+        result = out[name].pop("result")
+        if name == "train_gbdt":
+            metrics = json.loads("\n".join(lines[next(
+                i for i, line in enumerate(lines) if line == "{"):]))
+            out[name]["metrics"] = {k: metrics[k] for k in (
+                "rows", "n_chunks", "trees", "train_s", "serve_rows_per_s",
+                "final_metric", "serve_parity_max_abs", "dispatch_delta")}
+        elif isinstance(result, dict):
+            out[name]["result"] = result
+        if name == "quickstart":
+            check(result["staged_vs_fused"] < QUICKSTART_DEVIATION
+                  and result["float_equals_pool"],
+                  f"quickstart: staged vs fused {result['staged_vs_fused']},"
+                  f" float == pool {result['float_equals_pool']}")
+        if name == "serve_gbdt":
+            check(result["answered"] == result["requests"],
+                  f"serve_gbdt answered {result['answered']} of "
+                  f"{result['requests']} requests")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3021,7 +3440,7 @@ def check_caps() -> dict:
     return out
 
 
-# The kernels each serving path launches, and no others.
+# The kernels each path launches, and no others.
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
     "depth_major": {"binarize", "leaf_index_dm", "leaf_gather",
@@ -3036,8 +3455,24 @@ PATH_KERNELS = {
     "entry_points": {"binarize", "leaf_index", "leaf_gather",
                      "fused_predict"},
     "fit_source": {"binarize", "histogram", "leaf_index", "leaf_gather"},
+    "training_remainders": {"binarize", "histogram", "leaf_index",
+                            "leaf_gather"},
+    "fit_scan": {"binarize", "histogram", "leaf_index", "leaf_gather"},
     "knn": {"l2sq_matrix", "l2sq_rowwise", "binarize", "histogram",
             "leaf_index", "leaf_gather", "fused_predict"},
+    # the launcher and example processes (`read_launcher`)
+    "score_cli": {"binarize", "histogram", "leaf_index", "leaf_gather",
+                  "fused_predict"},
+    "train_gbdt": {"binarize", "histogram", "leaf_index", "leaf_gather"},
+    "serve": {"binarize", "histogram", "leaf_index", "leaf_gather",
+              "fused_predict"},
+    "show_kernels": set(),
+    "quickstart": {"binarize", "histogram", "leaf_index", "leaf_gather",
+                   "fused_predict"},
+    "serve_gbdt": {"binarize", "histogram", "leaf_index", "leaf_gather",
+                   "fused_predict"},
+    "embeddings_knn": {"l2sq_matrix", "binarize", "histogram", "leaf_index",
+                       "leaf_gather", "fused_predict"},
 }
 
 
@@ -3157,6 +3592,22 @@ def main() -> None:
     print(f"fit_source: {json.dumps(fit_source)}", flush=True)
     score_cli = run_score_cli()
     print(f"score_cli: {json.dumps(score_cli)}", flush=True)
+    torch.cuda.empty_cache()
+
+    # --- the training remainders and fit_scan, each with the launch
+    # counts set to 0 before it and read after it; then the launchers and
+    # the examples, each in a process of its own
+    ops.reset_launch_counts()
+    remainders = run_training_remainders(data, full, params)
+    path_launches["training_remainders"] = path_launch_counts(
+        "training_remainders")
+    print(f"training_remainders: {json.dumps(remainders)}", flush=True)
+    ops.reset_launch_counts()
+    fit_scan = run_fit_scan()
+    path_launches["fit_scan"] = path_launch_counts("fit_scan")
+    print(f"fit_scan: {json.dumps(fit_scan)}", flush=True)
+    launchers = run_launchers()
+    print(f"launchers: {json.dumps(launchers)}", flush=True)
     torch.cuda.empty_cache()
 
     ens = truncated(full)
@@ -3365,6 +3816,8 @@ def main() -> None:
                       "knn": knn_serving, "bulk": bulk,
                       "entry_points": entry_points,
                       "fit_source": fit_source, "score_cli": score_cli,
+                      "training_remainders": remainders,
+                      "fit_scan": fit_scan, "launchers": launchers,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {
@@ -3373,4 +3826,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--launcher"] and len(sys.argv) == 3:
+        run_launcher(sys.argv[2])
+    else:
+        main()

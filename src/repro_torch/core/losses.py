@@ -39,6 +39,19 @@ class Loss:
         raise NotImplementedError
 
 
+def as_labels(y, device: torch.device | str) -> torch.Tensor:
+    """Labels as the JAX package holds them with 64-bit types off (float32
+    targets, int32 class ids), on `device`."""
+    if isinstance(y, torch.Tensor):
+        y = y.detach().cpu().numpy()
+    y = np.asarray(y)
+    if y.dtype == np.float64:
+        y = y.astype(np.float32)
+    elif y.dtype == np.int64:
+        y = y.astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(y)).to(device)
+
+
 def _full(y: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     """(N, 1) f32 filled with the scalar tensor `value`."""
     return value.to(torch.float32).reshape(1, 1).expand(y.shape[0], 1) \

@@ -206,3 +206,25 @@ def table() -> list[dict[str, str]]:
              "constraints": impl.constraints}
             for op in ops()
             for name, impl in sorted(_REGISTRY[op].items())]
+
+
+def format_table() -> str:
+    """`table()` as a markdown table, with this process's `call_stats()`
+    total for each row's op (`launch.serve --show-kernels` prints it).
+    The JAX package's `verified` column, the contract checker's verdict,
+    waits for the port's checker (ROADMAP A10)."""
+    stats = call_stats()
+    rows = table()
+    for r in rows:
+        r["dispatch_count"] = str(stats.get(r["op"], 0))
+    cols = ("op", "impl", "family", "dtypes", "devices", "layouts",
+            "dispatch_count", "constraints")
+    widths = {c: max(len(c), *(len(r[c]) for r in rows)) for c in cols}
+
+    def line(vals):
+        return "| " + " | ".join(v.ljust(widths[c])
+                                 for c, v in zip(cols, vals)) + " |"
+    out = [line(cols),
+           "|" + "|".join("-" * (widths[c] + 2) for c in cols) + "|"]
+    out += [line([r[c] for c in cols]) for r in rows]
+    return "\n".join(out)

@@ -41,12 +41,15 @@ synchronization, and the host clock on the CPU.
 (borders from a reservoir sample, then the bins on the device) and boosts
 on it.
 
-Not ported yet (ROADMAP): `rsm < 1` and `ordered` boosting (both draw from
-JAX's threefry stream), tracer spans.
-With `rsm = 1` and plain boosting the JAX trainer splits its RNG key every
-tree but never reads it; the port carries the key unchanged in its
-`TrainState`, so checkpoints keep the JAX format and a JAX checkpoint
-resumes here.
+The RNG stream is the JAX trainer's (`core.prng`): the carried key
+splits into (key, sub, sub2) every tree, `rsm < 1` masks the split
+search to the first max(1, int(F * rsm)) features of `permutation(sub,
+F)` (drawn on the host, a few dozen features), and ordered boosting
+updates the raw predictions along `permutation(sub2, N)` on the
+trainer's device.  `TrainState` checkpoints the carried key, so a
+checkpoint of either package resumes in the other on the same stream.
+
+Not ported yet (ROADMAP A8): tracer spans.
 """
 from __future__ import annotations
 
@@ -60,8 +63,9 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core import predictor as predictor_mod
-from repro_torch.core import quantize
-from repro_torch.core.boosting import NEG_INF, BoostingParams, _gain_term
+from repro_torch.core import prng, quantize
+from repro_torch.core.boosting import (NEG_INF, BoostingParams, _gain_term,
+                                       _ordered_update)
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.kernels import ops, registry, tuning
 from repro_torch.serving.metrics import PercentileReservoir
@@ -162,18 +166,12 @@ class TrainingMetrics:
 # --------------------------------------------------------------------------
 # Checkpointable boosting state
 # --------------------------------------------------------------------------
-def initial_key(seed: int) -> np.ndarray:
-    """The (2,) uint32 key `jax.random.PRNGKey(seed)` gives with 64-bit
-    types off: the trainer's RNG state before the first tree."""
-    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
-
-
 @dataclasses.dataclass
 class TrainState:
     """Everything a resumed run needs to finish bit-identically; the JAX
     package's `TrainState`, field for field.  `raw` holds the accumulated
-    train-time predictions, `key` the carried RNG key (see the module
-    docstring)."""
+    train-time predictions, `key` the carried RNG key, already split
+    `iteration` times."""
 
     iteration: int
     key: np.ndarray                # (2,) uint32 carried PRNG key
@@ -253,17 +251,43 @@ def _split_level(hist, valid, bins_t, leaf, *, n_bins, d, l2):
     return f_star, b_star, leaf | (go_right << d)
 
 
-def _finish_plain(raw, y, gh, leaf, leaf_bins, *, loss, n_leaves, lr, l2,
-                  backend):
-    """Newton leaf values from the per-leaf sums, the raw update and the
-    loss after it.  The sums are the histogram of `leaf_bins`, one
-    all-zero feature, at one bin: (1, L, 2C)."""
+def _leaf_values(gh, leaf, leaf_bins, *, n_leaves, lr, l2, backend):
+    """(L, C) Newton leaf values from the per-leaf sums: the histogram of
+    `leaf_bins`, one all-zero feature, at one bin, (1, L, 2C)."""
     c = gh.shape[1] // 2
     s = ops.histogram(leaf_bins, leaf, gh, n_bins=1, n_leaves=n_leaves,
                       backend=backend)[0]                      # (L, 2C)
-    w = -lr * s[:, :c] / (s[:, c:] + l2)                        # (L, C)
+    return -lr * s[:, :c] / (s[:, c:] + l2)
+
+
+def _finish_plain(raw, y, gh, leaf, leaf_bins, *, loss, n_leaves, lr, l2,
+                  backend):
+    """Leaf values, the raw update and the loss after it."""
+    w = _leaf_values(gh, leaf, leaf_bins, n_leaves=n_leaves, lr=lr, l2=l2,
+                     backend=backend)
     raw = raw + w[leaf.long()]
     return raw, w, loss.value(raw, y)
+
+
+def _finish_ordered(raw, y, gh, leaf, leaf_bins, key, *, loss, n_leaves,
+                    lr, l2, backend):
+    """`_finish_plain` under ordered boosting: each sample's update is its
+    prefix Newton step along `key`'s permutation (`_ordered_update`); the
+    stored leaf values still use all samples."""
+    w = _leaf_values(gh, leaf, leaf_bins, n_leaves=n_leaves, lr=lr, l2=l2,
+                     backend=backend)
+    c = gh.shape[1] // 2
+    raw = raw + _ordered_update(leaf, gh[:, :c], gh[:, c:], key, lr, l2)
+    return raw, w, loss.value(raw, y)
+
+
+def _feat_mask(key, n_features: int, keep: int,
+               device: torch.device) -> torch.Tensor:
+    """(F,) bool: the first `keep` features of `permutation(key, F)`,
+    drawn on the host and copied to `device` without a sync."""
+    mask = torch.zeros(n_features, dtype=torch.bool)
+    mask[prng.permutation(key, n_features)[:keep]] = True
+    return mask.to(device, non_blocking=True)
 
 
 class _StageClock:
@@ -293,19 +317,6 @@ class _StageClock:
         return out
 
 
-def _labels(y, device: torch.device) -> torch.Tensor:
-    """Labels as the JAX package holds them with 64-bit types off:
-    float32 targets, int32 class ids."""
-    if isinstance(y, torch.Tensor):
-        y = y.detach().cpu().numpy()
-    y = np.asarray(y)
-    if y.dtype == np.float64:
-        y = y.astype(np.float32)
-    elif y.dtype == np.int64:
-        y = y.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(y)).to(device)
-
-
 # --------------------------------------------------------------------------
 # Trainer
 # --------------------------------------------------------------------------
@@ -321,11 +332,6 @@ class GBDTTrainer:
     def __init__(self, loss: losses_lib.Loss, params: BoostingParams, *,
                  backend: str = "auto", device: torch.device | str = "cuda",
                  name: str = "gbdt"):
-        if params.rsm < 1.0 or params.ordered:
-            raise NotImplementedError(
-                "rsm < 1 and ordered boosting draw from JAX's threefry "
-                "stream, which the port has no counterpart of yet "
-                "(ROADMAP A5: the training remainders)")
         backends = ("auto",) + registry.known_backends()
         if backend not in backends:
             raise ValueError(f"backend must be one of {backends}, "
@@ -423,7 +429,7 @@ class GBDTTrainer:
         p, loss, dev = self.params, self.loss, self.device
         bins = bins.to(dev).contiguous()
         n, n_feat = bins.shape
-        yt = _labels(y, dev)
+        yt = losses_lib.as_labels(y, dev)
         raw0 = loss.init_raw(yt)
         c = raw0.shape[1]
         depth, n_leaves = p.depth, 1 << p.depth
@@ -447,7 +453,7 @@ class GBDTTrainer:
         lv_rows: list[np.ndarray] = []
         loss_vals: list[float] = []
         start = 0
-        key = initial_key(p.seed)
+        key = prng.initial_key(p.seed)
         raw = raw0
         if checkpoint is not None and resume_from is not None:
             step = None if resume_from < 0 else resume_from
@@ -469,8 +475,14 @@ class GBDTTrainer:
             loss_vals = [float(v) for v in state.train_loss]
 
         level_shapes: set[int] = set()    # leaves of each level launched
+        keep = max(1, int(n_feat * p.rsm))
+        finish = dict(loss=loss, n_leaves=n_leaves, lr=p.learning_rate,
+                      l2=p.l2_reg, backend=self.backend)
         for it in range(start, p.n_trees):
             t_iter = time.perf_counter()
+            key, sub, sub2 = prng.split(key, 3)
+            valid = (base_valid if p.rsm >= 1.0 else
+                     base_valid & _feat_mask(sub, n_feat, keep, dev)[:, None])
             clock = _StageClock(dev)
             gh = _grad_stack(raw, yt, loss=loss)
             leaf = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -483,14 +495,17 @@ class GBDTTrainer:
                 level_shapes.add(1 << d)
                 clock.mark("split")
                 f_star, b_star, leaf = _split_level(
-                    hist, base_valid, bins_t, leaf, n_bins=n_bins, d=d,
+                    hist, valid, bins_t, leaf, n_bins=n_bins, d=d,
                     l2=p.l2_reg)
                 sf_d.append(f_star)
                 sb_d.append(b_star)
             clock.mark("leaf")
-            raw, w, val = _finish_plain(
-                raw, yt, gh, leaf, leaf_bins, loss=loss, n_leaves=n_leaves,
-                lr=p.learning_rate, l2=p.l2_reg, backend=self.backend)
+            if p.ordered:
+                raw, w, val = _finish_ordered(raw, yt, gh, leaf, leaf_bins,
+                                              sub2, **finish)
+            else:
+                raw, w, val = _finish_plain(raw, yt, gh, leaf, leaf_bins,
+                                            **finish)
             clock.mark(None)
             # the tree's one synchronization with the host
             splits = (torch.stack(sf_d + sb_d).cpu().numpy() if depth

@@ -477,9 +477,3 @@ def _jparams(params):
     from repro.core.boosting import BoostingParams as JParams
     return JParams(**{k: getattr(params, k)
                       for k in boosting.BoostingParams.__dataclass_fields__})
-
-
-def test_trainer_refusal_names_the_roadmap_item():
-    params = boosting.BoostingParams(rsm=0.5)
-    with pytest.raises(NotImplementedError, match="A5"):
-        GBDTTrainer(make_loss("rmse"), params, device="cpu")

@@ -41,6 +41,7 @@ def test_fresh_import_loads_no_jax_and_no_repro_module():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         sorted((ROOT / "examples" / "torch").glob("*.py")) +
                          [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):

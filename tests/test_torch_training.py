@@ -12,7 +12,8 @@ The same numpy inputs go through `repro` and `repro_torch`:
     exactly, leaf values, loss and final raw within rtol = atol = 1e-4
     (the gradients differ in the last bits, as the losses do);
   * checkpoint and resume: bit-identical in the port, and a checkpoint
-    the JAX trainer wrote finishes to the JAX trainer's ensemble.
+    the JAX trainer wrote finishes to the JAX trainer's ensemble; the
+    checkpointed key is JAX's carried key, split once a tree.
 
 The CUDA histogram kernel runs only on the card, where `chip_smoke.py`
 holds it against the plain version and checks determinism and resume.
@@ -33,7 +34,7 @@ from repro.kernels import histogram as jhist  # noqa: E402
 from repro.training import checkpoint as jcheckpoint  # noqa: E402
 from repro.training import gbdt as jgbdt  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import boosting, losses, quantize  # noqa: E402
+from repro_torch.core import boosting, losses, prng, quantize  # noqa: E402
 from repro_torch.core.predictor import Predictor  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import histogram as hist_k  # noqa: E402
@@ -308,12 +309,6 @@ def test_fit_bins_int32_matches_jax():
     assert "binarize" not in h["dispatch_delta"]
 
 
-def test_fit_refuses_rsm_and_ordered():
-    for params in ({"rsm": 0.5}, {"ordered": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _trainer("rmse", **params)
-
-
 def test_trainer_runs_on_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default trainer runs")
@@ -385,7 +380,16 @@ def test_port_checkpoint_has_the_jax_format(tmp_path):
     tree = jcheckpoint.CheckpointManager(tmp_path / "ck").restore()
     state = jgbdt.TrainState.from_tree(tree)
     assert state.iteration == 4
-    np.testing.assert_array_equal(state.key, jax.random.PRNGKey(1))
+    # the carried key, split once a tree: JAX's own checkpoint key at
+    # iteration 4
+    jpool, jb, jnb = _jax_pool(x)
+    jck = jcheckpoint.CheckpointManager(tmp_path / "jck", async_save=False)
+    _jax_trainer("rmse", n_trees=4).fit_pool(
+        jpool, ys["rmse"], borders=jb, n_borders=jnb, checkpoint=jck,
+        checkpoint_every=4)
+    np.testing.assert_array_equal(
+        state.key, jgbdt.TrainState.from_tree(jck.restore()).key)
+    np.testing.assert_array_equal(state.key, [2783477504, 2669311029])
     assert state.split_features.shape == (4, 3)
     assert {k: v.dtype for k, v in tree.items()} == \
         {k: v.dtype for k, v in gbdt.TrainState.from_tree(tree).tree()
@@ -414,7 +418,7 @@ def test_train_state_from_jax_tree_and_step_dir(tmp_path):
 
 @pytest.mark.parametrize("seed", [0, 1, 7, 2 ** 31 - 1])
 def test_initial_key_is_jax_prng_key(seed):
-    np.testing.assert_array_equal(gbdt.initial_key(seed),
+    np.testing.assert_array_equal(prng.initial_key(seed),
                                   np.asarray(jax.random.PRNGKey(seed)))
 
 
