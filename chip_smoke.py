@@ -209,6 +209,7 @@ check exits non-zero before the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -217,6 +218,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2337,25 +2339,335 @@ def run_fit_scan() -> dict:
 
 
 # --------------------------------------------------------------------------
+# The split step on exact ties, and the telemetry slice
+# --------------------------------------------------------------------------
+SPLIT_SEEDS = (7, 8, 9)     # the tie scenario's seeds, plain and ordered
+
+
+def split_scenario():
+    """600 x 9 rows with a rounded and a NaN-holed column, LogLoss labels:
+    levels 4-5 of its trees repeat earlier splits, so gains tie exactly."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(600, 9)).astype(np.float32)
+    x[:, 3] = np.round(x[:, 3])
+    x[rng.random(600) < 0.05, 2] = np.nan
+    y = (x[:, 0] - 2 * x[:, 1] + 0.5 * np.nan_to_num(x[:, 2]) * x[:, 3]
+         > 0).astype(np.float32)
+    return x, y
+
+
+def check_splits() -> dict:
+    """The split step on the card gives the CPU's bits: the tie
+    scenario's level histograms, made in f32 by the CPU trainer (8 trees
+    of depth 6 at 32 bins, seeds 7-9, plain and ordered), go through
+    `split_sums.level_gains` and `_split_level` on the card and on the
+    CPU; gains (bit for bit), the mass test, f*, b* and the refined leaf
+    ids must be identical."""
+    import torch
+    from repro_torch.core import boosting, losses, quantize, split_sums
+    from repro_torch.training import gbdt
+    x, y = split_scenario()
+    borders, n_borders = quantize.compute_borders(x, 32)
+    pool = quantize.quantize_pool(x, borders)
+    calls, real = [], gbdt._split_level
+
+    def recording(hist, valid, bins_t, leaf, **kw):
+        calls.append((hist, valid, bins_t, leaf, kw))
+        return real(hist, valid, bins_t, leaf, **kw)
+
+    gbdt._split_level = recording
+    try:
+        for seed in SPLIT_SEEDS:
+            for ordered in (False, True):
+                gbdt.GBDTTrainer(
+                    losses.make_loss("logloss"), boosting.BoostingParams(
+                        n_trees=8, depth=6, max_bins=32, seed=seed,
+                        learning_rate=0.3, ordered=ordered),
+                    device="cpu").fit_pool(pool, y, borders=borders,
+                                           n_borders=n_borders)
+    finally:
+        gbdt._split_level = real
+    t0 = time.perf_counter()
+    for hist, valid, bins_t, leaf, kw in calls:
+        n_feat, segs, c2 = hist.shape
+        h4 = hist.view(n_feat, segs // kw["n_bins"], kw["n_bins"], c2)
+        gain, mass = split_sums.level_gains(h4, kw["l2"])
+        gain_c, mass_c = split_sums.level_gains(h4.cuda(), kw["l2"])
+        check(torch.equal(gain.view(torch.int32),
+                          gain_c.cpu().view(torch.int32))
+              and torch.equal(mass, mass_c.cpu()),
+              f"split gains at level {kw['d']} differ between the card "
+              "and the CPU")
+        want = real(hist, valid, bins_t, leaf, **kw)
+        got = real(hist.cuda(), valid.cuda(), bins_t.cuda(), leaf.cuda(),
+                   **kw)
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(want, got)),
+              f"_split_level at level {kw['d']} picks differently on the "
+              f"card: {[int(v) for v in got[:2]]} vs "
+              f"{[int(v) for v in want[:2]]}")
+    torch.cuda.synchronize()
+    return {"fits": 2 * len(SPLIT_SEEDS), "levels": len(calls),
+            "card_seconds": time.perf_counter() - t0}
+
+
+TELEMETRY_TREES = 10     # trees of the traced fit
+TELEMETRY_REPEATS = 50   # predict_batch calls timed with tracing off and on
+TELEMETRY_CHUNK = 65536  # bulk chunk rows: the prefetch worker's route
+SPAN_ARGS = {"dispatch/": {"op", "impl", "layout", "dtype", "shapes",
+                           "device_ms"},
+             "train/level": {"iteration", "level", "leaves", "hist_ms",
+                             "split_ms", "device_ms"},
+             "train/iteration": {"iteration", "rows", "hist_ms", "split_ms",
+                                 "leaf_ms", "loss", "device_ms"},
+             "serve/batch": {"model", "rows", "device_ms"},
+             "bulk/quantize": {"chunk", "rows", "padded"},
+             "bulk/score": {"chunk", "rows", "padded", "models",
+                            "device_ms"},
+             "bulk/sink": {"chunk", "rows"},
+             "compile/": {"entry", "layout", "batch"}}
+
+
+def check_trace_schema(obj: dict) -> Counter:
+    """The exported Chrome JSON against its schema; the count of each
+    event name."""
+    check(set(obj) == {"traceEvents", "displayTimeUnit", "otherData"}
+          and obj["otherData"]["dropped_events"] == 0,
+          f"trace header {sorted(obj)} / {obj.get('otherData')}")
+    names = Counter()
+    for e in obj["traceEvents"]:
+        ph = e["ph"]
+        check(ph in ("X", "i", "C", "M") and e["pid"] == 1
+              and isinstance(e["tid"], int) and isinstance(e["name"], str)
+              and isinstance(e["args"], dict), f"trace event {e}")
+        names[e["name"]] += 1
+        if ph == "M":
+            check(e["name"] == "thread_name" and "name" in e["args"],
+                  f"metadata row {e}")
+            continue
+        check(isinstance(e["ts"], float) and e["ts"] >= 0,
+              f"event time {e}")
+        if ph == "X":
+            check(isinstance(e["dur"], float) and e["dur"] >= 0,
+                  f"span duration {e}")
+            want = next((v for k, v in SPAN_ARGS.items()
+                         if e["name"].startswith(k)), set())
+            check(want <= set(e["args"]),
+                  f"{e['name']} lacks {sorted(want - set(e['args']))}")
+            if "device_ms" in e["args"]:
+                check(e["args"]["device_ms"] >= 0, f"device time {e}")
+        elif ph == "i":
+            check(e["s"] == "t" and SPAN_ARGS["compile/"] <= set(e["args"]),
+                  f"instant {e}")
+        else:
+            check(all(isinstance(v, float) for v in e["args"].values()),
+                  f"counter {e}")
+    return names
+
+
+def run_telemetry(data, full, params, tmp: str) -> dict:
+    """The traced main path on the Covertype model: a 10-tree fit, a
+    GBDTServer on soa and a bulk run with the prefetch worker, under the
+    tracer, each against the same run untraced (bit for bit).  The fit
+    makes one `torch.cuda.synchronize` a tree (counted) and the export
+    one more; each level's device time is within its iteration's;
+    `dispatch_count` equals the registry's counts and the kernels'
+    launches; the exported JSON holds to its schema.  `predict_batch`
+    p50 with tracing off and on."""
+    import torch
+    from repro_torch.core import quantize
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.core.predictor import Predictor
+    from repro_torch.kernels import ops, registry
+    from repro_torch.obs.trace import get_tracer, tracing
+    from repro_torch.scoring import (ArraySink, BulkScorer, ScoreConfig,
+                                     SyntheticSource)
+    from repro_torch.serving.engine import GBDTServer
+    from repro_torch.training.gbdt import GBDTTrainer
+
+    tracer = get_tracer()
+    p = dataclasses.replace(params, n_trees=TELEMETRY_TREES)
+    pool = quantize.quantize_pool(data.x_train, full.borders.cuda())
+
+    def fit():
+        return GBDTTrainer(MultiClass(n_classes=data.n_classes), p,
+                           device="cuda").fit_pool(
+            pool, data.y_train, borders=full.borders,
+            n_borders=full.n_borders)
+
+    server = GBDTServer(full, device="cuda", layout="soa",
+                        max_batch=MAX_BATCH)
+    xs = data.x_test[:MAX_BATCH]
+    plan = Predictor.build(full, device="cuda", layout="soa")
+    source = SyntheticSource("covertype", split="test")
+    cfg = ScoreConfig(chunk_rows=TELEMETRY_CHUNK, output="proba")
+
+    def bulk():
+        res = BulkScorer({"m": plan}, cfg).score(source, {"m": ArraySink()})
+        return res.outputs["m"], res.metrics
+
+    t0 = time.perf_counter()
+    plain, plain_hist = fit()
+    plain_s = time.perf_counter() - t0
+    served = server.predict_batch(xs)
+    scored, _ = bulk()
+
+    syncs = []
+    real_sync = torch.cuda.synchronize
+
+    def counted_sync(*args, **kwargs):
+        syncs.append(time.perf_counter())
+        return real_sync(*args, **kwargs)
+
+    launches0 = ops.launch_counts()
+    registry.reset_call_stats()
+    torch.cuda.synchronize = counted_sync
+    try:
+        with tracing(tracer, clear=True):
+            t0 = time.perf_counter()
+            traced, traced_hist = fit()
+            traced_s = time.perf_counter() - t0
+            fit_syncs = len(syncs)
+            served_t = server.predict_batch(xs)
+            scored_t, bulk_metrics = bulk()
+            path = os.path.join(tmp, "telemetry.json")
+            before_export = len(syncs)
+            t0 = time.perf_counter()
+            obj = tracer.export_chrome(path)
+            export_s = time.perf_counter() - t0
+            export_syncs = len(syncs) - before_export
+    finally:
+        torch.cuda.synchronize = real_sync
+    launched = {k: v - launches0[k] for k, v in ops.launch_counts().items()}
+    calls = registry.call_stats()
+
+    for f in ("split_features", "split_bins", "leaf_values", "base_score"):
+        check(torch.equal(getattr(plain, f), getattr(traced, f)),
+              f"telemetry: the traced fit's {f} differ from the untraced")
+    check(np.array_equal(plain_hist["final_raw"], traced_hist["final_raw"])
+          and np.array_equal(plain_hist["train_loss"],
+                             traced_hist["train_loss"]),
+          "telemetry: the traced fit's losses or raw scores differ")
+    check(np.array_equal(served, served_t),
+          "telemetry: traced predict_batch differs from untraced")
+    check(np.array_equal(scored, scored_t),
+          "telemetry: the traced bulk run differs from the untraced")
+    check(fit_syncs == TELEMETRY_TREES,
+          f"telemetry: the traced {TELEMETRY_TREES}-tree fit called "
+          f"torch.cuda.synchronize {fit_syncs} times (one a tree)")
+    check(export_syncs == 1,
+          f"telemetry: the export synchronized {export_syncs} times")
+    check(bulk_metrics["prefetch_depth"] > 0,
+          "telemetry: the bulk run took no prefetch worker")
+
+    names = check_trace_schema(json.loads(open(path).read()))
+    check(names["train/level"] == TELEMETRY_TREES * params.depth
+          and names["train/iteration"] == TELEMETRY_TREES,
+          f"telemetry: {names['train/level']} train/level and "
+          f"{names['train/iteration']} train/iteration events")
+    events = [e for e in obj["traceEvents"] if e["ph"] != "M"]
+    iters = {e["args"]["iteration"]: e["args"]["device_ms"] for e in events
+             if e["name"] == "train/iteration"}
+    levels = [e["args"] for e in events if e["name"] == "train/level"]
+    check(all(lv["device_ms"] <= iters[lv["iteration"]] for lv in levels),
+          "telemetry: a level's device time exceeds its iteration's")
+    threads = {e["tid"]: e["args"]["name"] for e in obj["traceEvents"]
+               if e["ph"] == "M"}
+    q_tids = {e["tid"] for e in events if e["name"] == "bulk/quantize"}
+    s_tids = {e["tid"] for e in events if e["name"] == "bulk/score"}
+    check(q_tids and s_tids and not q_tids & s_tids
+          and {threads[t] for t in q_tids} == {"prefetcher"},
+          f"telemetry: bulk/quantize on {q_tids}, bulk/score on {s_tids}")
+    check(names["serve/batch"] > 0 and names["bulk/sink"] > 0
+          and any(n.startswith("compile/") for n in names),
+          f"telemetry: spans {dict(names)}")
+    counts: dict = {}
+    for e in events:
+        if e["name"] == "dispatch_count":
+            counts.update(e["args"])
+    check(counts == {op: float(n) for op, n in calls.items()},
+          f"telemetry: dispatch_count {counts} vs the registry's {calls}")
+    check(all(launched[op] == n for op, n in calls.items())
+          and sum(launched.values()) == sum(calls.values()),
+          f"telemetry: dispatches {calls} vs launches {launched}")
+    dispatch_ms = Counter()
+    for e in events:
+        if e["name"].startswith("dispatch/"):
+            dispatch_ms[e["args"]["op"]] += e["args"]["device_ms"]
+
+    def p50_ms(on: bool) -> tuple[float, float]:
+        times = []
+        with tracing(tracer, clear=True) if on else contextlib.nullcontext():
+            for _ in range(TELEMETRY_REPEATS):
+                t0 = time.perf_counter()
+                server.predict_batch(xs)
+                times.append((time.perf_counter() - t0) * 1e3)
+            per_batch = sum(1 for e in tracer.events()
+                            if e["name"].startswith("dispatch/")) \
+                / TELEMETRY_REPEATS if on else 0
+        return float(np.median(times)), per_batch
+
+    off_ms, _ = p50_ms(False)
+    on_ms, dispatches = p50_ms(True)
+    off2_ms, _ = p50_ms(False)
+    tracer.clear()
+    return {"fit_untraced_s": plain_s, "fit_traced_s": traced_s,
+            "fit_syncs": fit_syncs, "export_syncs": export_syncs,
+            "export_s": export_s, "events": len(events),
+            "trace_bytes": os.path.getsize(path),
+            "span_counts": {k: v for k, v in sorted(names.items())},
+            "dispatch_device_ms": dict(dispatch_ms),
+            "train_level_device_ms_p50": float(np.median(
+                [lv["device_ms"] for lv in levels])),
+            "train_iteration_device_ms_p50": float(np.median(
+                list(iters.values()))),
+            "predict_batch_rows": len(xs),
+            "predict_batch_p50_ms_off": off_ms,
+            "predict_batch_p50_ms_on": on_ms,
+            "predict_batch_p50_ms_off_again": off2_ms,
+            "dispatches_per_batch": dispatches,
+            "traced_cost_ms_per_dispatch": (on_ms - (off_ms + off2_ms) / 2)
+            / max(dispatches, 1)}
+
+
+# --------------------------------------------------------------------------
 # The launchers and the examples, each in a process of its own
 # --------------------------------------------------------------------------
 # What `python3 chip_smoke.py --launcher NAME` runs: a module's or a
 # script's `main` and its arguments, at the JAX package's own sizes (the
 # examples' defaults).
+def obs_flags(name: str) -> tuple[str, ...]:
+    """`--trace-out` / `--metrics-out` (Prometheus) under build/obs/."""
+    return ("--trace-out", f"build/obs/{name}.json",
+            "--metrics-out", f"build/obs/{name}.prom")
+
+
 LAUNCHERS = {
     "score_cli": ("repro_torch.launch.score", (
         "--dataset", "covertype", "--scale", "0.05", "--models", "2",
-        "--check")),
+        "--check", *obs_flags("score_cli"))),
     "train_gbdt": ("repro_torch.launch.train_gbdt", (
         "--dataset", "covertype", "--scale", "0.01", "--repeat", "4",
-        "--trees", "20", "--rsm", "0.5", "--ordered", "--check")),
-    "serve": ("repro_torch.launch.serve", ("--trees", "30", "--multi", "3")),
+        "--trees", "20", "--rsm", "0.5", "--ordered", "--check",
+        *obs_flags("train_gbdt"))),
+    "serve": ("repro_torch.launch.serve", ("--trees", "30", "--multi", "3",
+                                           *obs_flags("serve"))),
     "show_kernels": ("repro_torch.launch.serve", ("--show-kernels",)),
     "quickstart": ("examples/torch/quickstart.py", ()),
     "serve_gbdt": ("examples/torch/serve_gbdt.py", ()),
     "embeddings_knn": ("examples/torch/embeddings_knn.py", ()),
 }
 LAUNCHER_WORKERS = 3     # processes at a time
+# the spans and the metric-name prefix each traced launcher's files hold
+OBS_OUTPUTS = {
+    "score_cli": ({"bulk/quantize", "bulk/score", "bulk/sink",
+                   "dispatch/binarize", "dispatch/leaf_index",
+                   "train/level"}, ("repro_scoring_bulk_",)),
+    "train_gbdt": ({"train/level", "train/iteration", "dispatch/histogram",
+                    "dispatch/binarize", "compile/raw_pool"},
+                   ("repro_training_gbdt_covertype_",)),
+    "serve": ({"serve/batch", "train/level", "dispatch/fused_predict"},
+              ("repro_serving_santander_",)),
+}
 PLAIN_CHECKS = 2         # launches of a kernel at one input shape held to
 #                          its plain version in a launcher's process
 QUICKSTART_DEVIATION = 1e-4   # examples/torch/quickstart.py's MISMATCH
@@ -2517,14 +2829,38 @@ def read_launcher(name: str, proc, secs: float):
     report = json.loads(lines[-1])
     counts = report["launches"]
     print(f"{name} launches: {counts}", flush=True)
+    obs = read_obs_outputs(name) if name in OBS_OUTPUTS else None
     for kernel, count in counts.items():
         check((count > 0) == (kernel in PATH_KERNELS[name]),
               f"the {name} process launched {kernel} {count} times; it "
               f"launches exactly {sorted(PATH_KERNELS[name])}")
-    return {"wall_s": secs, "args": " ".join(LAUNCHERS[name][1]),
-            "launches": {k: c for k, c in counts.items() if c},
-            "plain": report["plain"], "result": report["result"]}, \
-        lines[:-1]
+    out = {"wall_s": secs, "args": " ".join(LAUNCHERS[name][1]),
+           "launches": {k: c for k, c in counts.items() if c},
+           "plain": report["plain"], "result": report["result"]}
+    if obs is not None:
+        out["obs"] = obs
+    return out, lines[:-1]
+
+
+def read_obs_outputs(name: str) -> dict:
+    """A traced launcher's `--trace-out` and `--metrics-out` files: a
+    Chrome trace that holds to its schema with the launcher's spans, and
+    Prometheus gauges in the launcher's namespace."""
+    spans, prefixes = OBS_OUTPUTS[name]
+    trace_path, prom_path = (os.path.join(ROOT, f"build/obs/{name}.{ext}")
+                             for ext in ("json", "prom"))
+    check(os.path.getsize(trace_path) > 0 and os.path.getsize(prom_path)
+          > 0, f"{name} wrote an empty trace or metrics file")
+    names = check_trace_schema(json.loads(open(trace_path).read()))
+    check(spans <= set(names),
+          f"{name}'s trace lacks {sorted(spans - set(names))}")
+    gauges = [line.split("{")[0].split()[0]
+              for line in open(prom_path).read().splitlines()
+              if line and not line.startswith("#")]
+    check(gauges and all(g.startswith(prefixes) for g in gauges),
+          f"{name}'s metrics {gauges[:5]} are not under {prefixes}")
+    return {"events": sum(names.values()), "gauges": len(gauges),
+            "trace_bytes": os.path.getsize(trace_path)}
 
 
 def run_launchers() -> dict:
@@ -3458,6 +3794,9 @@ PATH_KERNELS = {
     "training_remainders": {"binarize", "histogram", "leaf_index",
                             "leaf_gather"},
     "fit_scan": {"binarize", "histogram", "leaf_index", "leaf_gather"},
+    "splits": set(),
+    "telemetry": {"binarize", "histogram", "leaf_index", "leaf_gather",
+                  "fused_predict"},
     "knn": {"l2sq_matrix", "l2sq_rowwise", "binarize", "histogram",
             "leaf_index", "leaf_gather", "fused_predict"},
     # the launcher and example processes (`read_launcher`)
@@ -3560,6 +3899,14 @@ def main() -> None:
     del pool, levels, gh0
     torch.cuda.empty_cache()
 
+    # --- the split step on exact ties, the card against the CPU (no
+    # kernel: plain torch ops), with the launch counts set to 0 before it
+    # and read after it
+    ops.reset_launch_counts()
+    splits = check_splits()
+    path_launches["splits"] = path_launch_counts("splits")
+    print(f"splits: {json.dumps(splits)}", flush=True)
+
     # --- the trained model served from a pool on soa
     ops.reset_launch_counts()
     trained_serving = serve_trained(full, x_test, data.y_test)
@@ -3606,6 +3953,11 @@ def main() -> None:
     fit_scan = run_fit_scan()
     path_launches["fit_scan"] = path_launch_counts("fit_scan")
     print(f"fit_scan: {json.dumps(fit_scan)}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        telemetry = run_telemetry(data, full, params, tmp)
+        path_launches["telemetry"] = path_launch_counts("telemetry")
+    print(f"telemetry: {json.dumps(telemetry)}", flush=True)
     launchers = run_launchers()
     print(f"launchers: {json.dumps(launchers)}", flush=True)
     torch.cuda.empty_cache()
@@ -3818,6 +4170,7 @@ def main() -> None:
                       "fit_source": fit_source, "score_cli": score_cli,
                       "training_remainders": remainders,
                       "fit_scan": fit_scan, "launchers": launchers,
+                      "splits": splits, "telemetry": telemetry,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {

@@ -32,10 +32,12 @@ each sample's raw prediction from the samples before it in its leaf.
 The stored leaf values use all samples either way.
 
 Every float sum here runs in an order fixed by the shapes, so the card
-gives the same bits on every run: `_prefix_sum` scans along a tensor's
-last axis in blocks, and `_segment_sum` sorts rows stably by segment and
-sums each segment in row order (`torch.segment_reduce`), where
-`index_add_` would add with float atomics.
+gives the same bits on every run: the split search's scans and sums
+and ordered boosting's prefix sums add in the order of the JAX
+package's compiled trainer (`core.split_sums`, so that exact gain ties
+resolve as they do there), and `_segment_sum` sorts rows stably by
+segment and sums each segment in row order (`torch.segment_reduce`),
+where `index_add_` would add with float atomics.
 """
 from __future__ import annotations
 
@@ -46,12 +48,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import losses as losses_lib
-from repro_torch.core import prng, quantize
+from repro_torch.core import prng, quantize, split_sums
 from repro_torch.core.predictor import resolve_device
 from repro_torch.core.trees import ObliviousEnsemble
 
 NEG_INF = -1e30
-_SCAN_BLOCK = 1024             # rows a block of `_prefix_sum`
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,22 +68,12 @@ class BoostingParams:
 
 
 def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive f32 prefix sums of (N, K) `x` down its rows, K >= 2: each
-    block of `_SCAN_BLOCK` rows scanned, then the block totals carried.
-    Both are scans along the last axis of a tensor of more than one row,
-    which PyTorch runs in a fixed order on the card; a scan of a whole 1-d
-    tensor goes through a decoupled look-back there, whose float sums
-    depend on timing."""
-    n, k = x.shape
-    n_blocks = -(-n // _SCAN_BLOCK)
-    pad = n_blocks * _SCAN_BLOCK - n
-    blocks = torch.nn.functional.pad(x, (0, 0, 0, pad)) \
-        .view(n_blocks, _SCAN_BLOCK, k).permute(2, 0, 1).contiguous()
-    inner = torch.cumsum(blocks, dim=2)                    # (K, nb, block)
-    totals = inner[:, :, -1]
-    carry = torch.cumsum(totals, dim=1) - totals
-    return (inner + carry[:, :, None]).permute(1, 2, 0) \
-        .reshape(n_blocks * _SCAN_BLOCK, k)[:n]
+    """Inclusive f32 prefix sums of (N, K) `x` down its rows, in the order
+    of `jnp.cumsum` on XLA's CPU backend (`split_sums.blocked_cumsum`).
+    It is built from whole-tensor adds, so the card sums in the same
+    fixed order; torch's own scan of a 1-d tensor goes through a
+    decoupled look-back there, whose float sums depend on timing."""
+    return split_sums.blocked_cumsum(x, dim=0)
 
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
@@ -126,10 +117,6 @@ def _ordered_update(leaf, g, h, key, lr, l2):
     return out
 
 
-def _gain_term(gs, hs, l2):
-    return gs * gs / (hs + l2)
-
-
 def _stack(rows: list, empty_shape: tuple, dtype, device) -> torch.Tensor:
     return (torch.stack(rows) if rows
             else torch.zeros(empty_shape, dtype=dtype, device=device))
@@ -164,18 +151,7 @@ def _build_tree(bins, g, h, n_borders, key, *, depth: int, max_bins: int,
         hist = _segment_sum(gh_rows, seg.reshape(-1),
                             n_feat * n_leaves * b).view(n_feat, n_leaves,
                                                         b, 2 * c)
-        incl = torch.cumsum(hist, dim=2)
-        total = incl[:, :, -1:, :]
-        # left of border b = bins < b -> inclusive cumsum shifted by one
-        left = torch.nn.functional.pad(incl[:, :, :-1, :], (0, 0, 1, 0))
-        right = total - left
-        gain = (_gain_term(left[..., :c], left[..., c:], l2)
-                + _gain_term(right[..., :c], right[..., c:], l2)
-                ).sum(dim=(1, 3))                               # (F, B)
-        # a split must put mass on both sides; degenerate splits (e.g.
-        # constant features) are never selected
-        nonempty = (left[..., c:].sum(dim=(1, 3)) > 0) \
-            & (right[..., c:].sum(dim=(1, 3)) > 0)
+        gain, nonempty = split_sums.level_gains(hist, l2)         # (F, B)
         gain = torch.where(valid & nonempty, gain, NEG_INF)
         flat = torch.argmax(gain.reshape(-1))
         f_star = torch.div(flat, b, rounding_mode="floor")

@@ -34,9 +34,11 @@ from repro_torch.core.quantize import (MAX_BINS, QuantizedPool,
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.kernels import ops, registry, tuning
 from repro_torch.kernels.ops import PAD_SPLIT_BIN
+from repro_torch.obs.trace import get_tracer
 
 Strategy = Literal["auto", "staged", "fused"]
 
+_TRACER = get_tracer()
 _STRATEGIES = ("auto", "staged", "fused")
 
 
@@ -239,6 +241,12 @@ class Predictor:
                 return
             self._entry_shapes.add(key)
             self._traces[name] = self._traces.get(name, 0) + 1
+        if _TRACER.enabled:
+            # one instant per first call: the timeline marker of every
+            # new (entry, batch shape)
+            _TRACER.instant(f"compile/{name}", "compile", entry=name,
+                            layout=self.config.layout,
+                            batch=int(shape[0]) if shape else 0)
         if self._on_trace is not None:
             self._on_trace()
 

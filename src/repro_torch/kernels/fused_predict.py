@@ -38,6 +38,9 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.leaf_index import MAX_DEPTH
 from repro_torch.kernels.tuning import fused_plan, output_slabs, tile_shape
+from repro_torch.obs.trace import get_tracer, plan_attrs
+
+_TRACER = get_tracer()
 
 
 def _launch_args(x: torch.Tensor, n_borders: int, c: int, planes: bool
@@ -112,6 +115,8 @@ def fused_predict(x: torch.Tensor, borders: torch.Tensor,
     if n and c:
         u8 = n_borders <= ref.MAX_U8_BORDERS
         plan = fused_plan(n, t, d, c, f, u8, route)
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         if plan.route == "spread":
             _build.launch("repro_fused_predict_spread", x.device, x,
                           borders, split_features, split_bins, leaf_values,
@@ -167,6 +172,8 @@ def fused_predict_dm(x: torch.Tensor, borders: torch.Tensor,
     if n and c:
         u8 = n_borders <= ref.MAX_U8_BORDERS
         plan = fused_plan(n, t, d, c, f, u8, route, splits="planes")
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         if plan.route == "spread":
             _build.launch("repro_fused_predict_dm_spread", x.device, x,
                           borders, split_features_dm, split_bins_dm, pow2,
@@ -223,6 +230,8 @@ def fused_predict_bp(x: torch.Tensor, borders: torch.Tensor,
     if n and c:
         u8 = n_borders <= ref.MAX_U8_BORDERS
         plan = fused_plan(n, t, d, c, f, u8, route, splits="bitpacked")
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         if plan.route == "spread":
             _build.launch("repro_fused_predict_bp_spread", x.device, x,
                           borders, split_features_bp, split_bins_bp,

@@ -14,6 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref, tuning
+from repro_torch.obs.trace import get_tracer, plan_attrs
+
+_TRACER = get_tracer()
 
 
 def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
@@ -44,6 +47,8 @@ def histogram(bins_t: torch.Tensor, leaf: torch.Tensor, g: torch.Tensor, *,
     f, n = bins_t.shape
     s = g.shape[1]
     plan = tuning.hist_plan(f, n, n_leaves, n_bins, s)
+    if _TRACER.enabled:
+        _TRACER.annotate(**plan_attrs(plan))
     if max(plan.n_groups, plan.n_tiles) > tuning.GRID_DIM_LIMIT:
         raise ValueError(f"histogram grid too large: {plan.n_groups} "
                          f"feature groups x {plan.n_tiles} tiles (each <= "

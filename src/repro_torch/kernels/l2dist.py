@@ -40,9 +40,11 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import _build, ref, tuning
+from repro_torch.obs.trace import get_tracer, plan_attrs
 
 U = 2.0 ** -24            # unit roundoff of float32
 K_SIGMA = 8.0             # width of the limit, in rounding walks
+_TRACER = get_tracer()
 
 
 def rowwise_limit(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
@@ -237,6 +239,8 @@ def l2sq_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[0]
     plan = tuning.matrix_plan(m, n, k)
+    if _TRACER.enabled:
+        _TRACER.annotate(**plan_attrs(plan))
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m and n:
         sa, sb, a_sq, b_sq = split_pass(a, b, plan.k_pad)

@@ -12,6 +12,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.tuning import gather_plan
+from repro_torch.obs.trace import get_tracer, plan_attrs
+
+_TRACER = get_tracer()
 
 
 def leaf_gather(idx: torch.Tensor, leaf_values: torch.Tensor, *,
@@ -37,6 +40,8 @@ def leaf_gather(idx: torch.Tensor, leaf_values: torch.Tensor, *,
     out = torch.empty((n, c), dtype=torch.float32, device=idx.device)
     if n and c:
         plan = gather_plan(n, t, n_leaves, c, staged)
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         _build.launch("repro_leaf_gather", idx.device, idx, leaf_values, out,
                       n, t, n_leaves, c, plan.slab, plan.lanes,
                       int(plan.staged), plan.threads, plan.rows_per_thread,

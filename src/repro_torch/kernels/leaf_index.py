@@ -28,9 +28,11 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.tuning import bp_plan, index_plan
+from repro_torch.obs.trace import get_tracer, plan_attrs
 
 # Deepest tree the kernels take (csrc/common.cuh kMaxDepth).
 MAX_DEPTH = 16
+_TRACER = get_tracer()
 
 
 def _check_index_args(name: str, bins: torch.Tensor, planes) -> None:
@@ -65,6 +67,8 @@ def leaf_index(bins: torch.Tensor, split_features: torch.Tensor,
     if n and t:
         u8 = bins.dtype == torch.uint8
         plan = index_plan(n, t, d, f, 1 if u8 else 4)
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         _build.launch("repro_leaf_index", bins.device, bins, split_features,
                       split_bins, out, n, f, t, d, int(u8), plan.tile.rows,
                       int(plan.tile.route == "global"), plan.n_tree_groups,
@@ -107,6 +111,8 @@ def leaf_index_dm(bins: torch.Tensor, split_features_dm: torch.Tensor,
     if n and t:
         u8 = bins.dtype == torch.uint8
         plan = index_plan(n, t, d, f, 1 if u8 else 4)
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         _build.launch("repro_leaf_index_dm", bins.device, bins,
                       split_features_dm, split_bins_dm, pow2, out, n, f, t,
                       d, int(u8), plan.tile.rows,
@@ -147,6 +153,8 @@ def leaf_index_bp(bins: torch.Tensor, split_features_bp: torch.Tensor,
     if n and t:
         u8 = bins.dtype == torch.uint8
         plan = bp_plan(n, t, d, f, 1 if u8 else 4)
+        if _TRACER.enabled:
+            _TRACER.annotate(**plan_attrs(plan))
         _build.launch("repro_leaf_index_bp", bins.device, bins,
                       split_features_bp, split_bins_bp, out, n, f, t, d,
                       int(u8), int(split_bins_bp.dtype == torch.uint8),

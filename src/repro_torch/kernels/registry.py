@@ -31,6 +31,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.obs.trace import get_tracer
+
+_TRACER = get_tracer()
+
 # The ops every backend family covers: the four of the serving path, the
 # training histogram and the kNN distances (`l2sq`, rowwise for a 1-d
 # query, the matrix form for 2-d queries).
@@ -171,12 +175,33 @@ def resolve(op: str, backend: str = "auto", *,
 def dispatch(op: str, backend: str, *args: Any,
              dtype: Optional[str] = None, layout: Optional[str] = None,
              **kw: Any) -> Any:
-    """Resolve against the first argument's device, count, and call."""
+    """Resolve against the first argument's device, count, and call.
+
+    While the tracer is enabled each dispatch records a `dispatch/<op>`
+    span tagged (op, impl, layout, bin dtype, operand shapes, scalar
+    keywords; the CUDA wrapper adds its plan), with CUDA events on the
+    card that become its `device_ms` at export, and a `dispatch_count`
+    counter sample.  Disabled, the cost is one attribute load and a
+    bool test: no span arguments are built."""
     impl = get(op, resolve(op, backend, device=args[0].device, dtype=dtype,
                            layout=layout))
     with _CALL_STATS_LOCK:
-        _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
-    return impl.fn(*args, **kw)
+        count = _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
+    if not _TRACER.enabled:
+        return impl.fn(*args, **kw)
+    attrs: dict[str, Any] = {"op": op, "impl": impl.name,
+                             "layout": layout or "-",
+                             "dtype": dtype or "-"}
+    shapes = [tuple(int(d) for d in a.shape)
+              for a in args if isinstance(a, torch.Tensor)]
+    if shapes:
+        attrs["shapes"] = str(shapes)
+    attrs.update({k: v for k, v in kw.items()
+                  if isinstance(v, (bool, int, str))})
+    _TRACER.counter("dispatch_count", "kernel", **{op: float(count)})
+    with _TRACER.span(f"dispatch/{op}", "kernel", device=args[0].device,
+                      **attrs):
+        return impl.fn(*args, **kw)
 
 
 def impls_for_layout(op: str, layout: str) -> list[str]:

@@ -21,8 +21,9 @@ metrics.  The paper's ApplyModelMulti dataset sweep as a CLI:
 
 ``--check`` re-scores the dataset through each plan's own `raw` / `proba`
 / `classify` entry, a step of rows at a time, and exits nonzero on any
-mismatch.  The JAX launcher's tracing flags wait for the port's telemetry
-(ROADMAP A8).
+mismatch.  ``--trace-out FILE`` writes a Chrome trace of the run (load it
+in Perfetto), ``--metrics-out FILE`` the `scoring/bulk` metrics
+(Prometheus text for a ``.prom`` file, JSON otherwise).
 """
 from __future__ import annotations
 
@@ -182,6 +183,8 @@ def parse_args(argv=None):
     ap.add_argument("--check", action="store_true",
                     help="verify bulk output against each plan's own "
                          "entry; exit 1 on mismatch")
+    from repro_torch.launch.obs_cli import add_obs_flags
+    add_obs_flags(ap)
     args = ap.parse_args(argv)
     if sum([bool(args.out), args.stats_only, bool(args.top_k)]) > 1:
         ap.error("--out, --stats-only and --top-k pick one output mode "
@@ -202,8 +205,10 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
 
+    from repro_torch.launch.obs_cli import finish_obs, start_tracing
     from repro_torch.scoring import BulkScorer, ScoreConfig
 
+    start_tracing(args)
     plans = _build_plans(args)
     source = _build_source(args)
     sinks = _build_sinks(args, plans)
@@ -226,6 +231,7 @@ def main(argv=None) -> int:
            f"{m['quantize_frac']:.0%} of busy time, pad overhead "
            f"{m['pad_overhead']:.1%}")
     print(json.dumps(m, default=float))
+    finish_obs(args, {"scoring/bulk": m})
     for name, out in result.outputs.items():
         if isinstance(out, dict) and "mean" in out:      # StatsSink
             eprint(f"[score] {name}: mean={np.round(out['mean'], 4)} "

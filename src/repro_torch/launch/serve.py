@@ -7,7 +7,9 @@ The port's counterpart of `src/repro/launch/serve.py`, on the card unless
   python -m repro_torch.launch.serve --show-kernels
 
 `--mode lm` (LM generation) waits for the port's LM scaffold (ROADMAP
-A11), the tracing flags for its telemetry (A8).
+A11).  ``--trace-out FILE`` writes a Chrome trace of the run (load it in
+Perfetto), ``--metrics-out FILE`` each model's `serving/<name>` metrics
+(Prometheus text for a ``.prom`` file, JSON otherwise).
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ def serve_gbdt(args) -> None:
     from repro_torch.core.boosting import BoostingParams
     from repro_torch.core.predictor import PredictConfig
     from repro_torch.data import synthetic
+    from repro_torch.launch.obs_cli import finish_obs, start_tracing
     from repro_torch.serving.engine import ModelRegistry
 
+    start_tracing(args)
     ds = synthetic.load(args.dataset, scale=args.scale)
     loss = losses.make_loss(ds.loss, n_classes=max(ds.n_classes, 2),
                             group_index=ds.group_index_train)
@@ -74,6 +78,8 @@ def serve_gbdt(args) -> None:
                   f"{len(out)} models, quantize-once) in {dt * 1e3:.1f}ms")
         print(f"[serve:gbdt] metrics: "
               f"{json.dumps(registry.metrics()[args.dataset], default=float)}")
+        finish_obs(args, {f"serving/{n}": registry.get(n).metrics
+                          for n in registry.names()})
     finally:
         registry.close()
 
@@ -140,6 +146,8 @@ def parse_args(argv=None):
                          "default)")
     ap.add_argument("--show-kernels", action="store_true",
                     help="print the kernel registry table and exit")
+    from repro_torch.launch.obs_cli import add_obs_flags
+    add_obs_flags(ap)
     return ap.parse_args(argv)
 
 

@@ -21,8 +21,9 @@ zero binarize dispatches, the level histograms took at most `depth`
 shapes (the port's counterpart of the JAX package's compiled-shape
 contract), the streamed source exceeded one chunk, and the train loss
 decreased.  Machine-readable metrics go to stdout, progress to stderr.
-The JAX launcher's tracing flags wait for the port's telemetry (ROADMAP
-A8).
+``--trace-out FILE`` writes a Chrome trace of the run (load it in
+Perfetto), ``--metrics-out FILE`` the `training/<name>` metrics
+(Prometheus text for a ``.prom`` file, JSON otherwise).
 """
 from __future__ import annotations
 
@@ -73,6 +74,8 @@ def parse_args(argv=None):
                     help="resume from checkpointed tree index "
                          "(-1 = latest)")
     ap.add_argument("--check", action="store_true")
+    from repro_torch.launch.obs_cli import add_obs_flags
+    add_obs_flags(ap)
     args = ap.parse_args(argv)
     if args.ckpt_every and not args.ckpt_dir:
         ap.error("--ckpt-every requires --ckpt-dir")
@@ -111,6 +114,7 @@ def main(argv=None) -> int:
 
     from repro_torch.core import boosting, predictor, quantize
     from repro_torch.core.losses import make_loss
+    from repro_torch.launch.obs_cli import finish_obs, start_tracing
     from repro_torch.scoring import sources as sources_lib
     from repro_torch.training.checkpoint import CheckpointManager
     from repro_torch.training.gbdt import GBDTTrainer
@@ -134,6 +138,7 @@ def main(argv=None) -> int:
                           device=args.device, name=f"gbdt-{args.dataset}")
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
 
+    start_tracing(args)
     eprint(f"training {args.trees} trees (depth {args.depth}) on "
            f"{source.n_rows} streamed rows "
            f"({source.base_rows} base x {args.repeat}) on {trainer.device}")
@@ -175,6 +180,7 @@ def main(argv=None) -> int:
         "metrics": hist["metrics"],
     }
     print(json.dumps(out, indent=2, default=float))
+    finish_obs(args, {f"training/{trainer.metrics.name}": trainer.metrics})
 
     if args.check:
         failures = check_failures(args, source, hist, parity)

@@ -42,8 +42,9 @@ itself, on the same side stream, and keeps the lag-1 drain.  Only one
 thread launches `binarize` in a run (the worker, or the main thread when
 there is none), and only the main thread launches the scoring kernels, so
 no kernel's launch counter is bumped from two threads.
-The JAX package's `bulk/*` tracer spans are not ported yet (ROADMAP A8),
-nor is ``mesh=`` (A7).
+While the tracer is enabled each chunk records `bulk/quantize` (on the
+worker's thread when there is one), `bulk/score` and `bulk/sink`.
+``mesh=`` is not ported yet (ROADMAP A7).
 
     cfg    = ScoreConfig(output="proba")
     scorer = BulkScorer(plan, cfg)           # or {"name": plan, ...}
@@ -65,11 +66,13 @@ from repro_torch.core.predictor import Predictor
 from repro_torch.core.quantize import MAX_BINS, QuantizedPool
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.kernels import tuning
+from repro_torch.obs.trace import get_tracer
 from repro_torch.scoring.sinks import ArraySink, ScoreSink
 from repro_torch.scoring.sources import RowSource
 from repro_torch.serving.batching import bucket_for, pow2_buckets
 from repro_torch.serving.metrics import PercentileReservoir
 
+_TRACER = get_tracer()
 _OUTPUTS = ("raw", "proba", "classify")
 _FLOAT = "__float__"
 
@@ -444,7 +447,12 @@ class BulkScorer:
             span, x = item
             t0 = time.perf_counter()
             payload: dict[str, Any] = {}
-            with io.side_stream():
+            # on the Prefetcher worker this span lands on its thread's
+            # track, so chunk k+1's quantize shows under chunk k's
+            # bulk/score on the main thread's
+            with _TRACER.span("bulk/quantize", "bulk", chunk=span.index,
+                              rows=span.n_valid, padded=span.padded), \
+                    io.side_stream():
                 # the pools quantize at the full chunk shape, the float
                 # route scores at the span's padded shape (past the chunk
                 # for the tail of a chunk that is not a power of two)
@@ -531,13 +539,15 @@ class BulkScorer:
 
         def drain(entry):
             span, outs, copied, t0 = entry
-            if copied is not None:
-                copied.synchronize()                  # host sync point
-            for name, ys in outs.items():
-                ys = np.array(ys.numpy()[:span.n_valid], np.float32)
-                if ys.ndim == 1:                      # classify: (N,) ids
-                    ys = ys[:, None]
-                sinks[name].write(span.start, ys)
+            with _TRACER.span("bulk/sink", "bulk", chunk=span.index,
+                              rows=span.n_valid):
+                if copied is not None:
+                    copied.synchronize()              # host sync point
+                for name, ys in outs.items():
+                    ys = np.array(ys.numpy()[:span.n_valid], np.float32)
+                    if ys.ndim == 1:                  # classify: (N,) ids
+                        ys = ys[:, None]
+                    sinks[name].write(span.start, ys)
             metrics.note_chunk(span.n_valid, span.padded,
                                time.perf_counter() - t0)
 
@@ -551,11 +561,18 @@ class BulkScorer:
                 t0 = time.perf_counter()
                 io.receive(payload, event)
                 outs = {}
-                for name, plan in self.plans.items():
-                    g = self._group_of[name]
-                    x_in = payload[g.fingerprint if g.use_pool else _FLOAT]
-                    outs[name] = io.to_host(name,
-                                            self._score_entry(plan, x_in))
+                # covers the launches only (the card runs on): the wait
+                # for the scores is under the chunk's bulk/sink span
+                with _TRACER.span("bulk/score", "bulk", device=self.device,
+                                  chunk=span.index, rows=span.n_valid,
+                                  padded=span.padded,
+                                  models=len(self.plans)):
+                    for name, plan in self.plans.items():
+                        g = self._group_of[name]
+                        x_in = payload[g.fingerprint if g.use_pool
+                                       else _FLOAT]
+                        outs[name] = io.to_host(
+                            name, self._score_entry(plan, x_in))
                 pending.append((span, outs, io.copied(), t0))
                 if len(pending) > 1:
                     drain(pending.pop(0))

@@ -21,9 +21,12 @@ from repro_torch.core.predictor import (PredictConfig, Predictor,
                                         resolve_device)
 from repro_torch.core.quantize import QuantizedPool
 from repro_torch.core.trees import ObliviousEnsemble
+from repro_torch.obs.trace import get_tracer
 from repro_torch.scoring.scorer import BulkScorer, ScoreConfig, ScoreResult
 from repro_torch.serving.batching import BucketedBatcher, bucket_for, chunks
 from repro_torch.serving.metrics import ServerMetrics
+
+_TRACER = get_tracer()
 
 
 class GBDTServer:
@@ -63,7 +66,11 @@ class GBDTServer:
         self.metrics.layout = self.predictor.config.layout
 
         def serve(xs: np.ndarray) -> np.ndarray:
-            return self.predictor.proba(xs).cpu().numpy()
+            # lands on the batcher thread's track in exported traces
+            with _TRACER.span("serve/batch", "serve",
+                              device=self.predictor.device, model=name,
+                              rows=int(len(xs))):
+                return self.predictor.proba(xs).cpu().numpy()
 
         self.batcher = BucketedBatcher(serve, max_batch=max_batch,
                                        max_wait_ms=max_wait_ms,

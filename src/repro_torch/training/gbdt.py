@@ -35,7 +35,10 @@ trace stands behind it, so it holds by construction: level d has 2^d
 leaves, so a fit that grows any tree launches exactly `depth` shapes.
 
 Stage times are CUDA events on the card, read after the tree's one
-synchronization, and the host clock on the CPU.
+synchronization (an explicit `torch.cuda.synchronize`), and the host
+clock on the CPU.  While the tracer is enabled the same times become
+`train/level` and `train/iteration` complete events, emitted after that
+synchronization, so tracing adds none.
 
 `fit_source` streams a `scoring.RowSource` into a pool chunk by chunk
 (borders from a reservoir sample, then the bins on the device) and boosts
@@ -48,8 +51,6 @@ F)` (drawn on the host, a few dozen features), and ordered boosting
 updates the raw predictions along `permutation(sub2, N)` on the
 trainer's device.  `TrainState` checkpoints the carried key, so a
 checkpoint of either package resumes in the other on the same stream.
-
-Not ported yet (ROADMAP A8): tracer spans.
 """
 from __future__ import annotations
 
@@ -63,13 +64,16 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core import predictor as predictor_mod
-from repro_torch.core import prng, quantize
-from repro_torch.core.boosting import (NEG_INF, BoostingParams, _gain_term,
+from repro_torch.core import prng, quantize, split_sums
+from repro_torch.core.boosting import (NEG_INF, BoostingParams,
                                        _ordered_update)
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.kernels import ops, registry, tuning
+from repro_torch.obs.trace import get_tracer
 from repro_torch.serving.metrics import PercentileReservoir
 from repro_torch.training.checkpoint import CheckpointManager
+
+_TRACER = get_tracer()
 
 
 # --------------------------------------------------------------------------
@@ -221,27 +225,16 @@ def _hist_level(bins_t, leaf, gh, *, n_bins, n_leaves, backend):
 
 def _split_level(hist, valid, bins_t, leaf, *, n_bins, d, l2):
     """Pick the level's oblivious split from the (F, 2^d * n_bins, 2C)
-    histogram and refine the leaf ids; the JAX package's gain math.
+    histogram and refine the leaf ids; the JAX package's gain math, its
+    sums in the order of its compiled split step (`split_sums`).
 
-    Left of border b is `bins < b`: the inclusive cumsum over bins,
-    shifted by one.  A split needs hessian mass on both sides; when every
-    gain is masked, argmax gives (0, 0) and every sample goes right.
-    argmax takes the first maximum over (F, n_bins) flattened in that
-    order, so gains that tie exactly (consecutive empty bins) resolve as
-    in JAX."""
+    A split needs hessian mass on both sides; when every gain is masked,
+    argmax gives (0, 0) and every sample goes right.  argmax takes the
+    first maximum over (F, n_bins) flattened in that order, so gains
+    that tie exactly resolve as in JAX."""
     n_feat, segments, c2 = hist.shape
-    n_leaves = segments // n_bins
-    c = c2 // 2
-    h4 = hist.view(n_feat, n_leaves, n_bins, c2)
-    incl = torch.cumsum(h4, dim=2)
-    total = incl[:, :, -1:, :]
-    left = torch.nn.functional.pad(incl[:, :, :-1, :], (0, 0, 1, 0))
-    right = total - left
-    gain = (_gain_term(left[..., :c], left[..., c:], l2)
-            + _gain_term(right[..., :c], right[..., c:], l2)
-            ).sum(dim=(1, 3))                              # (F, n_bins)
-    nonempty = (left[..., c:].sum(dim=(1, 3)) > 0) \
-        & (right[..., c:].sum(dim=(1, 3)) > 0)
+    gain, nonempty = split_sums.level_gains(
+        hist.view(n_feat, segments // n_bins, n_bins, c2), l2)
     gain = torch.where(valid & nonempty, gain, NEG_INF)
     flat = torch.argmax(gain.reshape(-1))
     f_star = torch.div(flat, n_bins, rounding_mode="floor").to(torch.int32)
@@ -293,28 +286,61 @@ def _feat_mask(key, n_features: int, keep: int,
 class _StageClock:
     """Seconds per stage of one tree: CUDA events on the card, read after
     the tree's synchronization; the host clock on the CPU, where every op
-    has finished when it returns."""
+    has finished when it returns.  Each mark also keeps the host time it
+    was made, which places the stage on a trace's timeline."""
 
     def __init__(self, device: torch.device):
         self._stream = (torch.cuda.current_stream(device)
                         if device.type == "cuda" else None)
-        self._marks: list[tuple[Optional[str], Any]] = []
+        self._marks: list[tuple[Optional[str], int, Any]] = []
 
     def mark(self, stage: Optional[str]) -> None:
         """Start `stage` (None ends the last one)."""
-        if self._stream is None:
-            self._marks.append((stage, time.perf_counter()))
-            return
-        event = torch.cuda.Event(enable_timing=True)
-        event.record(self._stream)
-        self._marks.append((stage, event))
+        event = None
+        if self._stream is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(self._stream)
+        self._marks.append((stage, time.perf_counter_ns(), event))
+
+    def stages(self) -> list[tuple[str, int, float]]:
+        """(stage, host start in ns, seconds) of each stage, in order."""
+        out = []
+        for (stage, h0, e0), (_, h1, e1) in zip(self._marks,
+                                                 self._marks[1:]):
+            dt = (h1 - h0) / 1e9 if e0 is None else e0.elapsed_time(e1) / 1e3
+            out.append((stage, h0, dt))
+        return out
 
     def seconds(self) -> dict[str, float]:
         out: dict[str, float] = {}
-        for (stage, a), (_, b) in zip(self._marks, self._marks[1:]):
-            dt = b - a if self._stream is None else a.elapsed_time(b) / 1e3
+        for stage, _, dt in self.stages():
             out[stage] = out.get(stage, 0.0) + dt
         return out
+
+
+def _trace_tree(it: int, rows: int, stages: list[tuple[str, int, float]],
+                loss: float, on_card: bool) -> None:
+    """`train/level` and `train/iteration` complete events of one tree,
+    from its stage clock after the tree's synchronization: host start
+    times, and durations from CUDA events on the card (also as
+    `device_ms`) or the host clock on the CPU."""
+    *levels, (_, _, leaf_s) = stages
+    hist_s = split_s = 0.0
+    for d in range(len(levels) // 2):
+        (_, start_ns, h), (_, _, sp) = levels[2 * d], levels[2 * d + 1]
+        hist_s, split_s = hist_s + h, split_s + sp
+        extra = {"device_ms": (h + sp) * 1e3} if on_card else {}
+        _TRACER.complete("train/level", "train", start_ns=start_ns,
+                         duration_ns=int((h + sp) * 1e9), iteration=it,
+                         level=d, leaves=1 << d, hist_ms=h * 1e3,
+                         split_ms=sp * 1e3, **extra)
+    total = hist_s + split_s + leaf_s
+    extra = {"device_ms": total * 1e3} if on_card else {}
+    _TRACER.complete("train/iteration", "train",
+                     start_ns=stages[0][1],
+                     duration_ns=int(total * 1e9), iteration=it, rows=rows,
+                     hist_ms=hist_s * 1e3, split_ms=split_s * 1e3,
+                     leaf_ms=leaf_s * 1e3, loss=loss, **extra)
 
 
 # --------------------------------------------------------------------------
@@ -507,7 +533,10 @@ class GBDTTrainer:
                 raw, w, val = _finish_plain(raw, yt, gh, leaf, leaf_bins,
                                             **finish)
             clock.mark(None)
-            # the tree's one synchronization with the host
+            if dev.type == "cuda":
+                # the tree's one synchronization with the host: the
+                # copies below then wait for nothing
+                torch.cuda.synchronize(dev)
             splits = (torch.stack(sf_d + sb_d).cpu().numpy() if depth
                       else np.zeros((0,), np.int32))
             sf_rows.append(splits[:depth].astype(np.int32))
@@ -516,6 +545,9 @@ class GBDTTrainer:
             loss_vals.append(float(val))
             t_end = time.perf_counter()
             stage = clock.seconds()
+            if _TRACER.enabled:
+                _trace_tree(it, n, clock.stages(), loss_vals[-1],
+                            dev.type == "cuda")
             self.metrics.note_iteration(n, stage.get("hist", 0.0),
                                         stage.get("split", 0.0),
                                         stage.get("leaf", 0.0),

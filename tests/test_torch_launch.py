@@ -6,7 +6,11 @@
   * `repro_torch.launch.serve`: gbdt mode with tree-slice variants and
     `predict_multi`, `--show-kernels` (the registry's `format_table`, the
     layout table, the resolved layouts), `--mode lm` naming ROADMAP A11;
-  * `examples/torch/{quickstart,serve_gbdt,embeddings_knn}.py`.
+  * `examples/torch/{quickstart,serve_gbdt,embeddings_knn}.py`;
+  * each launcher's `--trace-out x.json --metrics-out y.prom`: a Chrome
+    trace that loads, with the launcher's spans, and the JAX launchers'
+    metric namespaces (`training/<name>`, `serving/<name>`,
+    `scoring/bulk`).
 
 Each runs with ``--device cpu``; without it they run on the card.
 """
@@ -22,7 +26,8 @@ torch = pytest.importorskip("torch")
 
 from repro.launch import train_gbdt as jtrain_gbdt  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
-from repro_torch.launch import serve, train_gbdt  # noqa: E402
+from repro_torch.launch import score, serve, train_gbdt  # noqa: E402
+from repro_torch.obs.trace import get_tracer  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -161,3 +166,56 @@ def test_launchers_and_examples_default_to_the_card():
     for run in runs:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
+
+
+def _obs_run(main, argv, tmp_path):
+    """Run a launcher with both obs flags; the trace's event names and
+    the metric names of the Prometheus file."""
+    trace, prom = tmp_path / "x.json", tmp_path / "y.prom"
+    assert main(argv + ["--device", "cpu", "--trace-out", str(trace),
+                        "--metrics-out", str(prom)]) == 0
+    assert not get_tracer().enabled         # the launcher turned it off
+    obj = json.loads(trace.read_text())
+    assert obj["otherData"]["dropped_events"] == 0
+    names = {e["name"] for e in obj["traceEvents"]}
+    gauges = [ln.split("{")[0].split()[0] for ln in
+              prom.read_text().splitlines() if not ln.startswith("#")]
+    assert gauges
+    return names, gauges
+
+
+@pytest.mark.parametrize("launcher", ["train_gbdt", "serve", "score"])
+def test_launcher_obs_flags_write_trace_and_metrics(launcher, tmp_path,
+                                                    capsys):
+    if launcher == "train_gbdt":
+        names, gauges = _obs_run(train_gbdt.main, TRAIN, tmp_path)
+        want_spans = {"train/level", "train/iteration",
+                      "dispatch/histogram"}
+        prefix = "repro_training_gbdt_covertype_"
+    elif launcher == "serve":
+        names, gauges = _obs_run(serve.main, [
+            "--scale", "0.002", "--trees", "6", "--multi", "2"], tmp_path)
+        want_spans = {"serve/batch", "train/level", "dispatch/binarize"}
+        prefix = "repro_serving_santander_"
+        assert any(g.startswith("repro_serving_santander_v1_")
+                   for g in gauges)
+    else:
+        names, gauges = _obs_run(score.main, [
+            "--scale", "0.002", "--trees", "4", "--models", "2",
+            "--chunk", "256", "--check"], tmp_path)
+        want_spans = {"bulk/quantize", "bulk/score", "bulk/sink",
+                      "dispatch/binarize", "dispatch/leaf_index"}
+        prefix = "repro_scoring_bulk_"
+    assert want_spans <= names
+    assert "dispatch_count" in names and "thread_name" in names
+    assert all(g.startswith(prefix) or g.startswith(prefix[:-1])
+               for g in gauges)
+    assert "[obs]" in capsys.readouterr().err
+
+
+def test_launchers_take_the_jax_obs_flags():
+    for parse in (lambda a: train_gbdt.parse_args(a)[1], serve.parse_args,
+                  score.parse_args):
+        args = parse(["--trace-out", "t.json", "--metrics-out", "m.json"])
+        assert (args.trace_out, args.metrics_out) == ("t.json", "m.json")
+        assert parse([]).trace_out == "" == parse([]).metrics_out

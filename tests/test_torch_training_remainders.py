@@ -130,11 +130,14 @@ def test_ordered_update_matches_jax():
 
 @pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000])
 def test_prefix_sum_is_a_cumsum(n):
+    """JAX's f32 cumsum bit for bit (XLA's blocked order: ordered
+    boosting's prefix statistics then match JAX's exactly)."""
     x = torch.from_numpy(np.random.default_rng(n).normal(
         size=(n, 2)).astype(np.float32))
-    got = boosting._prefix_sum(x)
-    want = np.cumsum(x.numpy().astype(np.float64), axis=0)
-    _close(got, want, tol=1e-5)
+    got = boosting._prefix_sum(x).numpy()
+    want = np.asarray(jax.jit(lambda v: jnp.cumsum(v, axis=0))(
+        jnp.asarray(x.numpy())))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_segment_sum_sums_each_segment():
