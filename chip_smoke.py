@@ -49,6 +49,14 @@ to 0 before each path and read after it:
     bitpacked), then the untruncated model on bitpacked (one group, whose
     fused route is its own kernel): single requests, `predict_batch` over
     the test split, `quantize` + `predict_pool` and a staged `proba` call;
+  * the multi-device slice on `make_local_mesh(4)` (four logical shards,
+    dealt round robin over the machine's cards: all on cuda:0 with one):
+    each serving path's fused and staged plans row-sharded (pool, float,
+    the ragged 139,437 rows, 2 rows), tree-sharded and on the (2, 2)
+    hybrid mesh; 2 models x 2 replicas in a `ModelRegistry`, a
+    `GBDTServer(mesh=)`, `BulkScorer(mesh=)` with the prefetch worker over
+    the test split twice, the traced `sharded/pool` span, rows/s sharded
+    against single-device;
   * runs the paper's image-embeddings workload (2,808 train and 2,841 test
     embeddings of K = 512, 20 classes): kNN features (k = 16) of both
     splits with the `l2sq_matrix` kernel, of the test split again with one
@@ -128,6 +136,13 @@ It checks:
     table must fail; binarize equals its plain versions exactly there, also
     on a border table with a shuffled column, duplicate borders and a NaN
     border, against x holding NaN, +inf, -inf and values equal to borders;
+  * mesh: row-sharded scores equal the single-device plan's bit for bit on
+    every path, plan and route, the pool route launches no binarize, each
+    kernel launches exactly 4 times the single-device count; tree-sharded
+    and hybrid scores lie within `sum_limit`; `predict_multi` over the
+    replica groups launches binarize once; the mesh server equals a local
+    staged server, the mesh bulk run the run without a mesh in all three
+    sinks;
   * kNN: each distance kernel gives the same bits on two launches, no
     negative value, and lies within the distance rule of its plain version
     (`l2dist.matrix_limit` / `rowwise_limit`) on both splits and every test
@@ -3777,6 +3792,268 @@ def check_caps() -> dict:
 
 
 # The kernels each path launches, and no others.
+MESH_SHARDS = 4          # make_local_mesh(4): logical shards on the cards
+MESH_RAGGED_CUT = 3      # 139,437 rows: no multiple of the shard count
+MESH_BULK_REPEAT = 2     # SyntheticSource repeat of the mesh's bulk run
+MESH_TIMED = 5           # event-timed calls a rate is the median of
+
+
+def events_ms(fn, reps: int = MESH_TIMED) -> float:
+    """Median CUDA-event time of `fn` after one untimed call: the host's
+    launches and the card's work, as a caller waits for them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def run_mesh_path(paths: dict, full, x_test: np.ndarray, tmp: str) -> dict:
+    """The multi-device slice on `make_local_mesh(4)`: four logical shards
+    dealt round robin over the machine's cards (all on cuda:0 with one
+    card).  On each of the five serving paths, the fused plan and the
+    staged plan are row-sharded on the pool and the float route, the
+    ragged test split (139,437 rows) and 2 rows too: each result equals
+    the single-device plan's bit for bit, the pool route launches no
+    binarize, and each kernel launches exactly 4 times the single-device
+    count; tree sharding and the (2, 2) hybrid mesh stay within
+    `sum_limit`.  Then a `ModelRegistry` of 2 models x 2 replicas
+    (`predict_multi` launches binarize once for the one schema), a
+    `GBDTServer(mesh=)` against a local staged server, `BulkScorer(mesh=)`
+    with the prefetch worker over the test split twice against the run
+    without a mesh in all three sinks, the traced `sharded/pool` span,
+    and rows/s sharded against single-device at the bulk shape and the
+    1,024-row bucket (one card's numbers: no scaling claim)."""
+    import torch
+    from repro_torch.core.predictor import Predictor
+    from repro_torch.core.trees import concat_ensembles
+    from repro_torch.kernels import ops, tuning
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.obs.trace import get_tracer, tracing
+    from repro_torch.scoring import (BulkScorer, NpySink, ScoreConfig,
+                                     StatsSink, SyntheticSource, TopKSink)
+    from repro_torch.serving.engine import GBDTServer, ModelRegistry
+
+    t_phase = time.perf_counter()
+    mesh = make_local_mesh(MESH_SHARDS)
+    hybrid = make_local_mesh(MESH_SHARDS, model=2)
+    n = len(x_test)
+    ragged = n - MESH_RAGGED_CUT
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    limits = {}
+
+    def limit_of(rec):
+        """`sum_limit` of a path's model, from its plan's copy on the
+        card (one a distinct model)."""
+        key = id(rec["model"])
+        if key not in limits:
+            model = rec["plan"].ensemble
+            bins = ops.binarize_u8(torch.as_tensor(
+                x_test, device=model.borders.device), model.borders)
+            idx = ops.leaf_index(bins, model.split_features,
+                                 model.split_bins)
+            limits[key] = sum_limit(idx, model.leaf_values,
+                                    model.base_score)
+            del bins, idx
+        return limits[key]
+
+    rows_checks, sum_errs = {}, {}
+    for path, rec in paths.items():
+        for kind, plan in (("fused", rec["plan"]), ("staged", rec["staged"])):
+            name = f"{path}_{kind}"
+            fn = plan.sharded(mesh, shard_axis="rows")
+            pool = plan.quantize(x_test)
+            record = {}
+            for route, data, part in (
+                    ("pool", pool, pool.slice_rows(0, ragged)),
+                    ("float", x_test, x_test[:ragged])):
+                want, single = counted(lambda: plan.raw(data))
+                got, sharded = counted(lambda: fn(data))
+                check(torch.equal(got, want), f"mesh: {name} row-sharded "
+                      f"{route} scores differ from the single-device plan's")
+                check(sharded == {k: MESH_SHARDS * v
+                                  for k, v in single.items()},
+                      f"mesh: {name} {route} launched {sharded} on "
+                      f"{MESH_SHARDS} shards against {single} on one")
+                if route == "pool":
+                    check("binarize" not in sharded,
+                          f"mesh: {name}'s pool route launched binarize")
+                check(torch.equal(fn(part), want[:ragged]),
+                      f"mesh: {name} ragged {route} ({ragged} rows) "
+                      "differs from the single-device plan's")
+                record[route] = {"single": single, "sharded": sharded}
+            small = x_test[:2]
+            check(torch.equal(fn(small), plan.raw(small)),
+                  f"mesh: {name} on 2 rows over {MESH_SHARDS} shards")
+            rows_checks[name] = record
+            limit = limit_of(rec)
+            want = plan.raw(pool)
+            for axis, sharded_fn in (
+                    ("trees", plan.sharded(mesh, shard_axis="trees")),
+                    ("hybrid", plan.sharded(hybrid))):
+                for route, data in (("pool", pool), ("float", x_test)):
+                    err, share = compare_sums(
+                        f"mesh: {name} {axis} {route}", sharded_fn(data),
+                        want, limit)
+                    sum_errs[f"{name}_{axis}_{route}"] = {
+                        "max_abs_err": err, "err_over_limit": share}
+            del pool
+    copies = {p: len(rec["plan"]._replicas) for p, rec in paths.items()}
+
+    # replicas: 2 models x 2 replicas on the 4 shards; one schema
+    ens = paths["soa"]["model"]
+    half = ens.slice_trees(0, ens.n_trees // 2)
+    xs = x_test[:4 * MAX_BATCH]
+    reg = ModelRegistry(mesh=mesh, device="cuda", max_batch=MAX_BATCH)
+    try:
+        groups = {"model": reg.register("model", ens, replicas=2),
+                  "half": reg.register("half", half, replicas=2)}
+        check(all(len(g.servers) == 2 and all(s.mesh.size == 2
+                                               for s in g.servers)
+                  for g in groups.values()),
+              "mesh: replica groups are not 2 servers of 2 shards")
+        multi, launched = counted(lambda: reg.predict_multi(xs))
+        check(launched.get("binarize", 0) == 1,
+              f"mesh: predict_multi over 2 replica groups launched "
+              f"binarize {launched.get('binarize', 0)} times for one "
+              "schema")
+        for name, group in groups.items():
+            check(np.array_equal(multi[name], group.predict_batch(xs)),
+                  f"mesh: predict_multi differs from {name}'s "
+                  "predict_batch")
+        registry_metrics = reg.metrics()
+        check(all(m["replicas"] == 2 for m in registry_metrics.values()),
+              "mesh: the registry's metrics do not count 2 replicas")
+    finally:
+        reg.close()
+
+    # a mesh server against a local one on the same (staged) pipeline
+    meshed = GBDTServer(ens, device="cuda", mesh=mesh, max_batch=MAX_BATCH,
+                        layout="soa")
+    local = GBDTServer(ens, device="cuda", max_batch=MAX_BATCH,
+                       layout="soa", strategy="staged")
+    try:
+        t0 = time.perf_counter()
+        got = meshed.predict_batch(x_test)
+        torch.cuda.synchronize()
+        server_s = time.perf_counter() - t0
+        check(np.array_equal(got, local.predict_batch(x_test)),
+              "mesh: GBDTServer(mesh=) predict_batch differs from a local "
+              "server's")
+        check(np.array_equal(meshed.predict(x_test[5]),
+                             local.predict(x_test[5])),
+              "mesh: GBDTServer(mesh=) predict differs")
+        server_recompiles = meshed.metrics.snapshot()["recompiles"]
+    finally:
+        meshed.close()
+        local.close()
+
+    # BulkScorer(mesh=) with the prefetch worker, in all three sinks
+    joined = concat_ensembles(full.slice_trees(0, full.n_trees // 2),
+                              full.slice_trees(full.n_trees // 2,
+                                               full.n_trees))
+    plans = {name: Predictor.build(e, device="cuda", layout="soa")
+             for name, e in (
+        ("full", full), ("half", full.slice_trees(0, full.n_trees // 2)),
+        ("joined", joined))}
+    source = SyntheticSource("covertype", split="test",
+                             repeat=MESH_BULK_REPEAT)
+    cfg = ScoreConfig(output="proba", prefetch_depth=2,
+                      chunk_rows=tuning.PREFETCH_MIN_CHUNK_ROWS)
+    bulk = {}
+    for label, m in (("single", None), ("mesh", mesh)):
+        out_sinks = {"full": NpySink(os.path.join(tmp, f"{label}.npy")),
+                     "half": StatsSink(), "joined": TopKSink(BULK_TOP_K)}
+        t0 = time.perf_counter()
+        res = BulkScorer(plans, cfg, mesh=m).score(source, out_sinks)
+        torch.cuda.synchronize()
+        bulk[label] = {"result": res, "seconds": time.perf_counter() - t0}
+    got, want = bulk["mesh"]["result"], bulk["single"]["result"]
+    check(got.metrics["prefetch_depth"] == cfg.prefetch_depth,
+          "mesh: the bulk run ran without the prefetch worker")
+    check(got.chunk_shapes == want.chunk_shapes,
+          f"mesh: bulk chunk shapes {got.chunk_shapes}")
+    check(np.array_equal(np.load(os.path.join(tmp, "mesh.npy")),
+                         np.load(os.path.join(tmp, "single.npy"))),
+          "mesh: BulkScorer(mesh=) scores differ in the NpySink")
+    check(all(np.array_equal(got.outputs["half"][k], want.outputs["half"][k])
+              for k in want.outputs["half"]),
+          "mesh: BulkScorer(mesh=) stats differ in the StatsSink")
+    check(all(np.array_equal(got.outputs["joined"][k],
+                             want.outputs["joined"][k])
+              for k in ("indices", "scores")),
+          "mesh: BulkScorer(mesh=) top rows differ in the TopKSink")
+
+    # the traced sharded/pool span
+    plan = paths["soa"]["plan"]
+    pool = plan.quantize(x_test)
+    fn = plan.sharded(mesh, shard_axis="rows")
+    tracer = get_tracer()
+    with tracing(tracer, clear=True):
+        fn(pool)
+        events = tracer.events()
+    spans = [e for e in events if e["name"] == "sharded/pool"]
+    check(len(spans) == 1 and {k: spans[0]["args"][k] for k in (
+        "shard_axis", "devices", "rows", "layout")} == {
+            "shard_axis": "rows", "devices": MESH_SHARDS, "rows": n,
+            "layout": "soa"},
+          f"mesh: the traced sharded/pool span {spans}")
+
+    # rows/s, sharded against single-device, at the bulk shape and at the
+    # 1,024-row bucket
+    rates = {}
+    for label, rows in (("bulk", n), ("bucket_1024", MAX_BATCH)):
+        p, x = pool.slice_rows(0, rows), x_test[:rows]
+        x_dev = torch.as_tensor(x, device=plan.device)
+        for route, data in (("pool", p), ("float", x_dev)):
+            single_ms = events_ms(lambda: plan.raw(data))
+            sharded_ms = events_ms(lambda: fn(data))
+            rates[f"{label}_{route}"] = {
+                "rows": rows, "single_ms": single_ms,
+                "sharded_ms": sharded_ms,
+                "single_rows_per_s": rows / single_ms * 1e3,
+                "sharded_rows_per_s": rows / sharded_ms * 1e3}
+    del pool
+    return {
+        "shards": MESH_SHARDS,
+        "devices": sorted({str(d) for d in mesh.device_list}),
+        "model_copies_per_plan": copies,
+        "rows_exact": sorted(rows_checks), "launches": rows_checks,
+        "ragged_rows": ragged, "trees_and_hybrid": sum_errs,
+        "predict_multi_binarize_launches": launched.get("binarize", 0),
+        "registry_replicas": {k: m["replicas"]
+                              for k, m in registry_metrics.items()},
+        "server": {"rows": n, "seconds": server_s,
+                   "rows_per_s": n / server_s,
+                   "recompiles": server_recompiles},
+        "bulk": {label: {"rows": source.n_rows, "seconds": r["seconds"],
+                         "rows_per_s": r["result"].metrics["rows_per_s"],
+                         "chunk_rows": r["result"].chunk_rows,
+                         "prefetch_depth":
+                             r["result"].metrics["prefetch_depth"]}
+                 for label, r in bulk.items()},
+        "rates": rates,
+        "span": spans[0]["args"],
+        "seconds": time.perf_counter() - t_phase}
+
+
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
     "depth_major": {"binarize", "leaf_index_dm", "leaf_gather",
@@ -3799,6 +4076,9 @@ PATH_KERNELS = {
                   "fused_predict"},
     "knn": {"l2sq_matrix", "l2sq_rowwise", "binarize", "histogram",
             "leaf_index", "leaf_gather", "fused_predict"},
+    "mesh": {"binarize", "leaf_index", "leaf_index_dm", "leaf_index_bp",
+             "leaf_gather", "fused_predict", "fused_predict_dm",
+             "fused_predict_bp"},
     # the launcher and example processes (`read_launcher`)
     "score_cli": {"binarize", "histogram", "leaf_index", "leaf_gather",
                   "fused_predict"},
@@ -3983,6 +4263,15 @@ def main() -> None:
         path_launches[path] = path_launch_counts(path)
         paths[path] = dict(out=out, phases=phases, plan=plan, staged=staged,
                            model=model, n_requests=n_requests)
+    # --- the multi-device slice on make_local_mesh(4), with the launch
+    # counts set to 0 before it and read after it
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        mesh_path = run_mesh_path(paths, full, x_test, tmp)
+        path_launches["mesh"] = path_launch_counts("mesh")
+    print(f"mesh path: {json.dumps(mesh_path)}", flush=True)
+    torch.cuda.empty_cache()
+
     # --- the kNN path, with the launch counts set to 0 before it and read
     # after it
     emb_data = image_embeddings(scale=1.0)
@@ -4166,6 +4455,7 @@ def main() -> None:
                                    "metrics": snapshot,
                                    "profile": training_profile},
                       "knn": knn_serving, "bulk": bulk,
+                      "mesh": mesh_path,
                       "entry_points": entry_points,
                       "fit_source": fit_source, "score_cli": score_cli,
                       "training_remainders": remainders,

@@ -247,6 +247,154 @@ LoweredEnsemble = (SoaLayout | DepthMajorLayout | DepthGroupedLayout
                    | BitpackedLayout)
 
 
+# --------------------------------------------------------------------------
+# Tree sharding (`Predictor.sharded`)
+# --------------------------------------------------------------------------
+# T-axis alignment of a tree shard: the JAX package's staged tree block.
+# The port's kernels mask their own edges, so nothing needs it; it keeps
+# a shard's shapes, and so its launch plans, the JAX package's.
+STAGED_TREE_ALIGN = 16
+
+
+def _shard_bounds(n_trees: int, n_shards: int, t_align: int):
+    """(padded total, per-shard size) for an equal T-axis split where
+    every shard stays a `t_align` multiple."""
+    unit = max(n_shards * max(t_align, 1), 1)
+    total = -(-max(n_trees, 1) // unit) * unit
+    return total, total // n_shards
+
+
+def _cut_trees(a: torch.Tensor, axis: int, total: int, n_shards: int,
+               value=0) -> list:
+    """`a` padded along its tree axis to `total` with `value` and cut into
+    `n_shards` equal contiguous slices."""
+    a = ops.pad_dim(a, axis, total, value=value)
+    per = total // n_shards
+    return [a.narrow(axis, k * per, per).contiguous()
+            for k in range(n_shards)]
+
+
+def shard_trees(lowered: LoweredEnsemble, n_shards: int, *,
+                t_align: int = 1) -> list:
+    """Split a lowered ensemble's tree axis into `n_shards` equal slices
+    for tree-sharded evaluation on a mesh.
+
+    Every shard is the same layout class with identical shapes and
+    identical static fields, so every shard launches the same grid.
+    Slices are padded with *neutral* trees (split feature 0, split bin
+    `ops.PAD_SPLIT_BIN`, always left; all-zero leaf rows), so a padded
+    tree adds exactly 0.0 and
+
+        sum_k shard_k.leaf_sum(bins)  ==  lowered.leaf_sum(bins)
+
+    up to float reassociation: the partial sums combine in another order
+    than the single-device tree loop, so tree-sharded results agree to
+    rounding, not bit for bit (row sharding stays exact).
+
+    Grouped layouts (depth_grouped / bitpacked) shard *within* each depth
+    group: every shard keeps the full group list (same depths) with 1/K
+    of each group's trees.  A uint8 bitpacked plane cannot hold
+    `PAD_SPLIT_BIN` and pads 0 (always right): the padded tree then
+    lands in its last leaf, whose row is zero all the same.
+    """
+    if n_shards <= 1:
+        return [lowered]
+    k = n_shards
+    pad = ops.PAD_SPLIT_BIN
+    if isinstance(lowered, SoaLayout):
+        if lowered.tree_blocks is not None:
+            raise ValueError(
+                "shard_trees on a tree-blocked soa plan is unsupported: "
+                "the block slices were cut for the single-device loop; "
+                "lower with tree_block=0 before tree-sharding")
+        total, _ = _shard_bounds(lowered.split_features.shape[0], k,
+                                 t_align)
+        parts = zip(_cut_trees(lowered.split_features, 0, total, k),
+                    _cut_trees(lowered.split_bins, 0, total, k, pad),
+                    _cut_trees(lowered.leaf_values, 0, total, k))
+        return [SoaLayout(lowered.borders, sf, sb, lv, None,
+                          n_outputs=lowered.n_outputs)
+                for sf, sb, lv in parts]
+    if isinstance(lowered, DepthMajorLayout):
+        total, _ = _shard_bounds(lowered.split_features_dm.shape[1], k,
+                                 t_align)
+        parts = zip(_cut_trees(lowered.split_features_dm, 1, total, k),
+                    _cut_trees(lowered.split_bins_dm, 1, total, k, pad),
+                    _cut_trees(lowered.leaf_values, 0, total, k))
+        return [DepthMajorLayout(lowered.borders, sf, sb, lowered.pow2, lv,
+                                 n_outputs=lowered.n_outputs)
+                for sf, sb, lv in parts]
+    if isinstance(lowered, DepthGroupedLayout):
+        shard_groups = [[] for _ in range(k)]
+        for g in lowered.groups:
+            total, _ = _shard_bounds(g.n_trees, k, t_align)
+            parts = zip(_cut_trees(g.split_features, 0, total, k),
+                        _cut_trees(g.split_bins, 0, total, k, pad),
+                        _cut_trees(g.leaf_values, 0, total, k))
+            for gs, (sf, sb, lv) in zip(shard_groups, parts):
+                gs.append(DepthGroup(g.depth, sf, sb, lv))
+        return [DepthGroupedLayout(lowered.borders, tuple(gs),
+                                   n_outputs=lowered.n_outputs)
+                for gs in shard_groups]
+    if isinstance(lowered, BitpackedLayout):
+        shard_groups = [[] for _ in range(k)]
+        for g in lowered.groups:
+            total, _ = _shard_bounds(g.n_trees, k, t_align)
+            pad_bin = 0 if g.split_bins_bp.dtype == torch.uint8 else pad
+            parts = zip(_cut_trees(g.split_features_bp, 1, total, k),
+                        _cut_trees(g.split_bins_bp, 1, total, k, pad_bin),
+                        _cut_trees(g.leaf_values, 0, total, k))
+            for gs, (sf, sb, lv) in zip(shard_groups, parts):
+                gs.append(BitpackedGroup(g.depth, sf, sb, lv))
+        return [BitpackedLayout(lowered.borders, tuple(gs),
+                                n_outputs=lowered.n_outputs,
+                                binary_split=lowered.binary_split,
+                                n_features=lowered.n_features)
+                for gs in shard_groups]
+    raise TypeError(f"shard_trees: unsupported lowered type "
+                    f"{type(lowered).__name__}")
+
+
+def map_arrays(fn, *items):
+    """Apply `fn` to the corresponding tensors of like-structured lowered
+    ensembles (their groups and tree blocks included) and rebuild the
+    first's structure around the results; static fields are the
+    first's."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*items)
+    if isinstance(first, tuple):
+        return tuple(map_arrays(fn, *parts)
+                     for parts in zip(*items, strict=True))
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: map_arrays(fn, *(getattr(it, f.name) for it in items))
+            for f in dataclasses.fields(first)
+            if isinstance(getattr(first, f.name), (torch.Tensor, tuple))})
+    return first
+
+
+def to_device(lowered: LoweredEnsemble,
+              device: torch.device) -> LoweredEnsemble:
+    """The lowered ensemble with every array on `device` (itself when
+    they are there already)."""
+    return map_arrays(lambda a: a.to(device), lowered)
+
+
+def stack_tree_shards(shards: list):
+    """Stack `shard_trees`' shards into one lowered ensemble whose every
+    array has a leading shard axis (the JAX package's input to
+    `shard_map` with ``P(model_axis)``)."""
+    return map_arrays(lambda *xs: torch.stack(xs), *shards)
+
+
+def unstack_tree_shard(stacked, k: int = 0):
+    """Shard `k` of a `stack_tree_shards` result: every array's leading
+    shard axis indexed at `k` (a contiguous view).  The default takes the
+    unit leading axis the JAX package's mapped body sees."""
+    return map_arrays(lambda a: a.select(0, k), stacked)
+
+
 def pack_pool_u1(bins: torch.Tensor) -> torch.Tensor:
     """Pack a binary-split pool (N, F) of 0/1 bins into u1 feature planes
     -> (N, ceil(F/32)) uint32, ragged feature tails zero.  Valid only when

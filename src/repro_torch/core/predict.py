@@ -13,11 +13,12 @@ The JAX package's `block_n` / `block_t` set the fused Pallas kernel's
 blocks.  The port's plans pick a launch plan per shape
 (`kernels.tuning.fused_plan`), so a caller that passes either gets a
 `ValueError` saying so rather than having it ignored.  `predict_sharded`
-and `shard_inputs` are not ported yet (ROADMAP A7).
+is the one-shot form of `Predictor.sharded`, and `shard_inputs` places
+rows on a mesh's row shards ahead of it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -66,3 +67,42 @@ def predict_class(ensemble: ObliviousEnsemble, x, **kw) -> torch.Tensor:
     """One-shot int32 class ids; prefer `Predictor.build(...).classify`."""
     return classify_from_raw(raw_predict(ensemble, x, **kw),
                              ensemble.n_outputs)
+
+
+# --------------------------------------------------------------------------
+# Distributed prediction
+# --------------------------------------------------------------------------
+def predict_sharded(ensemble: ObliviousEnsemble, x, mesh, *,
+                    data_axes: Sequence[str] = ("data",),
+                    model_axis: str = "model",
+                    strategy: Strategy = "staged",
+                    device: torch.device | str = "cuda") -> torch.Tensor:
+    """Raw scores over `mesh`: rows over `data_axes`, trees over
+    `model_axis` (see `Predictor.sharded`), on the mesh's first device.
+
+    The plan is built on `device` and its closure made on every call;
+    prefer holding `Predictor.build(...).sharded(mesh)`."""
+    plan = Predictor.build(ensemble, PredictConfig(strategy=strategy),
+                           device=device)
+    return plan.sharded(mesh, data_axes=data_axes,
+                        model_axis=model_axis)(x)
+
+
+def shard_inputs(x, mesh, data_axes: Sequence[str] = ("data",)
+                 ) -> list[torch.Tensor]:
+    """(N, F) rows cut into one equal chunk per row shard of `mesh` over
+    `data_axes`, each chunk on its shard's device: the form
+    `Predictor.sharded` takes as it is.  Like the JAX package's
+    `device_put` onto ``P(data_axes)``, it raises `ValueError` when the
+    row shards do not divide N."""
+    sizes = dict(mesh.shape)
+    axes = tuple(a for a in data_axes if a in sizes)
+    devices = [row[0] for row in mesh.shard_devices(axes)]
+    x = torch.as_tensor(x, dtype=torch.float32)
+    n, k = int(x.shape[0]), len(devices)
+    if n % k:
+        raise ValueError(f"{n} rows do not divide into the mesh's {k} "
+                         f"row shards over {axes}")
+    per = n // k
+    return [x[i * per:(i + 1) * per].to(dev).contiguous()
+            for i, dev in enumerate(devices)]

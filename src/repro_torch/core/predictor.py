@@ -22,13 +22,13 @@ import json
 import pathlib
 import threading
 import time
-from typing import Any, Callable, Literal, Optional
+from typing import Any, Callable, Literal, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import layout as layout_mod
-from repro_torch.core.layout import LoweredEnsemble
+from repro_torch.core.layout import STAGED_TREE_ALIGN, LoweredEnsemble
 from repro_torch.core.quantize import (MAX_BINS, QuantizedPool,
                                        borders_fingerprint)
 from repro_torch.core.trees import ObliviousEnsemble
@@ -164,6 +164,12 @@ class Predictor:
         self._lock = threading.Lock()
         self._traces: dict[str, int] = {}
         self._entry_shapes: set[tuple] = set()
+        self._first_calls: set[tuple] = set()
+        # the lowered model on each device a mesh put it on: the plan's own
+        # arrays on its own device, one copy on every other
+        self._replicas: dict[torch.device, LoweredEnsemble] = {
+            device: lowered}
+        self._sharded_cache: dict[tuple, Callable] = {}
         self.schema_fingerprint = borders_fingerprint(ensemble.borders)
         self._entries = {
             "raw": self._raw_impl,
@@ -232,13 +238,17 @@ class Predictor:
         return ops.binarize_u8_prepadded(x, self.lowered.borders,
                                          backend=self.config.backend)
 
-    def _note_call(self, name: str, shape: tuple) -> None:
-        """Count the first call of each (entry, batch shape): the
-        counterpart of the JAX package's per-trace counter."""
+    def _note_call(self, name: str, shape: tuple, *, scope: tuple = (),
+                   **attrs: Any) -> None:
+        """Count the first call of each (entry, batch shape) within
+        `scope` (a mesh closure and its shard mode; the plan's own entries
+        have none): the counterpart of the JAX package's per-trace
+        counter.  `attrs` go on the `compile/<entry>` instant."""
         key = (name,) + tuple(shape)
         with self._lock:
-            if key in self._entry_shapes:
+            if scope + key in self._first_calls:
                 return
+            self._first_calls.add(scope + key)
             self._entry_shapes.add(key)
             self._traces[name] = self._traces.get(name, 0) + 1
         if _TRACER.enabled:
@@ -246,7 +256,7 @@ class Predictor:
             # new (entry, batch shape)
             _TRACER.instant(f"compile/{name}", "compile", entry=name,
                             layout=self.config.layout,
-                            batch=int(shape[0]) if shape else 0)
+                            batch=int(shape[0]) if shape else 0, **attrs)
         if self._on_trace is not None:
             self._on_trace()
 
@@ -259,17 +269,21 @@ class Predictor:
                 "split_bins would index a different bin space.  "
                 "Re-quantize with this plan's `quantize(x)`.")
 
+    def _float_rows(self, x) -> torch.Tensor:
+        """(N, F) float32 rows where they are (no device move)."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if x.ndim != 2 or x.shape[1] != self.ensemble.n_features:
+            raise ValueError(f"expected (N, {self.ensemble.n_features}) "
+                             f"features, got {tuple(x.shape)}")
+        return x.contiguous()
+
     def _as_input(self, x) -> tuple[str, torch.Tensor]:
         """(entry suffix, tensor on the plan's device) for floats or a
         pool."""
         if isinstance(x, QuantizedPool):
             self._check_pool(x)
             return "_pool", x.bins.to(self.device).contiguous()
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.ndim != 2 or x.shape[1] != self.ensemble.n_features:
-            raise ValueError(f"expected (N, {self.ensemble.n_features}) "
-                             f"features, got {tuple(x.shape)}")
-        return "", x.contiguous()
+        return "", self._float_rows(x).to(self.device)
 
     def _call(self, name: str, x) -> torch.Tensor:
         suffix, data = self._as_input(x)
@@ -308,6 +322,215 @@ class Predictor:
         suffix, data = self._as_input(x)
         return self._entries["raw" + suffix](data)
 
+    # -- the mesh ----------------------------------------------------------
+    def _shard_raw(self, lw: LoweredEnsemble, data: torch.Tensor,
+                   kind: str, cfg: PredictConfig) -> torch.Tensor:
+        """Shard-local raw tree sum (no base score) over one lowered model,
+        the plan's own or one tree shard of it: the body every mesh shard
+        runs, through the registry's dispatch for any layout.  `kind` is
+        "pool" (uint8 bins; binarize never runs) or "float"."""
+        if kind == "pool":
+            return lw.leaf_sum(data, backend=cfg.backend)
+        if cfg.strategy == "fused":
+            return lw.fused_raw(data, backend=cfg.backend)
+        bins = ops.binarize_prepadded(data, lw.borders, backend=cfg.backend)
+        return lw.leaf_sum(bins, backend=cfg.backend)
+
+    def _replica(self, device: torch.device) -> LoweredEnsemble:
+        """The lowered model on `device`: one copy a distinct device, made
+        at first use, however many shards of a mesh lie on it."""
+        with self._lock:
+            lw = self._replicas.get(device)
+            if lw is None:
+                lw = layout_mod.to_device(self.lowered, device)
+                self._replicas[device] = lw
+            return lw
+
+    def sharded(self, mesh, *, data_axes: Sequence[str] = ("data",),
+                model_axis: str = "model",
+                strategy: Optional[str] = None,
+                shard_axis: str = "auto") -> Callable[[Any], torch.Tensor]:
+        """Mesh-distributed raw scores over floats, a `QuantizedPool`, or
+        the per-shard row chunks of `core.predict.shard_inputs`.
+
+        One process drives every shard of `mesh` (a
+        `distributed.mesh.Mesh`), as `shard_map` does in the JAX package;
+        each shard runs `_shard_raw`, the single-device plan's own
+        registry-dispatched kernels on the plan's layout, on its device:
+
+          * **row sharding** (the bulk default): the lowered model is
+            replicated (one copy a distinct device; the plan's own arrays
+            on the plan's device), the rows are cut into equal shards over
+            `data_axes`; a pool shards its uint8 bins, so binarize never
+            runs, and the result is bit for bit the single-device plan's.
+          * **tree sharding** (giant ensembles): `layout.shard_trees`
+            splits the tree axis into neutral-padded equal slices over
+            the mesh; the shards' partial (N, C) sums are added in shard
+            order on the mesh's first device (the JAX package's `psum`:
+            a reassociated float sum, so parity is to rounding).
+          * **hybrid**: a mesh whose `model_axis` has more than one shard
+            splits rows over `data_axes` and trees over `model_axis`.
+
+        `shard_axis` ("rows" | "trees" | "auto") picks how a pure data
+        mesh is used; "auto" asks `tuning.best_shard_axis` per batch.  A
+        row count the row shards do not divide is padded with zero rows
+        and sliced back.  Outputs are concatenated in shard order on the
+        mesh's first device.  `strategy` overrides the plan's strategy
+        for the shard body (serving passes "staged" for auto plans).  The
+        closure is built once per (mesh, axes, strategy, shard_axis) and
+        cached on the plan.  A cross-device `.to()` orders the copy
+        against both devices' current streams, so the shards need no
+        synchronize of their own.
+        """
+        key = (id(mesh), tuple(data_axes), model_axis, strategy,
+               shard_axis)
+        fn = self._sharded_cache.get(key)
+        if fn is not None:
+            return fn
+        if shard_axis not in ("auto", "rows", "trees"):
+            raise ValueError(f"shard_axis must be auto|rows|trees, "
+                             f"got {shard_axis!r}")
+        cfg = self.config
+        if strategy is not None and strategy != cfg.strategy:
+            if strategy not in ("staged", "fused"):
+                raise ValueError(f"strategy must be staged or fused, "
+                                 f"got {strategy!r}")
+            cfg = dataclasses.replace(cfg, strategy=strategy)
+        lowered, ens = self.lowered, self.ensemble
+
+        axis_sizes = dict(mesh.shape)
+        flat = [_concrete(d) for d in mesh.device_list]
+        for device in set(flat):
+            registry.check_backend(cfg.backend, device)
+        first = flat[0]
+        base = self.ensemble.base_score.to(first).unsqueeze(0)
+        row_axes = tuple(a for a in data_axes if a in axis_sizes)
+        tree_on_model = (model_axis in axis_sizes
+                         and axis_sizes[model_axis] > 1)
+
+        def n_shards(axes) -> int:
+            return int(np.prod([axis_sizes[a] for a in axes], dtype=int))
+
+        # mode -> (row axes, tree axes); "trees" on a pure data mesh
+        # reuses the data axes as the model split
+        modes: dict[str, tuple[tuple, tuple]] = {}
+        if tree_on_model:
+            modes["hybrid"] = (row_axes, (model_axis,))
+            pick = lambda n: "hybrid"                     # noqa: E731
+        elif shard_axis == "trees":
+            modes["trees"] = ((), row_axes)
+            pick = lambda n: "trees"                      # noqa: E731
+        elif shard_axis == "rows" or n_shards(row_axes) <= 1:
+            modes["rows"] = (row_axes, ())
+            pick = lambda n: "rows"                       # noqa: E731
+        else:
+            modes["rows"] = (row_axes, ())
+            modes["trees"] = ((), row_axes)
+            k = n_shards(row_axes)
+
+            def pick(n):
+                return tuning.best_shard_axis(
+                    n, ens.n_trees, k, n_outputs=ens.n_outputs,
+                    leaf_table_bytes=lowered.leaf_table_bytes())
+
+        entries: dict[str, tuple] = {}
+
+        def entry(mode: str) -> tuple:
+            cached = entries.get(mode)
+            if cached is not None:
+                return cached
+            r_axes, t_axes = modes[mode]
+            devices = [[_concrete(d) for d in row]
+                       for row in mesh.shard_devices(r_axes, t_axes)]
+            n_tree = n_shards(t_axes)
+            if n_tree > 1:
+                stacked = layout_mod.stack_tree_shards(
+                    layout_mod.shard_trees(lowered, n_tree,
+                                           t_align=STAGED_TREE_ALIGN))
+                moved: dict[tuple, LoweredEnsemble] = {}
+                for row in devices:
+                    for j, dev in enumerate(row):
+                        if (j, dev) not in moved:
+                            moved[j, dev] = layout_mod.to_device(
+                                layout_mod.unstack_tree_shard(stacked, j),
+                                dev)
+                models = [[moved[j, dev] for j, dev in enumerate(row)]
+                          for row in devices]
+            else:
+                models = [[self._replica(dev) for dev in row]
+                          for row in devices]
+            entries[mode] = cached = (n_shards(r_axes), n_tree, devices,
+                                      models)
+            return cached
+
+        n_devices = mesh.size
+
+        def split_rows(data, n: int, n_row: int):
+            """(row shards, padded row count): `shard_inputs`' chunks as
+            they are when they fit the mode, else equal slices of the
+            zero-padded rows (views, after at most one host copy)."""
+            if isinstance(data, list):
+                if len(data) == n_row and \
+                        len({int(p.shape[0]) for p in data}) == 1:
+                    return data, n
+                data = torch.cat([p.to(first) for p in data])
+            if data.device.type == "cpu" and first.type != "cpu":
+                data = data.to(first)
+            n_pad = -(-n // n_row) * n_row
+            data = ops.pad_dim(data, 0, n_pad)
+            per = n_pad // n_row
+            return [data.narrow(0, i * per, per)
+                    for i in range(n_row)], n_pad
+
+        def run(mode: str, kind: str, data, n: int) -> torch.Tensor:
+            n_row, n_tree, devices, models = entry(mode)
+            parts, n_pad = split_rows(data, n, n_row)
+            self._note_call(f"sharded_{kind}",
+                            (n_pad,) + tuple(parts[0].shape[1:]),
+                            scope=(key, mode), shard_mode=mode,
+                            row_shards=n_row, tree_shards=n_tree)
+            # every shard's input copy, then every shard's kernels, then
+            # the results: a cross-device copy makes each device's stream
+            # wait for the other's, so a result fetched between two shards'
+            # launches would hold the next shard behind it and serialize
+            # the cards
+            inputs = [[part.to(dev) for dev in row]
+                      for part, row in zip(parts, devices)]
+            partial = [[self._shard_raw(lw, x_dev, kind, cfg)
+                        for lw, x_dev in zip(row_models, row_inputs)]
+                       for row_models, row_inputs in zip(models, inputs)]
+            outs = []
+            for row in partial:
+                acc = None
+                for got in row:
+                    got = got.to(first)
+                    acc = got if acc is None else acc + got
+                outs.append(acc)
+            out = base + torch.cat(outs)
+            return out.narrow(0, 0, n) if n_pad != n else out
+
+        def fn(x) -> torch.Tensor:
+            if isinstance(x, QuantizedPool):
+                self._check_pool(x)
+                data, kind = x.bins, "pool"
+                n = int(data.shape[0])
+            elif isinstance(x, (list, tuple)):
+                data, kind = [self._float_rows(p) for p in x], "float"
+                n = sum(int(p.shape[0]) for p in data)
+            else:
+                data, kind = self._float_rows(x), "float"
+                n = int(data.shape[0])
+            mode = pick(n)
+            if not _TRACER.enabled:
+                return run(mode, kind, data, n)
+            with _TRACER.span(f"sharded/{kind}", "sharded", device=first,
+                              shard_axis=mode, devices=n_devices, rows=n,
+                              layout=cfg.layout):
+                return run(mode, kind, data, n)
+
+        self._sharded_cache[key] = fn
+        return fn
+
     @property
     def stats(self) -> dict[str, Any]:
         """First calls per entry point, distinct (entry, batch shape) keys
@@ -337,6 +560,15 @@ class Predictor:
         return (f"<Predictor {c.strategy}/{c.backend}/{c.layout} "
                 f"on {self.device} trees={self.ensemble.n_trees} "
                 f"depth={self.ensemble.depth} C={self.ensemble.n_outputs}>")
+
+
+def _concrete(device) -> torch.device:
+    """A mesh entry as a device with an index (CUDA's current device for a
+    bare "cuda"), so that equal devices compare equal."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 # --------------------------------------------------------------------------

@@ -183,9 +183,13 @@ def bind(name: str, device: torch.device) -> Callable[..., None]:
     fn = getattr(lib, name)
     index = device.index
     stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
 
     def call(*c_args: int) -> None:
         status = fn(*c_args, index, stream)
+        # a launcher selects its device and leaves it selected
+        if index != current:
+            torch.cuda.set_device(current)
         if status:
             _launch_failed(lib, name, status)
     return call
@@ -193,11 +197,17 @@ def bind(name: str, device: torch.device) -> Callable[..., None]:
 
 def launch(name: str, device: torch.device, *args: Any) -> None:
     """Call launcher `name` on `device`'s current stream; tensors are
-    passed as their data pointers.  Raises on a non-zero CUDA status."""
+    passed as their data pointers.  The process's current device is the
+    same after the call.  Raises on a non-zero CUDA status."""
     lib = library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
     status = getattr(lib, name)(*c_args, device.index, stream)
+    # a launcher selects its device and leaves it selected: a launch on a
+    # mesh shard's card must not move later `device="cuda"` work there
+    if device.index != current:
+        torch.cuda.set_device(current)
     if status:
         _launch_failed(lib, name, status)

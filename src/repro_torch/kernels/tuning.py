@@ -80,6 +80,64 @@ def best_layout(true_depths, n_outputs: int, n_features: int, *,
 
 
 # --------------------------------------------------------------------------
+# Mesh shard-axis selection (`Predictor.sharded`): the JAX package's rule
+# (`src/repro/kernels/tuning.py`), decision for decision
+# --------------------------------------------------------------------------
+# Tree sharding exists for giant ensembles (the 1k-10k tree regime); below
+# this the combining sum and the reassociated float sum buy nothing a row
+# shard does not already give exactly.
+TREE_SHARD_MIN_TREES = 1024
+# Row sharding keeps the whole lowered model on every device; past this
+# many replicated bytes the model, not the batch, is the memory problem
+# and the tree split pays for its sum.
+TREE_REPLICATION_BUDGET_BYTES = 64 * 1024 * 1024
+
+
+def _pad_utilization(n: int, block: int) -> float:
+    """Fraction of padded work that is real when n is rounded up to a
+    multiple of block (1.0 when n is unknown)."""
+    padded = block * ((n + block - 1) // block) if n > 0 else block
+    return n / padded if n > 0 else 1.0
+
+
+def shard_count(mesh) -> int:
+    """Total shards a mesh (or a plain int) fans out to."""
+    if isinstance(mesh, int):
+        return max(mesh, 1)
+    out = 1
+    for size in dict(mesh.shape).values():
+        out *= int(size)
+    return max(out, 1)
+
+
+def best_shard_axis(n_rows: int, n_trees: int, mesh, *,
+                    n_outputs: int = 1,
+                    leaf_table_bytes: int = 0) -> str:
+    """Row or tree sharding for a K-way mesh (a `Mesh` or a shard count).
+
+    A shard's traversal work is the same either way, ceil(N/K) x T
+    against N x ceil(T/K), so the bulk product never decides.  Row
+    sharding is exact (each row's addends in the same order) and needs no
+    combining sum, but copies the model to every device; tree sharding
+    splits the model, and pays a sum of the (N, C) partial scores that
+    reassociates the tree sum.  So: rows, unless the ensemble is in the
+    giant-tree regime (`TREE_SHARD_MIN_TREES`) and either the replicated
+    leaf tables pass `TREE_REPLICATION_BUDGET_BYTES` or the batch is too
+    ragged to row-shard well (padding utilization below the tree axis's:
+    the N < K serving batch)."""
+    k = shard_count(mesh)
+    if k <= 1:
+        return "rows"
+    if n_trees < TREE_SHARD_MIN_TREES or n_trees < k:
+        return "rows"
+    if leaf_table_bytes * (k - 1) > TREE_REPLICATION_BUDGET_BYTES:
+        return "trees"
+    if _pad_utilization(max(n_rows, 1), k) < _pad_utilization(n_trees, k):
+        return "trees"
+    return "rows"
+
+
+# --------------------------------------------------------------------------
 # Bulk-scoring chunk planner (`scoring.BulkScorer`)
 # --------------------------------------------------------------------------
 # The bytes one in-flight chunk may hold, on the host and the card together

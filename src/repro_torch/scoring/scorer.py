@@ -44,7 +44,12 @@ there is none), and only the main thread launches the scoring kernels, so
 no kernel's launch counter is bumped from two threads.
 While the tracer is enabled each chunk records `bulk/quantize` (on the
 worker's thread when there is one), `bulk/score` and `bulk/sink`.
-``mesh=`` is not ported yet (ROADMAP A7).
+
+With ``mesh=`` every chunk scores through the plans' `sharded(mesh)`
+entries: a pool shards its uint8 bins over the mesh's row shards, the
+float route binarizes shard by shard, and the worker still binarizes
+chunk k+1 while chunk k's shards score.  The chunk shapes and resume are
+unchanged; the scores come back to the plans' device.
 
     cfg    = ScoreConfig(output="proba")
     scorer = BulkScorer(plan, cfg)           # or {"name": plan, ...}
@@ -62,7 +67,8 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.predictor import Predictor
+from repro_torch.core.predictor import (Predictor, classify_from_raw,
+                                        proba_from_raw)
 from repro_torch.core.quantize import MAX_BINS, QuantizedPool
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.kernels import tuning
@@ -203,6 +209,51 @@ class ScoringMetrics:
     def snapshot(self) -> dict[str, Any]:
         with self._lock:
             return self._locked_snapshot(advance_interval=True)
+
+    @staticmethod
+    def merge(parts: list["ScoringMetrics"]) -> dict[str, Any]:
+        """One fleet view over per-shard or per-worker bulk metrics, as
+        `ServerMetrics.merge`: counts, first calls and the rates sum (K
+        workers at X rows/s move K*X rows/s), wall is the slowest part's
+        (the parts run concurrently), and the chunk-latency percentiles
+        come from the merged reservoirs, not averaged per part."""
+        if not parts:
+            raise ValueError("ScoringMetrics.merge needs at least one "
+                             "part")
+        # one locked pass a part: its snapshot and its reservoir come
+        # from the same instant, and the non-advancing read leaves each
+        # part's interval window to its own poller
+        snaps = []
+        lat = PercentileReservoir()
+        pad_rows = rows = 0
+        for p in parts:
+            with p._lock:
+                snaps.append(p._locked_snapshot(advance_interval=False))
+                lat.merge(p._chunk_lat)
+                pad_rows += p.padded_rows
+                rows += p.rows
+        quantize_s = sum(s["quantize_s"] for s in snaps)
+        score_s = sum(s["score_s"] for s in snaps)
+        busy = quantize_s + score_s
+        pad_total = rows + pad_rows
+        return {
+            "name": snaps[0]["name"],
+            "parts": len(parts),
+            "rows": rows,
+            "chunks": sum(s["chunks"] for s in snaps),
+            "compiles": sum(s["compiles"] for s in snaps),
+            "resumed_from": min(s["resumed_from"] for s in snaps),
+            "wall_s": max(s["wall_s"] for s in snaps),
+            "rows_per_s": sum(s["rows_per_s"] for s in snaps),
+            "interval_rows_per_s": sum(s["interval_rows_per_s"]
+                                       for s in snaps),
+            "quantize_s": quantize_s,
+            "score_s": score_s,
+            "quantize_frac": quantize_s / busy if busy else 0.0,
+            "chunk_p50_ms": lat.percentile(50) * 1e3,
+            "chunk_p99_ms": lat.percentile(99) * 1e3,
+            "pad_overhead": (pad_rows / pad_total if pad_total else 0.0),
+        }
 
     def __repr__(self) -> str:
         s = self.snapshot()
@@ -371,15 +422,15 @@ class BulkScorer:
     def __init__(self, plans: Predictor | Mapping[str, Predictor],
                  config: Optional[ScoreConfig] = None, *,
                  mesh=None, **config_kw: Any):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BulkScorer(mesh=...) is not ported yet (ROADMAP A7)")
         if config is None:
             config = ScoreConfig(**config_kw)
         elif config_kw:
             raise TypeError("pass either a ScoreConfig or config kwargs, "
                             f"not both: {sorted(config_kw)}")
         self.config = config
+        # every chunk's rows shard over the mesh through the plans'
+        # `sharded()` entries (see the module docstring)
+        self.mesh = mesh
         if isinstance(plans, Predictor):
             plans = {"model": plans}
         self.plans = dict(plans)
@@ -475,6 +526,13 @@ class BulkScorer:
 
     def _score_entry(self, plan: Predictor, x) -> torch.Tensor:
         out = self.config.output
+        if self.mesh is not None:
+            raw = plan.sharded(self.mesh)(x).to(plan.device)
+            if out == "raw":
+                return raw
+            if out == "proba":
+                return proba_from_raw(raw, plan.ensemble.n_outputs)
+            return classify_from_raw(raw, plan.ensemble.n_outputs)
         if out == "raw":
             return plan.raw(x)
         if out == "proba":

@@ -4,12 +4,14 @@ The port's counterpart of `GBDTServer`, `ModelRegistry` and
 `EmbeddingGBDTPipeline` in `src/repro/serving/engine.py`.  Request
 aggregation and bucket padding live in `serving.batching`, per-model
 counters in `serving.metrics`; `GBDTServer.score_source` hands a whole
-dataset to `scoring.BulkScorer`.  Mesh serving and replica groups are not
-ported yet (ROADMAP A7).
+dataset to `scoring.BulkScorer`.  A server given ``mesh=`` scores through
+`Predictor.sharded`; `ModelRegistry.register(..., replicas=R)` serves a
+model from R servers over disjoint submeshes behind a `ReplicaGroup`.
 """
 from __future__ import annotations
 
 import queue
+import threading
 import time
 from typing import Any, Callable, Optional, Sequence
 
@@ -18,9 +20,10 @@ import torch
 
 from repro_torch.core.knn import KNNFeaturizer
 from repro_torch.core.predictor import (PredictConfig, Predictor,
-                                        resolve_device)
+                                        proba_from_raw, resolve_device)
 from repro_torch.core.quantize import QuantizedPool
 from repro_torch.core.trees import ObliviousEnsemble
+from repro_torch.distributed.gbdt import replica_submeshes
 from repro_torch.obs.trace import get_tracer
 from repro_torch.scoring.scorer import BulkScorer, ScoreConfig, ScoreResult
 from repro_torch.serving.batching import BucketedBatcher, bucket_for, chunks
@@ -44,6 +47,12 @@ class GBDTServer:
     ``config_kw`` goes to `PredictConfig` (``layout="bitpacked"``,
     ``strategy="staged"``, ...); ``metrics.layout`` reports the layout the
     plan resolved to, and both paths score through that layout's kernels.
+
+    With ``mesh=`` (a `distributed.mesh.Mesh`) both paths score through
+    the plan's `sharded(mesh)` entry, which ships this same lowered model
+    to every shard; it runs the staged pipeline unless the config asked
+    for a strategy, and the scores come back from the mesh's first
+    device.
     """
 
     def __init__(self, ensemble: ObliviousEnsemble, *,
@@ -56,21 +65,26 @@ class GBDTServer:
                  name: str = "gbdt",
                  deadline_ms: Optional[float] = None,
                  **config_kw: Any):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         self.ensemble = ensemble
+        self.mesh = mesh
         self.metrics = ServerMetrics(name, deadline_ms=deadline_ms)
         self.predictor = Predictor.build(ensemble, config, device=device,
                                          on_trace=self.metrics.note_trace,
                                          **config_kw)
         self.metrics.layout = self.predictor.config.layout
+        self._sharded = None
+        if mesh is not None:
+            asked = (config.strategy if config is not None
+                     else config_kw.get("strategy", "auto"))
+            self._sharded = self.predictor.sharded(
+                mesh, strategy="staged" if asked == "auto" else asked)
 
         def serve(xs: np.ndarray) -> np.ndarray:
             # lands on the batcher thread's track in exported traces
             with _TRACER.span("serve/batch", "serve",
                               device=self.predictor.device, model=name,
                               rows=int(len(xs))):
-                return self.predictor.proba(xs).cpu().numpy()
+                return self._proba(xs)
 
         self.batcher = BucketedBatcher(serve, max_batch=max_batch,
                                        max_wait_ms=max_wait_ms,
@@ -82,6 +96,14 @@ class GBDTServer:
     def config(self) -> PredictConfig:
         """The resolved plan configuration this server scores with."""
         return self.predictor.config
+
+    def _proba(self, x) -> np.ndarray:
+        """Class probabilities of floats or a pool, through the mesh when
+        the server has one, as numpy."""
+        if self._sharded is None:
+            return self.predictor.proba(x).cpu().numpy()
+        raw = self._sharded(x)
+        return proba_from_raw(raw, self.ensemble.n_outputs).cpu().numpy()
 
     @property
     def buckets(self) -> tuple[int, ...]:
@@ -131,7 +153,7 @@ class GBDTServer:
             chunk = pool.slice_rows(start, stop)
             bucket = bucket_for(len(chunk), self.buckets)
             t0 = time.perf_counter()
-            ys = self.predictor.proba(chunk.pad_rows(bucket)).cpu().numpy()
+            ys = self._proba(chunk.pad_rows(bucket))
             self.metrics.note_batch(len(chunk), bucket,
                                     time.perf_counter() - t0)
             out.append(ys[:len(chunk)])
@@ -148,14 +170,15 @@ class GBDTServer:
         in the unit of this server's `metrics.snapshot()`.
 
         Defaults to ``output="proba"``, what this server's online
-        predicts return, unless the config says otherwise."""
+        predicts return, unless the config says otherwise.  A mesh server
+        scores the job through the same mesh (`BulkScorer(mesh=...)`)."""
         if config is None:
             score_kw.setdefault("output", "proba")
             config = ScoreConfig(**score_kw)
         elif score_kw:
             raise TypeError("pass either a ScoreConfig or config kwargs, "
                             f"not both: {sorted(score_kw)}")
-        return BulkScorer(self.predictor, config).score(
+        return BulkScorer(self.predictor, config, mesh=self.mesh).score(
             source, sinks, resume_from=resume_from)
 
     def _empty_proba(self) -> np.ndarray:
@@ -167,6 +190,72 @@ class GBDTServer:
         self.batcher.close()
 
 
+class ReplicaGroup:
+    """R `GBDTServer`s over disjoint submeshes, behind one model name.
+
+    Requests round-robin across the replicas; each runs the full sharded
+    predict path on its own shards, so a single request sees exactly the
+    single-replica parity contract.  The group presents the `GBDTServer`
+    scoring surface (`predict`, `predict_batch`, `predict_pool`,
+    `quantize`, `schema_fingerprint`, `score_source`), so `ModelRegistry`
+    routes to it transparently, and `metrics_snapshot()` is the fleet
+    view (`ServerMetrics.merge`).
+    """
+
+    def __init__(self, name: str, servers: Sequence[GBDTServer]):
+        if not servers:
+            raise ValueError("ReplicaGroup needs at least one server")
+        self.name = name
+        self.servers = list(servers)
+        self._rr = 0
+        self._rr_lock = threading.Lock()
+
+    def _next(self) -> GBDTServer:
+        with self._rr_lock:
+            server = self.servers[self._rr % len(self.servers)]
+            self._rr += 1
+        return server
+
+    # -- GBDTServer surface -------------------------------------------------
+    @property
+    def ensemble(self) -> ObliviousEnsemble:
+        return self.servers[0].ensemble
+
+    @property
+    def mesh(self):
+        return self.servers[0].mesh
+
+    @property
+    def schema_fingerprint(self) -> str:
+        return self.servers[0].schema_fingerprint
+
+    def quantize(self, xs) -> QuantizedPool:
+        # the replicas share borders (one ensemble), so a pool quantized
+        # once scores on any of them
+        return self.servers[0].quantize(xs)
+
+    def predict(self, x, timeout: float = 30.0) -> np.ndarray:
+        return self._next().predict(x, timeout=timeout)
+
+    def predict_batch(self, xs) -> np.ndarray:
+        return self._next().predict_batch(xs)
+
+    def predict_pool(self, pool: QuantizedPool) -> np.ndarray:
+        return self._next().predict_pool(pool)
+
+    def score_source(self, source, sinks=None, **kw: Any) -> ScoreResult:
+        return self._next().score_source(source, sinks, **kw)
+
+    def metrics_snapshot(self) -> dict[str, Any]:
+        merged = ServerMetrics.merge([s.metrics for s in self.servers])
+        merged["model"] = self.name
+        return merged
+
+    def close(self) -> None:
+        for s in self.servers:
+            s.close()
+
+
 class ModelRegistry:
     """Several named GBDT ensembles served from one process.
 
@@ -174,29 +263,46 @@ class ModelRegistry:
     and metrics), on the card unless the defaults or `register` pass
     ``device="cpu"``; `metrics()` gathers the per-model snapshots.
 
+    Replica groups: ``register(name, ens, replicas=R)`` with a ``mesh=``
+    (to `register` or the registry defaults) splits the mesh into R
+    disjoint submeshes (`distributed.gbdt.replica_submeshes`) and serves
+    the model from one `GBDTServer` a submesh behind a round-robin
+    `ReplicaGroup`: K models x R replicas share one mesh, and
+    `predict_multi` still quantizes once per feature schema across all
+    of them.
+
     A plan is immutable: it holds the model lowered for the ensemble it
     was built from.  Swapping the ensemble under a name (``register(...,
     replace=True)``) therefore closes the whole old server and builds a
-    new one.  Replica groups (``replicas > 1``) are not ported yet
-    (ROADMAP A7).
+    new one.
     """
 
     def __init__(self, **default_server_kw: Any):
         self._default_kw = default_server_kw
-        self._servers: dict[str, GBDTServer] = {}
+        self._servers: dict[str, GBDTServer | ReplicaGroup] = {}
 
     def register(self, name: str, ensemble: ObliviousEnsemble,
                  replace: bool = False, *, replicas: int = 1,
-                 **server_kw: Any) -> GBDTServer:
-        if replicas > 1:
-            raise NotImplementedError(
-                "replica groups are not ported yet (ROADMAP A7)")
+                 **server_kw: Any) -> GBDTServer | ReplicaGroup:
         if name in self._servers:
             if not replace:
                 raise KeyError(f"model {name!r} already registered "
                                "(pass replace=True to swap it)")
             self._servers.pop(name).close()
         kw = {**self._default_kw, **server_kw, "name": name}
+        if replicas > 1:
+            mesh = kw.pop("mesh", None)
+            if mesh is None:
+                raise ValueError(
+                    "replicas > 1 needs a mesh to split (pass mesh= "
+                    "to register() or to the registry defaults)")
+            servers = [GBDTServer(ensemble, **{**kw, "mesh": sub,
+                                               "name": f"{name}/r{i}"})
+                       for i, sub in enumerate(
+                           replica_submeshes(mesh, replicas))]
+            group = ReplicaGroup(name, servers)
+            self._servers[name] = group
+            return group
         server = GBDTServer(ensemble, **kw)
         self._servers[name] = server
         return server
@@ -206,7 +312,7 @@ class ModelRegistry:
         return self.register(name, ObliviousEnsemble.load(path),
                              **server_kw)
 
-    def get(self, name: str) -> GBDTServer:
+    def get(self, name: str) -> GBDTServer | ReplicaGroup:
         if name not in self._servers:
             raise KeyError(f"unknown model {name!r}; registered: "
                            f"{sorted(self._servers)}")
@@ -228,7 +334,10 @@ class ModelRegistry:
         """Score one batch through several models, quantizing once per
         feature schema: servers whose ensembles share borders (the same
         `schema_fingerprint`) score one `QuantizedPool` through their
-        pool path, which never binarizes."""
+        pool path, which never binarizes.  Mesh servers and replica
+        groups take the same path: the sharded pool entry row-shards the
+        quantized bins, so one quantize covers every model and every
+        replica that shares the schema."""
         if names is None:
             names = self.names()
         pools: dict[str, QuantizedPool] = {}
@@ -242,7 +351,9 @@ class ModelRegistry:
         return out
 
     def metrics(self) -> dict[str, dict[str, Any]]:
-        return {n: s.metrics.snapshot() for n, s in self._servers.items()}
+        return {n: (s.metrics_snapshot() if isinstance(s, ReplicaGroup)
+                    else s.metrics.snapshot())
+                for n, s in self._servers.items()}
 
     def unregister(self, name: str) -> None:
         self._servers.pop(name).close()

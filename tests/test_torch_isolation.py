@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.predictor import Predictor  # noqa: E402
 from repro_torch.kernels import binarize as binarize_k  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.serving.engine import GBDTServer  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -37,6 +38,7 @@ def test_fresh_import_loads_no_jax_and_no_repro_module():
     loaded = out.stdout.split()
     assert "repro_torch.serving.engine" in loaded
     assert "repro_torch.kernels._build" in loaded
+    assert "repro_torch.distributed.mesh" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -64,6 +66,8 @@ def test_entry_points_default_to_the_card():
         Predictor.build(ens)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GBDTServer(ens)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_local_mesh()
     assert Predictor.build(ens, device="cpu").device.type == "cpu"
 
 

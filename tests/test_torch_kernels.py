@@ -314,6 +314,7 @@ def test_nonzero_launch_status_raises(monkeypatch):
     monkeypatch.setattr(_build, "library", Lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         _build.launch("repro_binarize", torch.device("cuda", 0), 1, 2)
 

@@ -278,8 +278,9 @@ def test_config_refuses_what_is_not_ported(models):
     with pytest.raises(TypeError):
         Predictor.build(None, PredictConfig(), device="cpu",
                         strategy="fused")
-    # mesh serving is still to port
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # an object that is not a mesh fails as in the JAX package: it has
+    # no axis sizes to read
+    with pytest.raises(AttributeError, match="shape"):
         GBDTServer(tens, device="cpu", mesh=object())
 
 

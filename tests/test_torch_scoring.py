@@ -482,8 +482,10 @@ def test_scorer_rejects_bad_plans_config_and_sinks(tmp_path):
         BulkScorer({})
     with pytest.raises(TypeError, match="Predictor"):
         BulkScorer({"a": a})
-    with pytest.raises(NotImplementedError, match="A7"):
-        BulkScorer(plan, mesh=object())
+    # not a mesh: the run fails as in the JAX package, with no axis sizes
+    # to read
+    with pytest.raises(AttributeError, match="shape"):
+        BulkScorer(plan, mesh=object()).score(ArraySource(_rand_x(11, 8)))
     scorer = BulkScorer({"a": plan, "b": plan})
     with pytest.raises(ValueError, match="no sink"):
         scorer.score(ArraySource(_rand_x(11, 8)), {"a": ArraySink()})
@@ -625,7 +627,8 @@ def test_model_registry_predict_multi_quantizes_once(tmp_path):
         reg.unregister("other")
         with pytest.raises(KeyError, match="unknown"):
             reg.get("other")
-        with pytest.raises(NotImplementedError, match="A7"):
+        # replicas split a mesh, and this registry has none
+        with pytest.raises(ValueError, match="needs a mesh"):
             reg.register("r", ens, replicas=2)
     finally:
         reg.close()
