@@ -67,7 +67,11 @@ to 0 before each path and read after it:
   * then the caps phase: the shapes the kernels once refused (33
     outputs, rows past the old 48 KB bins tiles and past the opt-in limit,
     66 histogram stats), numpy-seeded random models, against the plain
-    versions.
+    versions;
+  * last the contracts phase: the contract checker (`repro_torch.analysis`)
+    walks the registry, the plans and the row-sharded entries abstractly,
+    then each `cuda` cell's canonical, bucket, bulk, distance and 66-stat
+    calls run for real with the library's resource record on.
 
 It checks:
 
@@ -190,7 +194,14 @@ It checks:
     of its own, uint8 and int32 bins and planes, one feature past each
     old cap and past the opt-in limit (both routes exercised); the
     histogram at 66 stats (two launches, depths 0 and 3, uint8 and int32
-    bins, 20,000 and 17 rows) equals `ref.histogram_fixed` bit for bit.
+    bins, 20,000 and 17 rows) equals `ref.histogram_fixed` bit for bit;
+  * contracts: the checker's report has no unsuppressed finding and is
+    byte for byte the committed results/analysis_torch/contract-report.json;
+    every real call makes the launches its walk recorded, launcher for
+    launcher; every recorded launch's dynamic plus static shared memory
+    lies within the opt-in limit and its `kernels.tuning` plan; each of
+    the eleven kernels was launched; it prints the per-kernel resources
+    (registers, shared bytes, local bytes, ptxas spills) with the card.
 
 Then it times each kernel beside its plain version, one PyTorch library
 call where one computes the same function, and the least time the card
@@ -457,71 +468,16 @@ def device_ms(fn, flush, reps: int = 10, key: str = "fused"
     return float(np.median(times)), (total / reps / 1e3 if total else None)
 
 
-def kernel_name(mangled: str) -> str | None:
-    """The `*_kernel` identifier in a mangled name, whose identifiers
-    each follow their length in digits."""
-    i = 0
-    while i < len(mangled):
-        if not mangled[i].isdigit():
-            i += 1
-            continue
-        j = i
-        while j < len(mangled) and mangled[j].isdigit():
-            j += 1
-        part = mangled[j:j + int(mangled[i:j])]
-        if part.endswith("_kernel"):
-            return part
-        i = j + len(part)
-    return None
-
-
-TEMPLATE_ARGS = {"h": "uint8", "i": "int32", "Lb0E": "false",
-                 "Lb1E": "true"}
-
-
-def template_args(mangled: str, name: str) -> str:
-    """`<...>` of the template arguments that follow `name` in a mangled
-    name (bins type, ints and bools spelled out), or "" for no
-    template."""
-    rest = mangled.split(name, 1)[1]
-    if not rest.startswith("I"):
-        return ""
-    args, i = [], 1
-    while i < len(rest) and rest[i] != "E":
-        token = rest[i:rest.index("E", i) + 1] if rest[i] == "L" \
-            else rest[i]
-        args.append(TEMPLATE_ARGS.get(
-            token, token[2:-1] if token.startswith("Li") else token))
-        i += len(token)
-    return "<" + ", ".join(args) + ">"
-
-
 def ptxas_report(source: str, instances: bool = False) -> dict | None:
     """Registers, stack and spills of each kernel in `source`, from the
-    build's `-Xptxas -v` output (None when the library was not built in
-    this process); with `instances`, one entry a template instantiation,
-    named with its arguments."""
-    import re
+    build's `-Xptxas -v` output, which `_build` keeps beside the library
+    and reads back when an earlier process built it (None without it);
+    with `instances`, one entry a template instantiation, named with its
+    arguments (`analysis.resources.ptxas_report`)."""
+    from repro_torch.analysis import resources
     from repro_torch.kernels import _build
-    log = _build.build_info.get("log", "")
-    if f"== {source}" not in log:
-        return None
-    section = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
-    report = {}
-    for entry in section.split("Compiling entry function '")[1:]:
-        name = kernel_name(entry.split("'")[0])
-        regs = re.search(r"Used (\d+) registers", entry)
-        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                           r"stores, (\d+) bytes spill loads", entry)
-        if name and instances:
-            name += template_args(entry.split("'")[0], name)
-        if name and regs and spills:
-            report[name] = {
-                "registers": int(regs.group(1)),
-                "stack_bytes": int(spills.group(1)),
-                "spill_stores": int(spills.group(2)),
-                "spill_loads": int(spills.group(3))}
-    return report
+    return resources.ptxas_report(_build.build_info.get("log", ""), source,
+                                  instances)
 
 
 def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
@@ -4054,6 +4010,164 @@ def run_mesh_path(paths: dict, full, x_test: np.ndarray, tmp: str) -> dict:
         "seconds": time.perf_counter() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# The contract checker: the abstract walk, then the cuda cells for real
+# --------------------------------------------------------------------------
+# The variants of each `cuda` cell launched for real: the canonical call
+# (the distance op's three), the 1,024-row bucket, the bulk shape (the row
+# routes and the staged gather), the histogram's two stat groups.
+CONTRACT_REAL_LABELS = ("canonical", "bucket", "bulk", "matrix", "rowwise",
+                        "batch", "stats66")
+CONTRACT_SEED = 7
+# The launchers each of the eleven kernel wrappers calls.
+WRAPPER_LAUNCHERS = {
+    "binarize": ("repro_binarize",), "leaf_index": ("repro_leaf_index",),
+    "leaf_gather": ("repro_leaf_gather",),
+    "fused_predict": ("repro_fused_predict", "repro_fused_predict_spread"),
+    "leaf_index_dm": ("repro_leaf_index_dm",),
+    "fused_predict_dm": ("repro_fused_predict_dm",
+                         "repro_fused_predict_dm_spread"),
+    "leaf_index_bp": ("repro_leaf_index_bp",),
+    "fused_predict_bp": ("repro_fused_predict_bp",
+                         "repro_fused_predict_bp_spread"),
+    "histogram": ("repro_histogram",),
+    "l2sq_rowwise": ("repro_l2sq_rowwise",),
+    "l2sq_matrix": ("repro_l2sq_matrix",)}
+
+
+def contract_inputs(cell, variant, gen):
+    """Real CUDA tensors for a variant's specs, with what each argument's
+    role needs: sorted borders, split features below F, leaf ids below L,
+    bins below n_bins, level weights 2^d, random floats elsewhere."""
+    import torch
+    from repro_torch.analysis.trace_tools import Spec
+    specs = variant.args
+    kw = dict(variant.kwargs)
+
+    def ints(spec, high):
+        return torch.randint(0, max(int(high), 1), spec.shape,
+                             generator=gen, device=spec.device,
+                             dtype=torch.int32).to(spec.dtype)
+
+    out = []
+    for i, spec in enumerate(specs):
+        if not isinstance(spec, Spec):
+            out.append(spec)
+            continue
+        if spec.dtype.is_floating_point:
+            t = torch.randn(spec.shape, generator=gen, device=spec.device)
+            if cell.op in ("binarize", "fused_predict") and i == 1:
+                t = t.sort(dim=0).values
+            if cell.impl.endswith("_dm") and \
+                    (cell.op, i) in (("leaf_index", 3), ("fused_predict", 4)):
+                t = torch.pow(2.0, torch.arange(
+                    spec.shape[0], dtype=torch.float32,
+                    device=spec.device))[:, None]
+        elif cell.op == "leaf_gather":
+            t = ints(spec, specs[1].shape[1])
+        elif cell.op == "histogram":
+            t = ints(spec, kw["n_bins"] if i == 0 else kw["n_leaves"])
+        elif cell.op == "leaf_index":
+            n_feat = specs[0].shape[1]
+            t = ints(spec, 10 if i != 1 else n_feat)
+        else:                          # fused_predict's split arrays
+            n_feat = specs[0].shape[1]
+            t = ints(spec, n_feat if i == 2 else specs[1].shape[0] + 1)
+        out.append(t.to(spec.device))
+    return out, kw
+
+
+def run_contracts() -> dict:
+    """The contract checker (`repro_torch.analysis`) on the card: the
+    abstract walk must give the committed report byte for byte with no
+    unsuppressed finding; then each `cuda` cell's real variants
+    (`CONTRACT_REAL_LABELS`) launch once with the resource record on, and
+    each must make the launches its walk recorded, launcher for launcher;
+    the record's shared memory goes through the smem-budget and
+    smem-model rules, and becomes the per-kernel resource table."""
+    import torch
+    from repro_torch.analysis import checker, matrix, passes, resources
+    from repro_torch.analysis.report import default_report_path
+    from repro_torch.kernels import _build, ops, registry
+
+    t0 = time.perf_counter()
+    report = checker.run_check()
+    walk_s = time.perf_counter() - t0
+    check(report.ok, "contract check: unsuppressed findings\n"
+          + report.format())
+    with open(default_report_path(), encoding="utf-8") as f:
+        committed = f.read()
+    check(report.dumps() == committed,
+          "the contract report on the card differs from the committed "
+          "results/analysis_torch/contract-report.json")
+
+    lib = _build.library()
+    gen = torch.Generator(device="cuda").manual_seed(CONTRACT_SEED)
+    done: dict[tuple, list] = {}
+    entries_all, findings, cells_run = [], [], 0
+    t0 = time.perf_counter()
+    resources.set_record(lib, True)
+    try:
+        for cell in matrix.enumerate_cells():
+            if cell.family != "cuda":
+                continue
+            cells_run += 1
+            for variant in matrix.cell_variants(cell):
+                if variant.label not in CONTRACT_REAL_LABELS:
+                    continue
+                key = matrix.trace_key(cell, variant)
+                walk = [e.record.name for e in
+                        matrix.trace_variant(cell, variant).launches()]
+                if key in done:
+                    continue
+                args, kw = contract_inputs(cell, variant, gen)
+                fn = registry.get(cell.op, cell.impl).fn
+                resources.set_record(lib, True)
+                with _build.recording_launches(execute=True) as recs:
+                    if variant.call is not None:
+                        variant.call(fn, *args, **kw)
+                    else:
+                        fn(*args, **kw)
+                torch.cuda.synchronize()
+                entries = resources.read_record(lib)
+                real = [r for r in recs if r.kind == "launch"]
+                check([r.name for r in real] == walk,
+                      f"{cell} {variant.label}: real launches "
+                      f"{[r.name for r in real]} differ from the walk's "
+                      f"{walk}")
+                pairs = resources.attribute(real, entries)
+                check(sum(len(m) for _, m in pairs) == len(entries),
+                      f"{cell} {variant.label}: {len(entries)} recorded "
+                      f"kernel launches, {sum(len(m) for _, m in pairs)} "
+                      "attributed to its launchers")
+                findings += passes.card_findings(cell, pairs)
+                entries_all += entries
+                done[key] = [r.name for r in real]
+    finally:
+        resources.set_record(lib, False)
+    real_s = time.perf_counter() - t0
+    for f in findings:
+        print(f"  contract {f.format()}")
+    check(not findings, f"{len(findings)} shared-memory findings from the "
+          "resource record")
+    table = resources.resource_table(entries_all,
+                                     _build.build_info.get("log", ""))
+    launched = {name for names in done.values() for name in names}
+    for wrapper in ops.KERNELS:
+        check(any(name in launched for name in WRAPPER_LAUNCHERS[wrapper]),
+              f"no real launch of {wrapper} in the contracts phase")
+    check(all(e["mangled"] for e in entries_all),
+          "the resource record has a launch without its kernel's name")
+    return {"walk_s": walk_s, "real_s": real_s,
+            "cells": report.cells, "traces": report.traces,
+            "walk_launches": report.kernels,
+            "suppressed": len(report.suppressed),
+            "cuda_cells": cells_run, "real_calls": len(done),
+            "real_launches": sum(len(v) for v in done.values()),
+            "recorded_kernel_launches": len(entries_all),
+            "smem_findings": len(findings), "resources": table}
+
+
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
     "depth_major": {"binarize", "leaf_index_dm", "leaf_gather",
@@ -4431,6 +4545,17 @@ def main() -> None:
     caps["seconds"] = time.perf_counter() - t0
     print(f"caps: {json.dumps(caps)}", flush=True)
 
+    # --- the contract checker: the abstract walk (the committed report,
+    # byte for byte), then the cuda cells launched for real with the
+    # resource record on (after every timed phase: the record is off for
+    # them)
+    t0 = time.perf_counter()
+    contracts = run_contracts()
+    contracts["seconds"] = time.perf_counter() - t0
+    print(f"contract resources ({card}): "
+          f"{json.dumps(contracts.pop('resources'))}", flush=True)
+    print(f"contracts: {json.dumps(contracts)}", flush=True)
+
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
         "layouts_vs_soa": layout_err,
@@ -4443,6 +4568,7 @@ def main() -> None:
         "tolerance_control": control, "tree_padding": tree_padding,
         "index_edges": index_checks,
         "training": training_checks, "knn": knn_checks, "caps": caps,
+        "contracts": contracts,
         "distance_limit": f"matrix {K_SIGMA:g}*sqrt(K)*u*(|a|^2 + |b|^2 + "
                           f"2*sum|a_k*b_k|), rowwise {K_SIGMA:g}*sqrt(K)*u*"
                           "sum(r_k - q_k)^2 per distance"}}))

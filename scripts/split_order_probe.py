@@ -68,13 +68,17 @@ def candidates(n_leaves: int):
     while n_leaves > split_sums.LEAF_WINDOW:
         n_leaves //= split_sums.LEAF_WINDOW
         windows += 1
-    yield split_sums.LeafSumPlan(windows=windows)
-    for lanes in (2, 4, 8, 16):
-        for tail in sorted({0, lanes, 8, 16}):
-            nv = n_leaves - tail
-            if nv >= lanes and nv % lanes == 0:
-                yield split_sums.LeafSumPlan(windows=windows, lanes=lanes,
-                                             vector_leaves=nv)
+    for window_lanes in ((1, split_sums.WINDOW_LANES) if windows
+                         else (1,)):
+        yield split_sums.LeafSumPlan(windows=windows,
+                                     window_lanes=window_lanes)
+        for lanes in (2, 4, 8, 16):
+            for tail in sorted({0, lanes, 8, 16}):
+                nv = n_leaves - tail
+                if nv >= lanes and nv % lanes == 0:
+                    yield split_sums.LeafSumPlan(
+                        windows=windows, lanes=lanes, vector_leaves=nv,
+                        window_lanes=window_lanes)
 
 
 def probe(n_leaves, n_bins, n_stats, n_feat=9, seed=0):
@@ -121,7 +125,8 @@ def main(argv=None) -> int:
         wrong += [] if ok else [(n_leaves, n_bins, n_stats)]
         print(n_leaves, n_bins, n_stats,
               "table" if ok else "MISMATCH",
-              [(p.windows, p.lanes, p.vector_leaves) for p in found],
+              [(p.windows, p.lanes, p.vector_leaves, p.window_lanes)
+               for p in found],
               flush=True)
     print("mismatches:", len(wrong), wrong[:50])
     return 1 if wrong else 0

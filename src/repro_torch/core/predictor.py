@@ -40,6 +40,9 @@ Strategy = Literal["auto", "staged", "fused"]
 
 _TRACER = get_tracer()
 _STRATEGIES = ("auto", "staged", "fused")
+# Set on a thread while `Predictor.trace_entries` walks a plan: its calls
+# count no first call.
+_WALKING = threading.local()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +173,8 @@ class Predictor:
         self._replicas: dict[torch.device, LoweredEnsemble] = {
             device: lowered}
         self._sharded_cache: dict[tuple, Callable] = {}
+        self._abstract_traces: dict[tuple, Any] = {}
+        self._abstract_trace_misses = 0
         self.schema_fingerprint = borders_fingerprint(ensemble.borders)
         self._entries = {
             "raw": self._raw_impl,
@@ -244,6 +249,8 @@ class Predictor:
         `scope` (a mesh closure and its shard mode; the plan's own entries
         have none): the counterpart of the JAX package's per-trace
         counter.  `attrs` go on the `compile/<entry>` instant."""
+        if getattr(_WALKING, "on", False):
+            return
         key = (name,) + tuple(shape)
         with self._lock:
             if scope + key in self._first_calls:
@@ -531,10 +538,110 @@ class Predictor:
         self._sharded_cache[key] = fn
         return fn
 
+    # -- introspection -----------------------------------------------------
+    def trace_entries(self, batch_sizes: Sequence[int] = (8,),
+                      entries: Optional[Sequence[str]] = None, *,
+                      mesh=None, input_dtype: Optional[torch.dtype] = None
+                      ) -> dict[str, Any]:
+        """Abstract traces (`analysis.trace_tools.Trace`) of the plan's
+        entry points: the surface the contract checker's transfer, retrace
+        and shard-parity lints walk.
+
+        Each entry runs as `raw` / `proba` / ... run it (the input's checks
+        and moves, then the entry), on fake tensors of the plan's device
+        under `FakeTensorMode` with every op and kernel launch recorded:
+        nothing is computed or launched, no first call is counted
+        (`stats['traces']` does not tick) and the launch and dispatch
+        counts are left as they were.  Repeat walks of one (entry, batch
+        shape, dtype) under one quantization schema come from a cache
+        keyed like `QuantizedPool` scoring, on the borders fingerprint.
+        Returns {"<entry>@<batch>": Trace}.
+
+        Pool entries and `quantize` are left out when the ensemble has
+        more borders than uint8 bins hold; `entries` pins a list.  With
+        `mesh` (a `distributed.mesh.Mesh`, fake devices welcome), the
+        row-sharded entries join as `sharded_raw` / `sharded_raw_pool`
+        (batch sizes must divide the mesh).  `input_dtype` feeds every
+        entry inputs of that dtype instead (the retrace lint's float64
+        rows and int32 bins); an entry that refuses it is left out."""
+        from repro_torch.analysis import trace_tools
+        impls = {"raw": torch.float32, "proba": torch.float32,
+                 "classify": torch.float32, "raw_pool": torch.uint8,
+                 "proba_pool": torch.uint8, "classify_pool": torch.uint8,
+                 "quantize": torch.float32}
+        mesh_key = None
+        if mesh is not None:
+            mesh_key = (tuple(dict(mesh.shape).items()),
+                        tuple(str(d) for d in mesh.device_list))
+            impls["sharded_raw"] = torch.float32
+            impls["sharded_raw_pool"] = torch.uint8
+        if entries is None:
+            names = list(impls)
+            if self.ensemble.borders.shape[0] > MAX_BINS - 1:
+                names = [n for n in names
+                         if not n.endswith("_pool") and n != "quantize"]
+        else:
+            unknown = sorted(set(entries) - set(impls))
+            if unknown:
+                raise KeyError(f"unknown plan entries {unknown}; "
+                               f"known: {sorted(impls)}")
+            names = list(entries)
+        mode = trace_tools.fake_mode_of(
+            self.ensemble.base_score, self.lowered.borders) \
+            or trace_tools.new_fake_mode()
+        out: dict[str, Any] = {}
+        for name in names:
+            dtype = input_dtype or impls[name]
+            for n in batch_sizes:
+                shape = (int(n), self.ensemble.n_features)
+                key = (name, shape, str(dtype), self.schema_fingerprint,
+                       mesh_key if name.startswith("sharded") else None)
+                with self._lock:
+                    traced = self._abstract_traces.get(key)
+                if traced is None:
+                    try:
+                        traced = self._trace_entry(name, shape, dtype,
+                                                   mode, mesh)
+                    except (ValueError, TypeError):
+                        if input_dtype is None:
+                            raise
+                        continue
+                    with self._lock:
+                        traced = self._abstract_traces.setdefault(key,
+                                                                  traced)
+                        self._abstract_trace_misses += 1
+                out[f"{name}@{int(n)}"] = traced
+        return out
+
+    def _trace_entry(self, name: str, shape: tuple, dtype: torch.dtype,
+                     mode, mesh):
+        from repro_torch.analysis import trace_tools
+        replicas, sharded = dict(self._replicas), dict(self._sharded_cache)
+        _WALKING.on = True
+        try:
+            with trace_tools.recording(mode) as trace:
+                x = torch.empty(shape, dtype=dtype, device=self.device)
+                arg = QuantizedPool(x, self.schema_fingerprint) \
+                    if name.endswith("_pool") else x
+                if name.startswith("sharded"):
+                    out = self.sharded(mesh, shard_axis="rows")(arg)
+                else:
+                    _, data = self._as_input(arg)
+                    out = self._entries[name](data)
+                trace_tools.mark_io(trace, [x], out)
+        finally:
+            _WALKING.on = False
+            # a walk over a mesh of fake devices leaves no fake replica or
+            # closure behind
+            with self._lock:
+                self._replicas, self._sharded_cache = replicas, sharded
+        return trace
+
     @property
     def stats(self) -> dict[str, Any]:
         """First calls per entry point, distinct (entry, batch shape) keys
-        seen, the layout and the one-time lowering cost."""
+        seen, the layout, the one-time lowering cost and the abstract
+        walks traced (`trace_entries`)."""
         with self._lock:
             return {
                 "traces": dict(self._traces),
@@ -543,6 +650,7 @@ class Predictor:
                 "entry_shapes": sorted(self._entry_shapes),
                 "layout": self.config.layout,
                 "lower_time_s": self._lower_time_s,
+                "abstract_trace_misses": self._abstract_trace_misses,
             }
 
     def describe(self) -> dict[str, Any]:

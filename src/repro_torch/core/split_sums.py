@@ -20,10 +20,12 @@ backend uses inside the JAX package's jitted split step
   accumulators take leaves round robin, the lanes are added in halves,
   and the last leaves (a scalar epilogue) are added in order.  Past 32
   leaves XLA first sums windows of 32 consecutive leaves, all their
-  stats, in order (its tree-reduction rewrite), then reduces the window
-  sums in order.  Which of these it does depends on the shape;
-  `leaf_sum_plan` holds the choices, read from the compiled code by
-  `scripts/split_order_probe.py` on an x86-64 host with AVX-512.
+  stats (its tree-reduction rewrite, a reduce-window kernel of its own):
+  in order, or, where a leaf's bins and stats span at most 8 floats, in
+  8 lanes with the window's last 8 leaves as the epilogue; then it
+  reduces the window sums in order.  Which of these it does depends on
+  the shape; `leaf_sum_plan` holds the choices, read from the compiled
+  code by `scripts/split_order_probe.py` on an x86-64 host with AVX-512.
 
 Every chain of dependent adds is one sequential scan (`sequential_scan`):
 f32 adds in order, down the first axis, over every other axis at once.
@@ -85,13 +87,18 @@ def _scan_first(x: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class LeafSumPlan:
-    """How XLA adds a (leaf, stat) reduce: `windows` rounds of in-order
-    sums over `LEAF_WINDOW` consecutive leaves, then `lanes`
-    accumulators over the first `vector_leaves` leaves (1 lane: none),
-    the lanes added in halves, then the rest in order."""
+    """How XLA adds a (leaf, stat) reduce: `windows` rounds of sums over
+    `LEAF_WINDOW` consecutive leaves, then `lanes` accumulators over the
+    first `vector_leaves` leaves (1 lane: none), the lanes added in
+    halves, then the rest in order.  A window adds its leaves (stats
+    inner) in order, or, with `window_lanes` > 1 on the first round, as
+    LLVM vectorized it where a window's interleaved loads are narrow:
+    `window_lanes` accumulators over all but its last `window_lanes`
+    leaves, added in halves, then those leaves in order."""
     windows: int = 0
     lanes: int = 1
     vector_leaves: int = 0
+    window_lanes: int = 1
 
 
 def _table(spec: str) -> frozenset[int]:
@@ -101,6 +108,13 @@ def _table(spec: str) -> frozenset[int]:
         out.update(range(int(lo), int(hi or lo) + 1))
     return frozenset(out)
 
+
+# Past 32 leaves: stats -> the bin counts whose first window round runs
+# in 8 lanes (the window's loads interleave at most 8 floats a leaf);
+# read by scripts/split_order_probe.py at 64 to 2,048 leaves.
+_WINDOW_LANES: dict[int, frozenset] = {
+    2: _table("2-4"), 3: _table("2"), 4: _table("2")}
+WINDOW_LANES = 8
 
 # (leaves, stats) -> {(lanes, epilogue leaves): the bin counts it holds
 # for}; any other bin count adds in order.  Read from the compiled JAX
@@ -124,7 +138,9 @@ def leaf_sum_plan(n_leaves: int, n_bins: int, n_stats: int) -> LeafSumPlan:
         n_leaves //= LEAF_WINDOW
         windows += 1
     if windows:
-        return LeafSumPlan(windows=windows)
+        lanes = WINDOW_LANES if n_bins in _WINDOW_LANES.get(n_stats, ()) \
+            else 1
+        return LeafSumPlan(windows=windows, window_lanes=lanes)
     for (lanes, tail), bins in _VECTORIZED.get((n_leaves, n_stats),
                                                {}).items():
         if n_bins in bins:
@@ -139,13 +155,28 @@ def leaf_stat_sum(t: torch.Tensor,
     n_feat, n_leaves, n_bins, n_stats = t.shape
     if plan is None:
         plan = leaf_sum_plan(n_leaves, n_bins, n_stats)
-    for _ in range(plan.windows):
+    for level in range(plan.windows):
         n_leaves //= LEAF_WINDOW
         # (window leaf, stat) in order, for every (F, L', B) at once
         w = t.view(n_feat, n_leaves, LEAF_WINDOW, n_bins, n_stats) \
-            .permute(2, 4, 0, 1, 3).reshape(LEAF_WINDOW * n_stats, n_feat,
-                                            n_leaves, n_bins)
-        t, n_stats = sequential_scan(w)[-1][..., None], 1  # (F, L', B, 1)
+            .permute(2, 4, 0, 1, 3)                   # (32, S, F, L', B)
+        k = plan.window_lanes if level == 0 else 1
+        head = None
+        if k > 1:
+            # lane j: window leaves j, j + k, ... of the first 32 - k
+            nv = LEAF_WINDOW - k
+            v = w[:nv].reshape(nv // k, k, n_stats, n_feat, n_leaves,
+                               n_bins).transpose(1, 2)
+            acc = sequential_scan(v.reshape(nv // k * n_stats, k, n_feat,
+                                            n_leaves, n_bins))[-1]
+            while k > 1:
+                k //= 2
+                acc = acc[:k] + acc[k:2 * k]
+            head, w = acc, w[nv:]   # (1, F, L', B)
+        rest = w.reshape(-1, n_feat, n_leaves, n_bins)
+        if head is not None:
+            rest = torch.cat([head, rest])
+        t, n_stats = sequential_scan(rest)[-1][..., None], 1  # (F, L', B, 1)
     out: Optional[torch.Tensor] = None
     nv, lanes = plan.vector_leaves, plan.lanes
     if nv:

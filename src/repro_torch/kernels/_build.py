@@ -6,14 +6,25 @@ one shared library with a plain C interface under
 `build/repro_torch_kernels/` at the root of the checkout, and loads it.
 The library's name carries a hash of the sources and flags, so an edited
 source builds a new library and an unchanged one is loaded as it is.
+Beside it lies the compiler's `-Xptxas -v` output (the same name, `.log`),
+which a later process reads back into `build_info["log"]`.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine with no `nvcc`.  A failed build raises, and so does a
 launch whose CUDA status is not 0 (`launch`).
+
+`recording_launches()` is the contract checker's view of the launchers
+(`repro_torch.analysis`): inside it, on the thread that entered it,
+`check_cuda_tensors`, `bind` and `launch` append what they were asked to
+do to a list (launcher, device, arguments; tensors as dtype, shape and
+device) and launch nothing, and `library()` is never loaded.  Outside it
+they behave as they always do: no kernel is replaced on any path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -22,7 +33,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -55,6 +66,13 @@ _SIGNATURES = {
     "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG) + (_INT,) * 5,
     "repro_l2sq_split": (_PTR,) * 6 + (_INT,) * 4,
     "repro_l2sq_matrix": (_PTR,) * 5 + (_INT,) * 5,
+}
+# The resource record (csrc/runtime.cu): its switch, and one launch's
+# entry read back by index.
+_RECORD_SIGNATURES = {
+    "repro_resource_record": ((_INT,), _INT),
+    "repro_resource_record_count": ((), _INT),
+    "repro_resource_record_entry": ((_INT, _PTR), _INT),
 }
 
 _lock = threading.Lock()
@@ -90,6 +108,11 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def log_path(target: pathlib.Path) -> pathlib.Path:
+    """Where the compiler's output of library `target` is kept."""
+    return target.with_suffix(".log")
+
+
 def _compile(target: pathlib.Path) -> None:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
@@ -111,6 +134,8 @@ def _compile(target: pathlib.Path) -> None:
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
         staged = pathlib.Path(tmp, target.name)
+        staged_log = pathlib.Path(tmp, log_path(target).name)
+        staged_log.write_text("\n".join(logs))
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged),
              *(str(obj) for _, obj, _ in jobs)],
@@ -118,7 +143,10 @@ def _compile(target: pathlib.Path) -> None:
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
                                f"{link.stderr}")
-        os.replace(staged, target)    # atomic: no reader sees half a file
+        # atomic: no reader sees half a file; the log first, so a library
+        # that exists has its log beside it
+        os.replace(staged_log, log_path(target))
+        os.replace(staged, target)
     build_info.update(seconds=time.perf_counter() - t0, log="\n".join(logs))
 
 
@@ -130,6 +158,8 @@ def library() -> ctypes.CDLL:
             target = BUILD_DIR / f"librepro_torch_kernels_{source_hash()}.so"
             if not target.exists():
                 _compile(target)
+            elif "log" not in build_info and log_path(target).exists():
+                build_info["log"] = log_path(target).read_text()
             build_info["path"] = str(target)
             lib = ctypes.CDLL(str(target))
             for name, args in _SIGNATURES.items():
@@ -138,14 +168,104 @@ def library() -> ctypes.CDLL:
                 fn.restype = _INT
             lib.repro_cuda_error_string.argtypes = [_INT]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            for name, (args, res) in _RECORD_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = res
             _lib = lib
         return _lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorArg:
+    """A tensor argument as a record keeps it."""
+    dtype: torch.dtype
+    shape: tuple[int, ...]
+    device: torch.device
+
+    def __str__(self) -> str:
+        return (f"{str(self.dtype).removeprefix('torch.')}"
+                f"[{','.join(str(d) for d in self.shape)}]@{self.device}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchRecord:
+    """One call `recording_launches` saw: `kind` "check" (the tensors a
+    wrapper checked, `args` (name, TensorArg) pairs), "bind" (a launcher
+    bound, no arguments) or "launch" (a launcher called, `args` as passed:
+    ints, None, TensorArg; a bound launcher's pointers are ints).
+    `tensors` holds the tensor objects themselves, for callers that follow
+    them through a trace."""
+    kind: str
+    name: str
+    device: Optional[torch.device]
+    args: tuple
+    tensors: tuple = dataclasses.field(default=(), compare=False,
+                                       repr=False)
+
+    def tensor_args(self) -> list[tuple[int, TensorArg]]:
+        """(position, TensorArg) of every tensor argument of a launch."""
+        return [(i, a) for i, a in enumerate(self.args)
+                if isinstance(a, TensorArg)]
+
+
+_RECORDING = threading.local()
+
+
+def _describe(a: Any) -> Any:
+    if isinstance(a, torch.Tensor):
+        return TensorArg(a.dtype, tuple(int(d) for d in a.shape), a.device)
+    if isinstance(a, ctypes._SimpleCData):
+        return a.value
+    return a
+
+
+def _record(kind: str, name: str, device, args: tuple,
+            tensors: tuple = ()) -> bool:
+    """Append a record when this thread is recording; True when the call
+    must not go on to the library."""
+    state = getattr(_RECORDING, "state", None)
+    if state is None:
+        return False
+    records, sink, execute = state
+    rec = LaunchRecord(kind, name, device, args, tensors)
+    records.append(rec)
+    if sink is not None:
+        sink(rec)
+    return not execute
+
+
+@contextlib.contextmanager
+def recording_launches(sink: Optional[Callable[[LaunchRecord], None]] = None,
+                       *, execute: bool = False):
+    """Record every `check_cuda_tensors`, `bind` and `launch` this thread
+    makes inside the block into the list it yields (and pass each record
+    to `sink` as it is made).  Launches are not made and `library()` is
+    not loaded, unless `execute`: then each call is recorded and made as
+    usual (what `chip_smoke.py` holds against a recorded walk)."""
+    records: list[LaunchRecord] = []
+    prev = getattr(_RECORDING, "state", None)
+    _RECORDING.state = (records, sink, execute)
+    try:
+        yield records
+    finally:
+        _RECORDING.state = prev
+
+
+def recording() -> bool:
+    """Whether this thread is inside `recording_launches`."""
+    return getattr(_RECORDING, "state", None) is not None
 
 
 def check_cuda_tensors(op: str, **tensors: tuple[torch.Tensor, torch.dtype]
                        ) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor of its
     dtype, all on one device: what the kernels take."""
+    if recording():
+        _record("check", op, None,
+                tuple((name, _describe(t)) for name, (t, _) in
+                      tensors.items()),
+                tuple(t for t, _ in tensors.values()))
     devices = set()
     for name, (t, dtype) in tensors.items():
         if not t.is_cuda:
@@ -179,6 +299,12 @@ def bind(name: str, device: torch.device) -> Callable[..., None]:
     looked up now: for a route that launches it many times in a row.
     Call the result with data pointers and ints; it raises on a non-zero
     CUDA status."""
+    if recording():
+        skip = _record("bind", name, device, ())
+        if skip:
+            return lambda *c_args: _record(
+                "launch", name, device,
+                tuple(_describe(a) for a in c_args))
     lib = library()
     fn = getattr(lib, name)
     index = device.index
@@ -192,13 +318,24 @@ def bind(name: str, device: torch.device) -> Callable[..., None]:
             torch.cuda.set_device(current)
         if status:
             _launch_failed(lib, name, status)
-    return call
+
+    if not recording():
+        return call
+
+    def recorded(*c_args: int) -> None:
+        _record("launch", name, device, tuple(_describe(a) for a in c_args))
+        call(*c_args)
+    return recorded
 
 
 def launch(name: str, device: torch.device, *args: Any) -> None:
     """Call launcher `name` on `device`'s current stream; tensors are
     passed as their data pointers.  The process's current device is the
     same after the call.  Raises on a non-zero CUDA status."""
+    if recording() and _record(
+            "launch", name, device, tuple(_describe(a) for a in args),
+            tuple(a for a in args if isinstance(a, torch.Tensor))):
+        return
     lib = library()
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]

@@ -215,10 +215,12 @@ int launch(const float* x, const float* borders, OutT* out, long long n_rows,
   const unsigned grid = static_cast<unsigned>(blocks);
   const int vec = aligned ? 1 : 0;
   if (!staged) {
+    note_launch(binarize_kernel<OutT, false>, 0);
     binarize_kernel<OutT, false><<<grid, kThreads, 0, s>>>(
         x, borders, out, n_rows, n_feat, n_borders, vec);
     return launch_status();
   }
+  note_launch(binarize_kernel<OutT, true>, smem);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(binarize_kernel<OutT, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

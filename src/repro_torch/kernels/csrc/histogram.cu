@@ -329,6 +329,7 @@ int launch_accumulate(const void* bins_t, const int32_t* leaf,
                   static_cast<unsigned>(n_groups));
   const size_t smem = sizeof(unsigned long long) * feats_per_block *
                       seg_tile * n_stats;
+  note_launch(hist_accumulate_kernel<BinT>, smem);
   cudaError_t err = cudaFuncSetAttribute(
       hist_accumulate_kernel<BinT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -375,6 +376,7 @@ extern "C" int repro_histogram(const void* bins_t, const void* leaf,
   err = cudaMemsetAsync(mb, 0, sizeof(unsigned) * n_stats, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_pass = kAuxThreads / n_stats;
+  note_launch(hist_absmax_kernel, 0);
   hist_absmax_kernel<<<grid_for(n_rows, rows_per_pass, 1024), kAuxThreads,
                        0, s>>>(g, mb, n_rows, n_stats);
   if (int st = launch_status()) return st;
@@ -394,6 +396,7 @@ extern "C" int repro_histogram(const void* bins_t, const void* leaf,
                                            feats_per_block, row_chunks, s);
   if (st || row_chunks == 1) return st;
 
+  note_launch(hist_round_kernel, 0);
   hist_round_kernel<<<grid_for(n_cells, kAuxThreads, 4096), kAuxThreads, 0,
                       s>>>(static_cast<const long long*>(acc), mb, op,
                            n_cells, n_rows, n_stats);

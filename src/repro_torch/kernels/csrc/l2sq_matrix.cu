@@ -481,6 +481,7 @@ extern "C" int repro_l2sq_split(const void* a, const void* b, void* a_split,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(m_rows) + n_rows;
   const long long warps = kSplitThreads / 32;
+  note_launch(l2sq_split_kernel, 0);
   l2sq_split_kernel<<<static_cast<unsigned>((rows + warps - 1) / warps),
                       kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), m_rows,
@@ -512,6 +513,7 @@ extern "C" int repro_l2sq_matrix(const void* a_split, const void* b_split,
       static_cast<long long>((m_rows + kTileM - 1) / kTileM) *
       ((n_rows + kTileN - 1) / kTileN);
   if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  note_launch(l2sq_matrix_kernel, static_cast<size_t>(smem));
   err = cudaFuncSetAttribute(l2sq_matrix_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);

@@ -193,6 +193,7 @@ using VecLaunch = void (*)(dim3, dim3, cudaStream_t, const float4*,
 template <int J, bool kStride>
 void launch_vec(dim3 grid, dim3 block, cudaStream_t s, const float4* q4,
                 const float4* refs4, float* out, long long n_rows, int k4) {
+  note_launch(l2sq_rowwise_kernel<J, kStride>, 0);
   l2sq_rowwise_kernel<J, kStride><<<grid, block, 0, s>>>(q4, refs4, out,
                                                          n_rows, k4);
 }
@@ -231,6 +232,7 @@ extern "C" int repro_l2sq_rowwise(const void* q, const void* refs, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* op = static_cast<float*>(out);
   if (route == kScalar) {
+    note_launch(l2sq_rowwise_scalar_kernel, 0);
     l2sq_rowwise_scalar_kernel<<<grid, block, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(refs), op,
         n_rows, k_dim);

@@ -234,6 +234,7 @@ extern "C" int repro_leaf_gather(const void* idx, const void* lv, void* out,
   const float* lp = static_cast<const float*>(lv);
   float* op = static_cast<float*>(out);
   if (!staged) {
+    note_launch(gather_direct_kernel, 0);
     gather_direct_kernel<<<grid, threads, 0, s>>>(ip, lp, op, n_rows, n_trees,
                                                   n_leaves, n_out, slab,
                                                   lanes);

@@ -108,9 +108,20 @@ def _binarize_cuda(x, borders, out_dtype=torch.int32):
     return _binarize_k.binarize(x, borders, out_dtype=out_dtype)
 
 
+# Declared widening exception, the JAX package's `ref` one: the plain
+# version widens each gathered uint8 column to int32 for its compare, so
+# the 2^30 PAD_SPLIT_BIN of padded trees never goes right.  The kernels
+# compare the bytes as they are (`cuda`, `cuda_bp`; `torch_ref_bp`
+# against a uint8 plane) and carry no suppression.
 @registry.register("leaf_index", "torch_ref", dtypes=("int32", "uint8"),
                    layouts=SOA_LAYOUTS,
-                   constraints="any shape; compares in int32")
+                   constraints="any shape; compares in int32",
+                   suppressions=(
+                       "widening: the plain version compares the gathered "
+                       "uint8 column in int32 against int32 split bins "
+                       "(PAD_SPLIT_BIN never goes right); it runs on the "
+                       "CPU, where no shared-memory contract applies "
+                       "(depth_grouped routes here too)",))
 def _leaf_index_ref(bins, sf, sb):
     return _ref.leaf_index(bins, sf, sb)
 
@@ -151,9 +162,17 @@ def _fused_cuda(x, borders, sf, sb, lv):
 
 
 # Depth-major siblings: (D, T) int32 planes and (D, 1) f32 level weights.
+# Declared widening exception, the port's own: its depth-major plain
+# version compares as `torch_ref` does (the JAX package's `ref_dm` gathers
+# through a one-hot matmul instead, which its checker sanctions).
 @registry.register("leaf_index", "torch_ref_dm", dtypes=("int32", "uint8"),
                    layouts=("depth_major",),
-                   constraints="(D, T) planes; any shape")
+                   constraints="(D, T) planes; any shape",
+                   suppressions=(
+                       "widening: the plain version compares the gathered "
+                       "uint8 column in int32 against the int32 plane, as "
+                       "torch_ref does; it runs on the CPU, where no "
+                       "shared-memory contract applies",))
 def _leaf_index_ref_dm(bins, sf_dm, sb_dm, pow2):
     return _ref.leaf_index_depth_major(bins, sf_dm, sb_dm, pow2)
 
@@ -210,10 +229,18 @@ def _fused_cuda_bp(x, borders, sf_bp, sb_bp, lv):
 
 
 # The training histogram reads no model structure: every layout.  Bins
-# are uint8 (a pool) or int32 (`fit_bins`).
+# are uint8 (a pool) or int32 (`fit_bins`).  Declared widening exception,
+# the JAX package's `ref` one: the plain version's segment ids are
+# `leaf * n_bins + bins` in int64 for `index_add_` (the shape of the
+# widening bug the checker exists to catch, here on purpose: clarity over
+# bandwidth); the kernel reads the bytes.
 @registry.register("histogram", "torch_ref", dtypes=("int32", "uint8"),
                    layouts=ALL_LAYOUTS,
-                   constraints="any shape; segment-sum by index_add_")
+                   constraints="any shape; segment-sum by index_add_",
+                   suppressions=(
+                       "widening: the plain segment sum forms int64 "
+                       "segment ids from pool bins for index_add_; the "
+                       "CUDA kernel reads the uint8 stream as it is",))
 def _histogram_ref(bins_t, leaf, g, *, n_bins, n_leaves):
     return _ref.histogram(bins_t, leaf, g, n_bins=n_bins, n_leaves=n_leaves)
 

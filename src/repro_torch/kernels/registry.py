@@ -14,6 +14,11 @@ registers named implementations with capability metadata:
             takes: the `_dm` / `_bp` implementations take the (D, T)
             planes of depth_major / bitpacked, and `resolve(...,
             layout=)` routes to them by name suffix
+  suppressions  declared exceptions to the contract checker's rules
+            (`repro_torch.analysis`), "rule: reason" each: a finding of
+            that rule against the implementation is reported as
+            suppressed, and a suppression no finding matches is itself
+            a finding
 
 The registry is the one place that picks the code for a device: `auto`
 resolves to `cuda` on a CUDA device and to `torch_ref` on the CPU, and a
@@ -26,6 +31,7 @@ quantized pool" is a checkable invariant.
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 from typing import Any, Callable, Optional
 
@@ -54,6 +60,7 @@ class KernelImpl:
     devices: tuple[str, ...]
     layouts: tuple[str, ...]
     constraints: str
+    suppressions: tuple[str, ...] = ()
 
 
 _REGISTRY: dict[str, dict[str, KernelImpl]] = {}
@@ -65,11 +72,14 @@ _CALL_STATS_LOCK = threading.Lock()
 
 def register(op: str, name: str, *, dtypes: tuple[str, ...] = ("int32",),
              layouts: tuple[str, ...] = ("soa",),
-             constraints: str = "") -> Callable:
+             constraints: str = "",
+             suppressions: tuple[str, ...] = ()) -> Callable:
     """Decorator: register `fn` as implementation `name` of `op`.  The
     family is the name's prefix; registering a name twice is an error.
     `layouts` names the layouts whose arrays `fn` takes (ops that read
-    no model structure, binarize and leaf_gather, claim every layout)."""
+    no model structure, binarize and leaf_gather, claim every layout);
+    `suppressions` the contract checker's rules it is exempt from, with
+    the reason ("rule: reason")."""
     family = next((f for f in FAMILIES if name.startswith(f)), None)
     if family is None:
         raise ValueError(f"implementation {name!r} belongs to no family "
@@ -82,9 +92,22 @@ def register(op: str, name: str, *, dtypes: tuple[str, ...] = ("int32",),
         impls[name] = KernelImpl(
             op=op, name=name, fn=fn, family=family, dtypes=tuple(dtypes),
             devices=("cuda",) if family == "cuda" else ("cpu",),
-            layouts=tuple(layouts), constraints=constraints)
+            layouts=tuple(layouts), constraints=constraints,
+            suppressions=tuple(suppressions))
         return fn
     return deco
+
+
+def unregister(op: str, name: str) -> None:
+    """Remove a registered implementation: for test fixtures, which
+    register a deliberately broken one against the contract checker and
+    must not leave it behind.  An unknown (op, name) raises KeyError."""
+    impls = _REGISTRY.get(op)
+    if impls is None or name not in impls:
+        raise KeyError(f"kernel impl {op}:{name} not registered")
+    del impls[name]
+    if not impls:
+        del _REGISTRY[op]
 
 
 def ops() -> list[str]:
@@ -216,9 +239,12 @@ def call_stats() -> dict[str, int]:
         return dict(_CALL_STATS)
 
 
-def reset_call_stats() -> None:
+def reset_call_stats(stats: Optional[dict[str, int]] = None) -> None:
+    """Clear the counts, or set them to `stats` (a `call_stats()` taken
+    earlier: the contract checker's walk leaves them as it found them)."""
     with _CALL_STATS_LOCK:
         _CALL_STATS.clear()
+        _CALL_STATS.update(stats or {})
 
 
 def table() -> list[dict[str, str]]:
@@ -228,22 +254,40 @@ def table() -> list[dict[str, str]]:
              "dtypes": "/".join(impl.dtypes),
              "devices": "/".join(impl.devices),
              "layouts": "/".join(impl.layouts),
-             "constraints": impl.constraints}
+             "constraints": impl.constraints,
+             "suppressions": " ; ".join(impl.suppressions)}
             for op in ops()
             for name, impl in sorted(_REGISTRY[op].items())]
 
 
-def format_table() -> str:
-    """`table()` as a markdown table, with this process's `call_stats()`
-    total for each row's op (`launch.serve --show-kernels` prints it).
-    The JAX package's `verified` column, the contract checker's verdict,
-    waits for the port's checker (ROADMAP A10)."""
+def load_verified() -> dict[str, str]:
+    """Per-implementation verdicts ("op:impl" -> "ok" / "ok (n
+    suppressed)" / "FAIL") from the contract checker's committed report
+    (`launch.analyze`); {} when it is missing or unreadable (the column
+    then shows "-")."""
+    from repro_torch.analysis.report import default_report_path
+    try:
+        verified = json.loads(default_report_path().read_text(
+            encoding="utf-8")).get("verified", {})
+    except (OSError, ValueError):
+        return {}
+    return {str(k): str(v) for k, v in verified.items()}
+
+
+def format_table(verified: Optional[dict[str, str]] = None) -> str:
+    """`table()` as a markdown table (`launch.serve --show-kernels` prints
+    it), with the contract checker's verdict for each row (`verified`;
+    by default `load_verified()`, `{}` leaves the column blank) and this
+    process's `call_stats()` total for the row's op."""
+    if verified is None:
+        verified = load_verified()
     stats = call_stats()
     rows = table()
     for r in rows:
+        r["verified"] = verified.get(f"{r['op']}:{r['impl']}", "-")
         r["dispatch_count"] = str(stats.get(r["op"], 0))
     cols = ("op", "impl", "family", "dtypes", "devices", "layouts",
-            "dispatch_count", "constraints")
+            "verified", "dispatch_count", "constraints")
     widths = {c: max(len(c), *(len(r[c]) for r in rows)) for c in cols}
 
     def line(vals):

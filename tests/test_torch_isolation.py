@@ -39,6 +39,8 @@ def test_fresh_import_loads_no_jax_and_no_repro_module():
     assert "repro_torch.serving.engine" in loaded
     assert "repro_torch.kernels._build" in loaded
     assert "repro_torch.distributed.mesh" in loaded
+    assert "repro_torch.analysis.checker" in loaded
+    assert "repro_torch.launch.analyze" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -115,8 +115,11 @@ def test_serve_takes_no_lm_arch_flag():
 def test_format_table_has_a_row_per_implementation():
     lines = registry.format_table().splitlines()
     assert lines[0].split("|")[1].strip() == "op"
-    assert "dispatch_count" in lines[0] and "verified" not in lines[0]
+    # the contract checker's verdict sits beside the dispatch count
+    cols = [c.strip() for c in lines[0].split("|")[1:-1]]
+    assert cols.index("verified") + 1 == cols.index("dispatch_count")
     assert len(lines) == 2 + len(registry.table())
+    assert all("| ok" in line for line in lines[2:])
 
 
 def _example(name: str):

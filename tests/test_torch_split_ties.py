@@ -188,11 +188,13 @@ def test_blocked_cumsum_over_rows_bit_equal_jnp_cumsum(n):
 
 
 # one shape of each plan in `split_sums.leaf_sum_plan`'s table, and
-# shapes that add in order
+# shapes that add in order; past 32 leaves, windows whose first round runs
+# in 8 lanes (bins x stats of at most 8 floats a leaf) and in order
 @pytest.mark.parametrize("n_leaves,n_bins,n_stats", [
     (8, 32, 1), (4, 9, 2), (8, 16, 2), (16, 3, 1), (16, 64, 1),
     (16, 100, 1), (16, 2, 2), (32, 32, 1), (32, 9, 1), (32, 128, 1),
-    (32, 9, 3), (64, 17, 2), (512, 33, 1)])
+    (32, 9, 3), (64, 17, 2), (512, 33, 1), (64, 2, 2), (128, 3, 2),
+    (256, 2, 3), (1024, 4, 2), (2048, 2, 4), (64, 3, 3)])
 def test_leaf_sum_plan_is_xla_order_on_this_host(n_leaves, n_bins, n_stats):
     plan = split_sums.leaf_sum_plan(n_leaves, n_bins, n_stats)
     assert plan in probe.probe(n_leaves, n_bins, n_stats)
@@ -215,3 +217,31 @@ def test_split_sums_run_in_one_order_on_any_device_shape():
     assert torch.equal(got, want)
     seq = split_sums.leaf_stat_sum(t, split_sums.LeafSumPlan())
     assert not torch.equal(got, seq)
+
+
+def test_window_lanes_add_as_written():
+    """A first window round in 8 lanes: lane j takes window leaves j, j +
+    8, j + 16 (stats inner), the lanes are added in halves, then leaves
+    24-31 in order; the windows' sums then add in order."""
+    t = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.5, 2.0, size=(2, 64, 3, 2)).astype(np.float32))
+    got = split_sums.leaf_stat_sum(
+        t, split_sums.LeafSumPlan(windows=1, window_lanes=8))
+    windows = []
+    for w in range(2):
+        lane = [None] * 8
+        for j in range(8):
+            for leaf in range(32 * w + j, 32 * w + 24, 8):
+                for s in range(2):
+                    term = t[:, leaf, :, s]
+                    lane[j] = term if lane[j] is None else lane[j] + term
+        lane = [lane[j] + lane[j + 4] for j in range(4)]
+        lane = [lane[j] + lane[j + 2] for j in range(2)]
+        acc = lane[0] + lane[1]
+        for leaf in range(32 * w + 24, 32 * w + 32):
+            for s in range(2):
+                acc = acc + t[:, leaf, :, s]
+        windows.append(acc)
+    assert torch.equal(got, windows[0] + windows[1])
+    assert not torch.equal(got, split_sums.leaf_stat_sum(
+        t, split_sums.LeafSumPlan(windows=1)))
