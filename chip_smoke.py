@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's training, serving, bulk-scoring and kNN
-an H100 and check them.
+"""Drive the PyTorch/CUDA port's training, serving, bulk-scoring, kNN and
+LM serving paths on an H100 and check them.
 
 Run from the root of a checkout, on a machine with one Hopper card:
 
@@ -68,10 +68,19 @@ to 0 before each path and read after it:
     outputs, rows past the old 48 KB bins tiles and past the opt-in limit,
     66 histogram stats), numpy-seeded random models, against the plain
     versions;
-  * last the contracts phase: the contract checker (`repro_torch.analysis`)
+  * the contracts phase: the contract checker (`repro_torch.analysis`)
     walks the registry, the plans and the row-sharded entries abstractly,
     then each `cuda` cell's canonical, bucket, bulk, distance and 66-stat
-    calls run for real with the library's resource record on.
+    calls run for real with the library's resource record on;
+  * last the lm phase (plain PyTorch, no hand-written kernel): the ten LM
+    architectures' smoke configs on the card and on the CPU from one set
+    of seeded f32 weights, while `repro_torch.launch.serve --mode lm
+    --arch glm4-9b` and `--arch whisper-small` run, each in a process of
+    its own; then glm4-9b (9.40 B parameters) and zamba2-1.2b at full
+    width, f32 weights from a seeded generator on the card served by an
+    `LMServer` in bf16, 2 prompts of 32 (zamba2: 64, its SSD chunk) tokens
+    and 16 new tokens: prefill, decode and `generate` times, a profiled
+    decode step and prefill, peak memory and the decode step's bytes bound.
 
 It checks:
 
@@ -195,6 +204,16 @@ It checks:
     old cap and past the opt-in limit (both routes exercised); the
     histogram at 66 stats (two launches, depths 0 and 3, uint8 and int32
     bins, 20,000 and 17 rows) equals `ref.histogram_fixed` bit for bit;
+  * lm: each smoke config's forward and its prefill + 16 greedy decode
+    steps (along the CPU's tokens) on the card within rtol = atol = 1e-4
+    of the CPU's logits (TF32 off), `pos` equal, and the card's
+    `LMServer.generate` tokens the CPU's up to the first step whose top-two
+    margin is 2e-4 or less; at full width the decode logits at the prompt's
+    end within the bf16 limit (`bf16_limit`: 8·sqrt(12L + 2)·2^-8 times
+    the row's rms, L the blocks on the path) of `forward`'s, two `generate`
+    calls equal, every logit finite, `pos` advanced; both launcher
+    processes exit 0 and print JAX's `[serve:lm]` line; the launch counts
+    do not move across the phase;
   * contracts: the checker's report has no unsuppressed finding and is
     byte for byte the committed results/analysis_torch/contract-report.json;
     every real call makes the launches its walk recorded, launcher for
@@ -230,7 +249,8 @@ profiles 10 training trees; the bulk path's rows/s, chunk shape, quantize
 share and the card's busy share over one run;
 and times the soa tree-looping kernels once more on a model padded to a
 multiple of 32 trees.  The last three lines of output are the `kernels`
-JSON, the serving and training JSON and the result line.  Any failed
+JSON, the serving and training JSON (with the lm phase's record) and the
+result line.  Any failed
 check exits non-zero before the result line.
 """
 from __future__ import annotations
@@ -1650,10 +1670,11 @@ class InterruptingSink:
         return self.inner.close()
 
 
-def device_busy_share(run) -> float | None:
-    """The share of one call of `run`'s wall time in which the card ran
-    any kernel, copy or memset (the union of their intervals, so the two
-    streams' overlap counts once), from `torch.profiler`; None where the
+def device_profile(run) -> dict | None:
+    """One call of `run` under `torch.profiler`: the share of its wall
+    time in which the card ran any kernel, copy or memset (the union of
+    their intervals, so the two streams' overlap counts once), that busy
+    time, the wall time and the device operations; None where the
     profiler sees no device events."""
     import torch
     from torch.autograd import DeviceType
@@ -1677,7 +1698,14 @@ def device_busy_share(run) -> float | None:
         else:
             hi = max(hi, end)
     busy += hi - lo
-    return busy / wall_us
+    return {"busy_share": busy / wall_us, "busy_ms": busy / 1e3,
+            "wall_ms": wall_us / 1e3, "device_ops": len(spans)}
+
+
+def device_busy_share(run) -> float | None:
+    """`device_profile(run)`'s busy share."""
+    prof = device_profile(run)
+    return None if prof is None else prof["busy_share"]
 
 
 def run_bulk_path(full, x_test, tmp: str):
@@ -2626,6 +2654,11 @@ LAUNCHERS = {
     "quickstart": ("examples/torch/quickstart.py", ()),
     "serve_gbdt": ("examples/torch/serve_gbdt.py", ()),
     "embeddings_knn": ("examples/torch/embeddings_knn.py", ()),
+    # the lm phase's (`run_lm_phase`)
+    "serve_lm_glm4": ("repro_torch.launch.serve", ("--mode", "lm", "--arch",
+                                                   "glm4-9b")),
+    "serve_lm_whisper": ("repro_torch.launch.serve", (
+        "--mode", "lm", "--arch", "whisper-small")),
 }
 LAUNCHER_WORKERS = 3     # processes at a time
 # the spans and the metric-name prefix each traced launcher's files hold
@@ -2840,7 +2873,8 @@ def run_launchers() -> dict:
     holds the others' contention and the plain comparisons).  Besides
     `read_launcher`'s checks: quickstart's strategies agree and its float
     and pool predictions are equal; serve_gbdt answers every request."""
-    names = [name for name in LAUNCHERS if name != "score_cli"]
+    names = [name for name in LAUNCHERS
+             if name != "score_cli" and name not in LM_LAUNCHERS]
     with ThreadPoolExecutor(LAUNCHER_WORKERS) as workers:
         results = list(workers.map(launch_process, names))
     out = {}
@@ -4168,6 +4202,287 @@ def run_contracts() -> dict:
             "smem_findings": len(findings), "resources": table}
 
 
+# --------------------------------------------------------------------------
+# The LM serving slice: the ten smoke configs on the card against the CPU,
+# glm4-9b and zamba2-1.2b at full width, the LM launcher
+# --------------------------------------------------------------------------
+LM_BATCH = 2
+LM_SMOKE_PROMPT = 32
+LM_SMOKE_DECODE = 16     # greedy steps compared, card against CPU
+LM_PARITY = 1e-4         # rtol = atol on f32 logits, card against CPU
+LM_MARGIN = 2e-4         # tokens compared where the top-two gap exceeds it
+LM_FULL = {"glm4-9b": 32, "zamba2-1.2b": 64}   # prompt (zamba2: its chunk)
+LM_NEW = 16              # tokens generated at full width
+LM_TIMED = 3             # prefill calls timed after the first
+LM_LAUNCHERS = ("serve_lm_glm4", "serve_lm_whisper")
+U_BF16 = 2.0 ** -8       # unit roundoff of bfloat16
+ROUNDINGS_PER_LAYER = 12  # bf16 roundings a block puts on a logit's path
+BF16_TENSOR_OPS_PER_S = 989e12   # dense bf16 on the tensor cores
+
+
+def bf16_limit(n_layers: int, want):
+    """Per-row bound on |logits - reference| of two bf16 evaluations of
+    one model (the port's tests use the same rule): a walk of n = 12 L + 2
+    bf16 roundings, each of relative size u = 2^-8 of the row's scale (the
+    rms of the reference row), widened K_SIGMA = 8 times."""
+    n = ROUNDINGS_PER_LAYER * n_layers + 2
+    rms = want.double().square().mean(dim=-1, keepdim=True).sqrt()
+    return K_SIGMA * math.sqrt(n) * U_BF16 * rms
+
+
+def lm_path_layers(cfg) -> int:
+    """Blocks on a decoded token's path: the stack's, and a hybrid's
+    shared-attention applications."""
+    from repro_torch.models import transformer as tf
+    return cfg.n_layers + (tf.hybrid_n_apps(cfg) if cfg.family == "hybrid"
+                           else 0)
+
+
+def lm_inputs(cfg, prompt: int, extra: int, seed: int):
+    """Numpy prompt tokens (B, prompt + extra) and, for vlm / audio, zero
+    frontend embeddings, as the launcher sends them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (LM_BATCH, prompt + extra)).astype(np.int32)
+    fe = (np.zeros((LM_BATCH, cfg.frontend_seq, cfg.d_model), np.float32)
+          if cfg.frontend else None)
+    return toks, fe
+
+
+def lm_batch(toks, fe, device):
+    import torch
+    batch = {"tokens": torch.as_tensor(toks, device=device)}
+    if fe is not None:
+        batch["frontend_embeds"] = torch.as_tensor(fe, device=device)
+    return batch
+
+
+def lm_greedy_path(cfg, params, toks, fe, max_seq: int, device,
+                   path=None):
+    """Prefill, then LM_SMOKE_DECODE decode steps, each fed the argmax of
+    the step before or, given `path` (another device's run), that run's
+    tokens: each step's last-position logits on the CPU, the tokens fed
+    and the final `pos`."""
+    import torch
+    from repro_torch.models import transformer as tf
+    logits, cache = tf.prefill(cfg, params, lm_batch(toks, fe, device),
+                               max_seq)
+    out, fed = [logits[:, -1].cpu()], []
+    for step in range(LM_SMOKE_DECODE):
+        tok = (path[step] if path is not None else
+               torch.argmax(out[-1], -1)[:, None].to(torch.int32))
+        fed.append(tok)
+        logits, cache = tf.decode_step(cfg, params, cache, tok.to(device))
+        out.append(logits[:, -1].cpu())
+    return out, fed, int(cache["pos"])
+
+
+def run_lm_smokes(card: str) -> dict:
+    """(a) Each architecture's smoke config from one seeded set of f32
+    weights, on the card and on the CPU: forward, and prefill + 16 greedy
+    decode steps along the CPU's path, logits within LM_PARITY; the card's
+    `LMServer.generate` gives the CPU's tokens up to the first step whose
+    top-two margin is within LM_MARGIN on the CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import LMServer
+    out = {}
+    for seed, name in enumerate(configs.ARCHS):
+        cfg = configs.get(name, smoke=True)
+        params = tf.init_params(cfg, torch.Generator().manual_seed(seed),
+                                max_positions=256, device="cpu")
+        on_card = tf.params_on(cfg, params, card)
+        toks, fe = lm_inputs(cfg, LM_SMOKE_PROMPT, 0, seed)
+        max_seq = 128 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+        rec = {}
+        with torch.inference_mode():
+            want, _ = tf.forward(cfg, params, lm_batch(toks, fe, "cpu"))
+            got, _ = tf.forward(cfg, on_card, lm_batch(toks, fe, card))
+            errs = [(got.cpu() - want).abs().max().item()]
+            check(torch.allclose(got.cpu(), want, rtol=LM_PARITY,
+                                 atol=LM_PARITY),
+                  f"{name}: card forward differs from the CPU's by "
+                  f"{errs[0]}")
+            cpu_path, fed, cpu_pos = lm_greedy_path(cfg, params, toks, fe,
+                                                    max_seq, "cpu")
+            card_path, _, card_pos = lm_greedy_path(cfg, on_card, toks, fe,
+                                                    max_seq, card, fed)
+            check(card_pos == cpu_pos, f"{name}: pos {card_pos} != {cpu_pos}")
+            for step, (g, w) in enumerate(zip(card_path, cpu_path)):
+                errs.append((g - w).abs().max().item())
+                check(torch.allclose(g, w, rtol=LM_PARITY, atol=LM_PARITY),
+                      f"{name}: step {step} logits differ from the CPU's "
+                      f"by {errs[-1]}")
+            tokens = LMServer(cfg, on_card, max_seq=max_seq,
+                              device=card).generate(toks, LM_SMOKE_DECODE,
+                                                    fe)
+        compared = 0
+        for row in range(LM_BATCH):
+            for step in range(LM_SMOKE_DECODE):
+                top2 = cpu_path[step][row].topk(2).values
+                if float(top2[0] - top2[1]) <= LM_MARGIN:
+                    break
+                want_tok = int(torch.argmax(cpu_path[step][row]))
+                check(int(tokens[row, step]) == want_tok,
+                      f"{name}: generated token {step} of row {row} is "
+                      f"{int(tokens[row, step])}, the CPU's {want_tok}")
+                compared += 1
+        rec.update(max_abs_err=max(errs), tokens_compared=compared,
+                   pos=card_pos)
+        out[name] = rec
+    return out
+
+
+def lm_bytes(params: dict, cache: dict) -> int:
+    """Bytes a decode step must move: every parameter but the embedding
+    read once (the embedding: B rows), and the cache read once."""
+    from repro_torch.models import transformer as tf
+    total = sum(t.numel() * t.element_size()
+                for path, t in tf.tree_leaves(params) if path != "embed")
+    emb = params["embed"]
+    total += LM_BATCH * emb.shape[1] * emb.element_size()
+    return total + sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def run_lm_full(name: str, prompt: int, card: str) -> dict:
+    """(b), (c) One architecture at full width: f32 weights from a seeded
+    generator on the card, served by an `LMServer` in bf16 (the f32 tree
+    freed once the server holds its copy), B = 2 prompts.  Checks: the
+    decode logits at position `prompt` lie within `bf16_limit` of
+    `forward`'s there; two `generate` calls give the same tokens; every
+    logit is finite and `pos` advanced.  Times: prefill (CUDA events,
+    median of LM_TIMED), each decode step (events; the median), a
+    `generate` of LM_NEW tokens on the host clock; one decode step and one
+    prefill under `torch.profiler` (`device_profile`); peak memory."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import LMServer
+    cfg = configs.get(name)
+    rec = {"arch": name, "param_count": cfg.param_count(), "prompt": prompt,
+           "batch": LM_BATCH, "new": LM_NEW,
+           "compute_dtype": cfg.compute_dtype}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=card).manual_seed(
+        SEED), device=card)
+    rec["params"] = sum(t.numel() for _, t in tf.tree_leaves(params))
+    server = LMServer(cfg, params, max_seq=prompt + LM_NEW + 1, device=card)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    toks, fe = lm_inputs(cfg, prompt, 1, SEED)
+    p, max_seq = server.params, server.max_seq
+    with torch.inference_mode():
+        pre = lm_batch(toks[:, :prompt], fe, card)
+        logits, cache = tf.prefill(cfg, p, pre, max_seq)
+        finite = bool(torch.isfinite(logits).all())
+        dec, cache = tf.decode_step(cfg, p, cache, torch.as_tensor(
+            toks[:, prompt:], device=card))
+        finite &= bool(torch.isfinite(dec).all())
+        check(int(cache["pos"]) == prompt + 1,
+              f"{name}: pos {int(cache['pos'])} after a decode step")
+        fwd, _ = tf.forward(cfg, p, lm_batch(toks, fe, card))
+        finite &= bool(torch.isfinite(fwd).all())
+        check(finite, f"{name}: non-finite logits")
+        want = fwd[:, prompt].double().cpu()
+        limit = bf16_limit(lm_path_layers(cfg), want)
+        err = (dec[:, 0].double().cpu() - want).abs()
+        over = float((err / limit).max())
+        rec["decode_vs_forward"] = {
+            "max_abs_err": float(err.max()), "limit_min": float(limit.min()),
+            "err_over_limit": over,
+            "prefill_last_max_abs_err": float(
+                (logits[:, 0].double().cpu()
+                 - fwd[:, prompt - 1].double().cpu()).abs().max())}
+        check(over <= 1.0, f"{name}: decode logits at {prompt} differ from "
+              f"forward's by {float(err.max())}, {over:.3g} times the bf16 "
+              "limit")
+        bytes_moved = lm_bytes(p, cache)
+        del fwd, dec, logits, cache
+        rec["prefill_ms"] = events_ms(lambda: tf.prefill(cfg, p, pre,
+                                                         max_seq), LM_TIMED)
+        _, cache = tf.prefill(cfg, p, pre, max_seq)
+        tok = torch.as_tensor(toks[:, prompt:], device=card)
+        steps = []
+        for _ in range(LM_NEW):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = tf.decode_step(cfg, p, cache, tok)
+            end.record()
+            end.synchronize()
+            steps.append(start.elapsed_time(end))
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        # one more step (the cache's last slot) and a prefill, profiled
+        rec["decode_profile"] = device_profile(
+            lambda: tf.decode_step(cfg, p, cache, tok))
+        rec["prefill_profile"] = device_profile(
+            lambda: tf.prefill(cfg, p, pre, max_seq))
+        del cache
+    rec["decode_ms"] = float(np.median(steps))
+    rec["decode_ms_min_max"] = [float(min(steps)), float(max(steps))]
+    rec["decode_bound_ms"], rec["decode_bound_by"] = (
+        bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes")
+    rec["decode_bytes"] = bytes_moved
+    n_tok = LM_BATCH * prompt
+    rec["prefill_bound_ms"] = max(
+        bytes_moved / HBM_BYTES_PER_S,
+        2 * cfg.param_count() * n_tok / BF16_TENSOR_OPS_PER_S) * 1e3
+    generated = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generated.append(server.generate(toks[:, :prompt], LM_NEW, fe))
+        rec["generate_s"] = time.perf_counter() - t0
+    check(np.array_equal(*generated), f"{name}: two generate calls differ")
+    check(generated[0].shape == (LM_BATCH, LM_NEW),
+          f"{name}: generated {generated[0].shape}")
+    rec["tokens_per_s"] = LM_BATCH * LM_NEW / rec["generate_s"]
+    rec["decode_tokens_per_s"] = LM_BATCH / rec["decode_ms"] * 1e3
+    rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del server, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_lm_phase(card_name: str, card: str = "cuda") -> dict:
+    """The `lm` phase: (a) the smoke configs, card against CPU, while (d)
+    the LM launcher serves a decoder and the encoder-decoder, each in a
+    process of its own; then, alone on the card, (b) glm4-9b and (c)
+    zamba2-1.2b at full width.  No hand-written kernel runs in it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LM_LAUNCHERS)) as workers:
+        procs = [workers.submit(launch_process, name)
+                 for name in LM_LAUNCHERS]
+        out = {"smokes": run_lm_smokes(card)}
+        out["smokes_s"] = time.perf_counter() - t0
+        results = [future.result() for future in procs]
+    out["launchers"] = {}
+    for name, proc, secs in results:
+        rec, printed = read_launcher(name, proc, secs)
+        check(any(line.startswith("[serve:lm] ") and " generated (2, 16) "
+                  in line for line in printed),
+              f"{name} printed no [serve:lm] line")
+        out["launchers"][name] = {k: rec[k] for k in ("wall_s", "args",
+                                                      "launches")}
+    for name, prompt in LM_FULL.items():
+        out[name] = run_lm_full(name, prompt, card)
+        print(f"lm {name} ({card_name}): {json.dumps(out[name])}",
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
     "depth_major": {"binarize", "leaf_index_dm", "leaf_gather",
@@ -4206,6 +4521,8 @@ PATH_KERNELS = {
                    "fused_predict"},
     "embeddings_knn": {"l2sq_matrix", "binarize", "histogram", "leaf_index",
                        "leaf_gather", "fused_predict"},
+    "serve_lm_glm4": set(),
+    "serve_lm_whisper": set(),
 }
 
 
@@ -4556,6 +4873,17 @@ def main() -> None:
           f"{json.dumps(contracts.pop('resources'))}", flush=True)
     print(f"contracts: {json.dumps(contracts)}", flush=True)
 
+    # --- the LM serving slice: plain PyTorch, no hand-written kernel, so
+    # the launch counts must not move across it
+    torch.cuda.empty_cache()
+    before = ops.launch_counts()
+    lm = run_lm_phase(card)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == before,
+          f"the lm phase launched hand-written kernels: {before} -> "
+          f"{ops.launch_counts()}")
+    print(f"lm: {json.dumps(lm)}", flush=True)
+
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
         "layouts_vs_soa": layout_err,
@@ -4586,7 +4914,7 @@ def main() -> None:
                       "fit_source": fit_source, "score_cli": score_cli,
                       "training_remainders": remainders,
                       "fit_scan": fit_scan, "launchers": launchers,
-                      "splits": splits, "telemetry": telemetry,
+                      "splits": splits, "telemetry": telemetry, "lm": lm,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {

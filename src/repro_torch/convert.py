@@ -13,6 +13,11 @@ reference embeddings and labels, as numpy) into the port's.
 `train_state_from_jax` reads a JAX trainer's `TrainState.tree()`, or a
 checkpoint it wrote, into the port's `TrainState`: both packages write the
 same keys, dtypes and files.
+
+`lm_params_from_numpy` carries an LM parameter tree (the JAX package's
+`init_params` output as nested dicts of numpy arrays) into the port's
+nested dict of tensors on the CPU, key for key; `lm_params_to_numpy` is
+its inverse.
 """
 from __future__ import annotations
 
@@ -81,3 +86,26 @@ def train_state_from_jax(source: Mapping[str, np.ndarray] | str
     if not path.is_dir():
         raise FileNotFoundError(f"no checkpoint directory at {path}")
     return TrainState.from_tree(CheckpointManager(path).restore(step))
+
+
+def lm_params_from_numpy(tree: Mapping) -> dict:
+    """Nested dict of numpy arrays -> the same dict of CPU tensors (copies).
+    A bfloat16 array (the `ml_dtypes` type JAX hands numpy) keeps its
+    bits."""
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_to_numpy(params: Mapping) -> dict:
+    """The port's parameter dict -> nested dict of numpy arrays, key for
+    key; bfloat16 tensors come back as float32 (exact: numpy has no
+    bfloat16)."""
+    if isinstance(params, Mapping):
+        return {k: lm_params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,15 +1,18 @@
-"""Serving launcher: batched GBDT scoring through a `ModelRegistry`.
+"""Serving launcher: batched GBDT scoring through a `ModelRegistry`, or LM
+generation through an `LMServer`.
 
 The port's counterpart of `src/repro/launch/serve.py`, on the card unless
 ``--device cpu``:
 
   python -m repro_torch.launch.serve --mode gbdt --multi 3
+  python -m repro_torch.launch.serve --mode lm --arch glm4-9b
   python -m repro_torch.launch.serve --show-kernels
 
-`--mode lm` (LM generation) waits for the port's LM scaffold (ROADMAP
-A11).  ``--trace-out FILE`` writes a Chrome trace of the run (load it in
-Perfetto), ``--metrics-out FILE`` each model's `serving/<name>` metrics
-(Prometheus text for a ``.prom`` file, JSON otherwise).
+`--mode lm` serves the smoke config of `--arch` with random weights, as
+the JAX launcher does.  ``--trace-out FILE`` writes a Chrome trace of the
+run (load it in Perfetto), ``--metrics-out FILE`` each model's
+`serving/<name>` metrics (Prometheus text for a ``.prom`` file, JSON
+otherwise).
 """
 from __future__ import annotations
 
@@ -84,6 +87,30 @@ def serve_gbdt(args) -> None:
         registry.close()
 
 
+def serve_lm(args) -> None:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import LMServer
+
+    cfg = configs.get(args.arch, smoke=True)
+    generator = torch.Generator().manual_seed(0)
+    params = tf.init_params(cfg, generator, max_positions=256,
+                            device="cpu")
+    server = LMServer(cfg, params, max_seq=128 + (
+        cfg.frontend_seq if cfg.family == "vlm" else 0), device=args.device)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    fe = (np.zeros((2, cfg.frontend_seq, cfg.d_model), np.float32)
+          if cfg.frontend else None)
+    t0 = time.perf_counter()
+    out = server.generate(toks, n_new=16, frontend_embeds=fe)
+    dt = time.perf_counter() - t0
+    print(f"[serve:lm] {cfg.name} generated {out.shape} tokens "
+          f"in {dt:.2f}s")
+
+
 def show_kernels(args) -> None:
     """The kernel registry and layout tables, and the layout this process
     would resolve for `--layout`."""
@@ -118,6 +145,9 @@ def parse_args(argv=None):
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--mode", choices=["gbdt", "lm"], default="gbdt")
+    ap.add_argument("--arch", default="glm4-9b",
+                    help="--mode lm: the architecture whose smoke config "
+                         "is served (repro_torch.configs.ARCHS)")
     ap.add_argument("--dataset", default="santander")
     ap.add_argument("--scale", type=float, default=0.004)
     ap.add_argument("--trees", type=int, default=100)
@@ -156,11 +186,7 @@ def main(argv=None) -> int:
     if args.show_kernels:
         show_kernels(args)
         return 0
-    if args.mode == "lm":
-        print("--mode lm needs the LM scaffold, which the port does not "
-              "have yet (ROADMAP A11)", file=sys.stderr)
-        return 2
-    serve_gbdt(args)
+    (serve_gbdt if args.mode == "gbdt" else serve_lm)(args)
     return 0
 
 

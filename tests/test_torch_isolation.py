@@ -41,6 +41,9 @@ def test_fresh_import_loads_no_jax_and_no_repro_module():
     assert "repro_torch.distributed.mesh" in loaded
     assert "repro_torch.analysis.checker" in loaded
     assert "repro_torch.launch.analyze" in loaded
+    assert "repro_torch.configs" in loaded
+    assert "repro_torch.models.transformer" in loaded
+    assert "repro_torch.models.ssm" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -5,7 +5,8 @@
     here); each of the five `--check` contracts fails when broken;
   * `repro_torch.launch.serve`: gbdt mode with tree-slice variants and
     `predict_multi`, `--show-kernels` (the registry's `format_table`, the
-    layout table, the resolved layouts), `--mode lm` naming ROADMAP A11;
+    layout table, the resolved layouts), `--mode lm --arch` for a
+    decoder and for the encoder-decoder (JAX's line);
   * `examples/torch/{quickstart,serve_gbdt,embeddings_knn}.py`;
   * each launcher's `--trace-out x.json --metrics-out y.prom`: a Chrome
     trace that loads, with the launcher's spans, and the JAX launchers'
@@ -101,15 +102,21 @@ def test_serve_show_kernels(capsys):
     assert "resolved layout: bitpacked" in capsys.readouterr().out
 
 
-def test_serve_lm_mode_names_the_roadmap_item(capsys):
-    assert serve.main(["--mode", "lm", "--device", "cpu"]) == 2
-    assert "ROADMAP A11" in capsys.readouterr().err
+@pytest.mark.parametrize("arch", ["glm4-9b", "whisper-small"])
+def test_serve_lm_mode_generates_on_the_cpu(arch, capsys):
+    # the arch's smoke config, as the JAX launcher serves it
+    assert serve.main(["--mode", "lm", "--arch", arch, "--device",
+                       "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"[serve:lm] {arch}-smoke generated (2, 16) "
+                          "tokens in ")
 
 
-def test_serve_takes_no_lm_arch_flag():
-    # the LM config flag arrives with the LM scaffold (ROADMAP A11)
-    with pytest.raises(SystemExit):
-        serve.parse_args(["--arch", "glm4-9b"])
+def test_serve_lm_arch_defaults_to_jax_default():
+    assert serve.parse_args(["--mode", "lm"]).arch == "glm4-9b"
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.main(["--mode", "lm", "--arch", "llama-7b", "--device",
+                    "cpu"])
 
 
 def test_format_table_has_a_row_per_implementation():
