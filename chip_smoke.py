@@ -72,7 +72,7 @@ to 0 before each path and read after it:
     walks the registry, the plans and the row-sharded entries abstractly,
     then each `cuda` cell's canonical, bucket, bulk, distance and 66-stat
     calls run for real with the library's resource record on;
-  * last the lm phase (plain PyTorch, no hand-written kernel): the ten LM
+  * the lm phase (plain PyTorch, no hand-written kernel): the ten LM
     architectures' smoke configs on the card and on the CPU from one set
     of seeded f32 weights, while `repro_torch.launch.serve --mode lm
     --arch glm4-9b` and `--arch whisper-small` run, each in a process of
@@ -80,7 +80,18 @@ to 0 before each path and read after it:
     width, f32 weights from a seeded generator on the card served by an
     `LMServer` in bf16, 2 prompts of 32 (zamba2: 64, its SSD chunk) tokens
     and 16 new tokens: prefill, decode and `generate` times, a profiled
-    decode step and prefill, peak memory and the decode step's bytes bound.
+    decode step and prefill, peak memory and the decode step's bytes bound;
+  * last the lm_train phase (autograd through the same plain models): one
+    AdamW train step of the ten smoke configs on the card and on the CPU,
+    while `repro_torch.launch.train --steps 4` and
+    `examples/torch/train_lm.py --steps 20` run, each in a process of its
+    own; then internvl2-1b and zamba2-1.2b trained at full width by the
+    `Trainer` on `make_local_mesh(1)`: 10 steps at B = 2, S = 4,096 (the
+    train_4k length) from `TokenSource`, remat on, checkpoints every 5
+    steps, the mid-run checkpoint restored and run to the end: step ms
+    (CUDA events) against the step's FLOP bound, tokens/s, peak memory,
+    checkpoint and restore seconds, a profiled step; glm4-9b's f32
+    training state (150 GB) against the card's memory, not allocated.
 
 It checks:
 
@@ -214,6 +225,15 @@ It checks:
     calls equal, every logit finite, `pos` advanced; both launcher
     processes exit 0 and print JAX's `[serve:lm]` line; the launch counts
     do not move across the phase;
+  * lm_train: each smoke config's gradients within rtol = atol = 1e-4 of
+    the CPU's, its step's loss and grad_norm within 1e-4, its parameters
+    after the step within `lm_param_rule` (the gradient rule through the
+    first AdamW update); at full width finite losses whose mean over
+    steps 6-10 is below that over 1-5, the resumed run's losses,
+    parameters and optimizer state the uninterrupted run's bit for bit
+    (else the first op that differs between two runs is named and the
+    run held to a stated bound); both processes exit 0 and print JAX's
+    lines; the launch counts do not move across the phase;
   * contracts: the checker's report has no unsuppressed finding and is
     byte for byte the committed results/analysis_torch/contract-report.json;
     every real call makes the launches its walk recorded, launcher for
@@ -1670,11 +1690,12 @@ class InterruptingSink:
         return self.inner.close()
 
 
-def device_profile(run) -> dict | None:
+def device_profile(run, top: int = 0) -> dict | None:
     """One call of `run` under `torch.profiler`: the share of its wall
     time in which the card ran any kernel, copy or memset (the union of
     their intervals, so the two streams' overlap counts once), that busy
-    time, the wall time and the device operations; None where the
+    time, the wall time and the device operations, and with `top` the
+    `top` operation names that took the most device time; None where the
     profiler sees no device events."""
     import torch
     from torch.autograd import DeviceType
@@ -1698,8 +1719,15 @@ def device_profile(run) -> dict | None:
         else:
             hi = max(hi, end)
     busy += hi - lo
-    return {"busy_share": busy / wall_us, "busy_ms": busy / 1e3,
-            "wall_ms": wall_us / 1e3, "device_ops": len(spans)}
+    out = {"busy_share": busy / wall_us, "busy_ms": busy / 1e3,
+           "wall_ms": wall_us / 1e3, "device_ops": len(spans)}
+    if top:
+        by_name = Counter()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name[:80]] += e.time_range.elapsed_us() / 1e3
+        out["top_ms"] = dict(by_name.most_common(top))
+    return out
 
 
 def device_busy_share(run) -> float | None:
@@ -2659,6 +2687,12 @@ LAUNCHERS = {
                                                    "glm4-9b")),
     "serve_lm_whisper": ("repro_torch.launch.serve", (
         "--mode", "lm", "--arch", "whisper-small")),
+    # the lm_train phase's (`run_lm_train_phase`), each with a checkpoint
+    # directory of its own that the phase empties first
+    "train_lm": ("repro_torch.launch.train", (
+        "--steps", "4", "--ckpt-dir", "build/lm_train/launcher")),
+    "train_lm_example": ("examples/torch/train_lm.py", (
+        "--steps", "20", "--ckpt-dir", "build/lm_train/example")),
 }
 LAUNCHER_WORKERS = 3     # processes at a time
 # the spans and the metric-name prefix each traced launcher's files hold
@@ -2873,8 +2907,8 @@ def run_launchers() -> dict:
     holds the others' contention and the plain comparisons).  Besides
     `read_launcher`'s checks: quickstart's strategies agree and its float
     and pool predictions are equal; serve_gbdt answers every request."""
-    names = [name for name in LAUNCHERS
-             if name != "score_cli" and name not in LM_LAUNCHERS]
+    names = [name for name in LAUNCHERS if name != "score_cli"
+             and name not in LM_LAUNCHERS + LM_TRAIN_LAUNCHERS]
     with ThreadPoolExecutor(LAUNCHER_WORKERS) as workers:
         results = list(workers.map(launch_process, names))
     out = {}
@@ -4483,6 +4517,451 @@ def run_lm_phase(card_name: str, card: str = "cuda") -> dict:
 
 
 
+# --------------------------------------------------------------------------
+# The LM training slice: one train step of the ten smoke configs on the
+# card against the CPU, internvl2-1b and zamba2-1.2b trained at full width
+# through the `Trainer`, the training launcher and example
+# --------------------------------------------------------------------------
+LM_TRAIN_SEQ = 32        # smoke batches: B = LM_BATCH, S = 32
+LM_TRAIN_LR = 1e-3       # adamw(lr=1e-3), as tests/test_torch_lm_train_step.py
+LM_TRAIN_FULL = {"internvl2-1b": 4096, "zamba2-1.2b": 4096}   # train_4k
+LM_TRAIN_STEPS = 10
+LM_TRAIN_CKPT_EVERY = 5
+LM_TRAIN_TIMED_FROM = 3  # steps whose CUDA-event times are the median
+LM_TRAIN_LAUNCHERS = ("train_lm", "train_lm_example")
+LM_TRAIN_CKPT_DIRS = ("build/lm_train/launcher", "build/lm_train/example")
+LM_TRAIN_STATE_BYTES = 16    # f32 params, grads and AdamW's two moments
+LM_TRAIN_FIT_ARCH = "glm4-9b"
+LM_TRAIN_FRONTEND_SEED = 1000   # + step: the full-width runs' image embeddings
+
+
+def lm_param_rule(grads: dict, params: dict, grad_norm: float) -> dict:
+    """Per-element bound on |p_card - p_cpu| after one AdamW step from the
+    same parameters (tests/test_torch_lm_train_step.py's `param_rule`,
+    where it is derived): the gradient rule |dg| <= LM_PARITY (1 + |g|)
+    carried through the first update -lr g' / (|g'| + eps), g' the
+    clipped gradient, plus the roundings of the update and of p + u."""
+    eps, clip = 1e-8, 1.0
+    g = {k: v.double().abs() for k, v in grads.items()}
+    dn = math.sqrt(sum(float(((LM_PARITY + LM_PARITY * v) ** 2).sum())
+                       for v in g.values()))
+    s = min(1.0, clip / (grad_norm + 1e-9))
+    ds = max(0.0, min(1.0, clip / max(grad_norm - dn, 1e-30)) - s)
+    out = {}
+    for k, gk in g.items():
+        d = s * (LM_PARITY + LM_PARITY * gk) + gk * ds
+        m = (s * gk - d).clamp(min=0.0)
+        out[k] = (LM_TRAIN_LR * (d * eps / (m + eps) ** 2).clamp(max=2.0)
+                  + 2 * U * (params[k].double().abs() + 2 * LM_TRAIN_LR))
+    return out
+
+
+def lm_train_batch(cfg, seed: int) -> dict:
+    """Numpy tokens, next-token-free random labels and, for vlm / audio,
+    normal frontend embeddings, as the tests draw them."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (
+        LM_BATCH, LM_TRAIN_SEQ)).astype(np.int32),
+        "labels": rng.integers(0, cfg.vocab_size, (
+            LM_BATCH, LM_TRAIN_SEQ)).astype(np.int32)}
+    if cfg.frontend:
+        batch["frontend_embeds"] = rng.normal(size=(
+            LM_BATCH, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def lm_grads(cfg, params: dict, batch: dict) -> dict:
+    """{path: gradient} of `steps.loss_fn` by autograd."""
+    import torch
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    leaves = dict(tf.tree_leaves(params))
+    diff = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+    loss, _ = steps.loss_fn(cfg, tf.unflatten(diff), batch)
+    return dict(zip(diff, torch.autograd.grad(loss, list(diff.values()))))
+
+
+def lm_frontend(cfg, step: int) -> np.ndarray:
+    """Seeded normal frontend embeddings for a full-width step, the ViT
+    stub's stand-in (as the tests draw them).  All-zero embeddings, the
+    launcher's, keep the image positions at exactly 0 through every
+    block, where each rms_norm backward scales the gradient by
+    1 / sqrt(eps): over internvl2-1b's 24 blocks it overflows f32, in the
+    JAX package too (tests/test_torch_lm_train_step.py)."""
+    return np.random.default_rng(LM_TRAIN_FRONTEND_SEED + step) \
+        .standard_normal((LM_BATCH, cfg.frontend_seq, cfg.d_model),
+                         dtype=np.float32)
+
+
+def run_lm_train_smokes(card: str) -> dict:
+    """(a) Each architecture's smoke config: one `make_train_step` on the
+    card and on the CPU from one seeded set of f32 weights and one batch
+    (TF32 off).  The gradients within rtol = atol = LM_PARITY, the step's
+    loss and grad_norm within LM_PARITY, the parameters after the step
+    within `lm_param_rule`."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt
+    out = {}
+    for seed, name in enumerate(configs.ARCHS):
+        cfg = configs.get(name, smoke=True)
+        params = tf.init_params(cfg, torch.Generator().manual_seed(seed),
+                                max_positions=LM_TRAIN_SEQ, device="cpu")
+        batch = lm_train_batch(cfg, seed)
+        runs = {}
+        for device in ("cpu", card):
+            p = {k: v.to(device, copy=True) for k, v in
+                 tf.tree_leaves(params)}
+            b = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+            grads = lm_grads(cfg, tf.unflatten(p), b)
+            o = opt.adamw(lr=LM_TRAIN_LR)
+            new, state, metrics = steps.make_train_step(cfg, o)(
+                tf.unflatten(p), o.init(tf.unflatten(p)), b)
+            runs[device] = (
+                {k: v.cpu() for k, v in grads.items()},
+                {k: v.cpu() for k, v in tf.tree_leaves(new)},
+                {k: float(v) for k, v in metrics.items()})
+        (g_cpu, p_cpu, m_cpu), (g_card, p_card, m_card) = runs["cpu"], \
+            runs[card]
+        grad_err = max(float((g_card[k] - g_cpu[k]).abs().max())
+                       for k in g_cpu)
+        for k in g_cpu:
+            check(torch.allclose(g_card[k], g_cpu[k], rtol=LM_PARITY,
+                                 atol=LM_PARITY),
+                  f"{name}: card gradient {k} differs from the CPU's by "
+                  f"{float((g_card[k] - g_cpu[k]).abs().max())}")
+        for key in ("loss", "grad_norm", "ce", "aux"):
+            check(abs(m_card[key] - m_cpu[key]) <= LM_PARITY * (
+                1 + abs(m_cpu[key])), f"{name}: card {key} "
+                f"{m_card[key]} against the CPU's {m_cpu[key]}")
+        rule = lm_param_rule(g_cpu, p_cpu, m_cpu["grad_norm"])
+        over, moved = 0.0, 0
+        for k in p_cpu:
+            err = (p_card[k].double() - p_cpu[k].double()).abs()
+            over = max(over, float((err / rule[k]).max()))
+            moved += int((err > 1e-5).sum())
+        check(over <= 1.0, f"{name}: parameters after a card step differ "
+              f"from the CPU's by {over:.3g} times the derived rule")
+        out[name] = {"loss": m_card["loss"], "grad_max_abs_err": grad_err,
+                     "loss_abs_err": abs(m_card["loss"] - m_cpu["loss"]),
+                     "grad_norm_abs_err": abs(m_card["grad_norm"]
+                                              - m_cpu["grad_norm"]),
+                     "params_err_over_rule": over,
+                     "params_moved_past_1e-5": moved}
+    return out
+
+
+def lm_train_flops(cfg, seq: int) -> tuple[float, dict]:
+    """FLOPs of one remat train step at LM_BATCH x seq text tokens: 8 N T
+    for the block weights (forward, the remat's second forward, and the
+    backward's two products), T counting a vlm's frontend positions too;
+    6 N T for the output head (outside the remat) over text tokens; and
+    each attention application's score and value products, 4 B H S^2 hd
+    a forward (the full masked square, as the port computes it), 4 times.
+    The SSD's intra-chunk products and the embedding gather are left
+    out."""
+    from repro_torch.models import transformer as tf
+    shapes = dict(tf.tree_leaves(tf.param_shapes(cfg)))
+    size = {k: math.prod(v) for k, v in shapes.items()}
+    head = size.get("lm_head", size["embed"] if cfg.tie_embeddings else 0)
+    blocks = sum(v for k, v in size.items()
+                 if k.startswith(("blocks/", "shared_attn/")))
+    pos = seq + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    apps = (tf.hybrid_n_apps(cfg) if cfg.family == "hybrid"
+            else cfg.n_layers if cfg.n_heads else 0)
+    shared = (sum(v for k, v in size.items() if k.startswith("shared_attn/"))
+              * (apps - 1) if cfg.family == "hybrid" else 0)
+    parts = {"blocks": 8 * (blocks + shared) * LM_BATCH * pos,
+             "head": 6 * head * LM_BATCH * seq,
+             "attention": 16 * LM_BATCH * cfg.n_heads * pos ** 2
+             * cfg.resolved_head_dim * apps}
+    return float(sum(parts.values())), parts
+
+
+def first_differing_op(step, params, opt_state, batch) -> str | None:
+    """Run `step` twice from copies of (`params`, `opt_state`), keeping for
+    every floating tensor an op makes (op name, the sum of its float64
+    values) on the device, and name the first op whose result differs
+    between the runs, or None."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import transformer as tf
+
+    class Sums(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names, self.sums = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                if torch.is_tensor(t) and t.is_floating_point():
+                    self.names.append(str(func))
+                    self.sums.append(t.detach().double().sum())
+            return out
+
+    def copy(tree):
+        return tf.unflatten({k: v.clone() for k, v in tf.tree_leaves(tree)})
+
+    runs = []
+    for _ in range(2):
+        p, o = copy(params), copy(opt_state)
+        with Sums() as mode:
+            step(p, o, batch)
+        torch.cuda.synchronize()
+        runs.append((mode.names, torch.stack(mode.sums).cpu()))
+        del p, o
+    (names, a), (_, b) = runs
+    diff = (a != b) & ~(a.isnan() & b.isnan())
+    return names[int(diff.nonzero()[0])] if bool(diff.any()) else None
+
+
+ADAM_STEP_RATIO = 1.2    # |mhat| / sqrt(vhat) over AdamW's first ten steps
+
+
+def run_lm_train_full(name: str, seq: int, card: str) -> dict:
+    """(b), (c) One architecture trained at full width by the `Trainer` on
+    `make_local_mesh(1)`: LM_TRAIN_STEPS steps at B = LM_BATCH, S = seq
+    from `TokenSource` (vlm: `lm_frontend`'s embeddings), checkpoints every
+    LM_TRAIN_CKPT_EVERY steps in a temporary directory.  Checks: finite
+    losses, a lower mean over the second half than over the first; a
+    fresh `Trainer` restored from the mid-run checkpoint and run to the
+    end gives the uninterrupted run's losses, parameters and optimizer
+    state bit for bit.  Where it does not, the first op whose result
+    differs between two runs of one step is named, the losses are held to
+    LM_PARITY and the parameters to sum_t 2 lr_t (1.2 + wd |p|): by
+    Cauchy-Schwarz |mhat| / sqrt(vhat) <= 1.2 over AdamW's first ten steps
+    (b1 = 0.9, b2 = 0.95), so one step moves a parameter by at most
+    lr_t (1.2 + wd |p|).  Times: each step's CUDA events (the median from
+    step LM_TRAIN_TIMED_FROM), tokens/s, peak memory, each checkpoint's
+    save on the caller (the host copy) and the waits for its background
+    write, the restore, one profiled step (its top operations by device
+    time); the step's FLOP bound.  A vlm also records which gradient
+    leaves go non-finite with all-zero frontend embeddings (`lm_frontend`:
+    in either package)."""
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenSource
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import warmup_cosine
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = configs.get(name)
+    positions = seq + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    rec = {"arch": name, "batch": LM_BATCH, "seq": seq, "positions":
+           positions, "steps": LM_TRAIN_STEPS, "remat": cfg.remat,
+           "compute_dtype": cfg.compute_dtype}
+    tcfg = TrainerConfig(total_steps=LM_TRAIN_STEPS,
+                         ckpt_every=LM_TRAIN_CKPT_EVERY)
+    ts = TokenSource(cfg.vocab_size, seq, LM_BATCH)
+
+    def stream():
+        step = 0
+        while True:
+            b = ts.next_batch(step)
+            if cfg.frontend:
+                b["frontend_embeds"] = lm_frontend(cfg, step)
+            yield b
+            step += 1
+
+    def timed_trainer(ckpt_dir):
+        """A `Trainer` whose steps record CUDA events, whose saves record
+        their time on the caller (the host copy) and whose waits for a
+        save's background write record how long they waited (the last:
+        the whole write of the final checkpoint)."""
+        tr = Trainer(cfg, make_local_mesh(1), ckpt_dir, tcfg)
+        real_step, real_save = tr._step, tr.ckpt.save
+        real_wait = tr.ckpt.wait
+        tr.events, tr.save_s, tr.wait_s = [], [], []
+
+        def step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_step(*args)
+            end.record()
+            tr.events.append((start, end))
+            return out
+
+        def save(step_no, tree, *, blocking=False):
+            tr.ckpt.wait()
+            t0 = time.perf_counter()
+            real_save(step_no, tree, blocking=blocking)
+            tr.save_s.append({"step": step_no, "blocking": blocking,
+                              "s": time.perf_counter() - t0})
+
+        def wait():
+            pending = tr.ckpt._thread is not None
+            t0 = time.perf_counter()
+            real_wait()
+            if pending:
+                tr.wait_s.append(time.perf_counter() - t0)
+
+        tr._step, tr.ckpt.save, tr.ckpt.wait = step, save, wait
+        return tr, real_step
+
+    def host(tree):
+        return {k: v.cpu() for k, v in tf.tree_leaves(tree)}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        tr, real_step = timed_trainer(run_dir)
+        tr.init_or_restore()
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = sum(t.numel() for _, t in tf.tree_leaves(tr.params))
+        rec["state_gb"] = LM_TRAIN_STATE_BYTES * rec["params"] / 1e9
+        t0 = time.perf_counter()
+        hist = tr.train(stream())
+        rec["train_s"] = time.perf_counter() - t0
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        losses = [h["loss"] for h in hist]
+        rec["losses"] = losses
+        rec["grad_norms"] = [h["grad_norm"] for h in hist]
+        half = LM_TRAIN_STEPS // 2
+        check(len(losses) == LM_TRAIN_STEPS and all(
+            math.isfinite(x) for x in losses), f"{name}: losses {losses}, "
+            f"grad norms {rec['grad_norms']}")
+        check(np.mean(losses[half:]) < np.mean(losses[:half]),
+              f"{name}: the loss did not fall: {losses}")
+        steps_ms = [a.elapsed_time(b) for a, b in tr.events]
+        rec["step_ms_each"] = steps_ms
+        rec["step_ms"] = float(np.median(steps_ms[LM_TRAIN_TIMED_FROM - 1:]))
+        rec["tokens_per_s"] = LM_BATCH * seq / rec["step_ms"] * 1e3
+        rec["saves"] = tr.save_s
+        rec["write_waits_s"] = tr.wait_s
+        rec["straggler_steps"] = tr.straggler_steps
+        flops, parts = lm_train_flops(cfg, seq)
+        rec["step_flops"], rec["step_flops_parts"] = flops, parts
+        rec["step_bound_ms"] = flops / BF16_TENSOR_OPS_PER_S * 1e3
+        rec["step_bound_by"] = "operations"
+        rec["step_over_bound"] = rec["step_ms"] / rec["step_bound_ms"]
+        want_params, want_state = host(tr.params), host(tr.opt_state)
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        # resume from the mid-run checkpoint: the later ones go
+        for later in range(half + 1, LM_TRAIN_STEPS + 1):
+            shutil.rmtree(os.path.join(run_dir, f"step_{later:09d}"),
+                          ignore_errors=True)
+        tr2, real_step = timed_trainer(run_dir)
+        t0 = time.perf_counter()
+        tr2.init_or_restore()
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        check(tr2.step == half, f"{name}: resumed at step {tr2.step}")
+        resumed = [h["loss"] for h in tr2.train(stream())]
+        got_params, got_state = host(tr2.params), host(tr2.opt_state)
+        same = resumed == losses[half:] and all(
+            torch.equal(v, want_params[k]) for k, v in got_params.items()) \
+            and all(torch.equal(v, want_state[k])
+                    for k, v in got_state.items())
+        rec["resume_bit_identical"] = same
+        batch = tr2._batch(next(iter(stream())))
+        if not same:
+            rec["first_differing_op"] = first_differing_op(
+                real_step, tr2.params, tr2.opt_state, batch)
+            sched = warmup_cosine(tcfg.peak_lr, min(1000, LM_TRAIN_STEPS
+                                                    // 10), LM_TRAIN_STEPS)
+            lrs = [float(sched(torch.tensor(c))) for c in range(
+                half + 1, LM_TRAIN_STEPS + 1)]
+            over = 0.0
+            for k, v in got_params.items():
+                limit = sum(2 * lr * (ADAM_STEP_RATIO + 0.1 * want_params[k]
+                                      .double().abs()) for lr in lrs)
+                over = max(over, float(((v.double() - want_params[k]
+                                         .double()).abs() / limit).max()))
+            rec["resume_params_over_limit"] = over
+            check(all(abs(a - b) <= LM_PARITY * (1 + abs(b))
+                      for a, b in zip(resumed, losses[half:])),
+                  f"{name}: resumed losses {resumed} against "
+                  f"{losses[half:]}")
+            check(over <= 1.0, f"{name}: resumed parameters {over:.3g} "
+                  "times past sum_t 2 lr_t (1.2 + wd |p|)")
+        del want_params, want_state, got_params, got_state
+        if cfg.frontend:
+            zero = {**batch, "frontend_embeds": torch.zeros_like(
+                batch["frontend_embeds"])}
+            grads = lm_grads(cfg, tr2.params, zero)
+            rec["zero_frontend_nonfinite_leaves"] = sorted(
+                k for k, v in grads.items() if not bool(torch.isfinite(v)
+                                                       .all()))
+            del grads, zero
+        rec["profile"] = device_profile(
+            lambda: real_step(tr2.params, tr2.opt_state, batch), top=8)
+        del tr2, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_fit(card_bytes: int) -> dict:
+    """(e) The full training state of LM_TRAIN_FIT_ARCH (f32 params,
+    grads and AdamW's two moments) against the card's memory, from its
+    abstract parameters: nothing is allocated."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = configs.get(LM_TRAIN_FIT_ARCH)
+    n = sum(t.numel() for _, t in tf.tree_leaves(tf.abstract_params(cfg)))
+    need = LM_TRAIN_STATE_BYTES * n
+    return {"arch": LM_TRAIN_FIT_ARCH, "params": n, "state_bytes": need,
+            "card_bytes": card_bytes, "fits_one_card": need < card_bytes,
+            "needs": "FSDP across cards (ROADMAP A11c)"}
+
+
+def run_lm_train_phase(card_name: str, card: str = "cuda") -> dict:
+    """The `lm_train` phase: (a) the smoke configs' train step, card
+    against CPU, while (d) the training launcher and example run, each in
+    a process of its own; then, alone on the card, (b) internvl2-1b and
+    (c) zamba2-1.2b trained at full width; (e) glm4-9b's training state
+    against the card.  No hand-written kernel runs in it."""
+    import shutil
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    for path in LM_TRAIN_CKPT_DIRS:
+        shutil.rmtree(os.path.join(ROOT, path), ignore_errors=True)
+    with ThreadPoolExecutor(len(LM_TRAIN_LAUNCHERS)) as workers:
+        procs = [workers.submit(launch_process, name)
+                 for name in LM_TRAIN_LAUNCHERS]
+        out = {"smokes": run_lm_train_smokes(card)}
+        out["smokes_s"] = time.perf_counter() - t0
+        results = [future.result() for future in procs]
+    out["launchers"] = {}
+    for name, proc, secs in results:
+        rec, printed = read_launcher(name, proc, secs)
+        want = ("[train] glm4-9b-smoke: step 4, loss " if name == "train_lm"
+                else "loss ")
+        check(any(line.startswith(want) and (name == "train_lm"
+                                              or " over 20 steps" in line)
+                  for line in printed),
+              f"{name} printed no {want!r} line")
+        out["launchers"][name] = {k: rec[k] for k in ("wall_s", "args",
+                                                      "launches")}
+        out["launchers"][name]["line"] = next(
+            line for line in printed if line.startswith(want))
+    for path in LM_TRAIN_CKPT_DIRS:
+        shutil.rmtree(os.path.join(ROOT, path), ignore_errors=True)
+    for name, seq in LM_TRAIN_FULL.items():
+        out[name] = run_lm_train_full(name, seq, card)
+        print(f"lm_train {name} ({card_name}): {json.dumps(out[name])}",
+              flush=True)
+    out["fit"] = lm_train_fit(torch.cuda.get_device_properties(0)
+                              .total_memory)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
     "depth_major": {"binarize", "leaf_index_dm", "leaf_gather",
@@ -4523,6 +5002,8 @@ PATH_KERNELS = {
                        "leaf_gather", "fused_predict"},
     "serve_lm_glm4": set(),
     "serve_lm_whisper": set(),
+    "train_lm": set(),
+    "train_lm_example": set(),
 }
 
 
@@ -4884,6 +5365,17 @@ def main() -> None:
           f"{ops.launch_counts()}")
     print(f"lm: {json.dumps(lm)}", flush=True)
 
+    # --- the LM training slice: plain PyTorch through autograd, no
+    # hand-written kernel, so the launch counts must not move across it
+    torch.cuda.empty_cache()
+    before = ops.launch_counts()
+    lm_train = run_lm_train_phase(card)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == before,
+          f"the lm_train phase launched hand-written kernels: {before} -> "
+          f"{ops.launch_counts()}")
+    print(f"lm_train: {json.dumps(lm_train)}", flush=True)
+
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
         "layouts_vs_soa": layout_err,
@@ -4915,6 +5407,7 @@ def main() -> None:
                       "training_remainders": remainders,
                       "fit_scan": fit_scan, "launchers": launchers,
                       "splits": splits, "telemetry": telemetry, "lm": lm,
+                      "lm_train": lm_train,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {

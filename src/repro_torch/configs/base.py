@@ -2,10 +2,11 @@
 
 The port's copy of the JAX package's `configs/base.py`: the same fields,
 defaults and arithmetic, so `dataclasses.asdict` of every config equals
-JAX's.  The lowering and training fields (`scan_unroll`, `remat`,
-`remat_policy`) change nothing in the port's eager models; the mesh
-fields (`attention_impl="ring"`, `flash_decode`, `sequence_parallel`)
-need the distributed LM pieces, which the port does not have yet.
+JAX's.  `scan_unroll` changes nothing in the port's eager models;
+`remat` / `remat_policy` choose what a training backward recomputes
+(`models/transformer.py`), never a value; the mesh fields
+(`attention_impl="ring"`, `flash_decode`, `sequence_parallel`) need the
+distributed LM pieces (ROADMAP A11c).
 """
 from __future__ import annotations
 

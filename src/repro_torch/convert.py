@@ -16,8 +16,11 @@ same keys, dtypes and files.
 
 `lm_params_from_numpy` carries an LM parameter tree (the JAX package's
 `init_params` output as nested dicts of numpy arrays) into the port's
-nested dict of tensors on the CPU, key for key; `lm_params_to_numpy` is
-its inverse.
+nested dict of tensors, key for key; `lm_params_to_numpy` is its inverse.
+`lm_opt_state_from_numpy` / `lm_opt_state_to_numpy` do the same for an
+optimizer state, so both packages can start from one state.  LM
+checkpoints need no converter: both trainers write the same
+`leaves.npz` keys and dtypes.
 """
 from __future__ import annotations
 
@@ -88,17 +91,18 @@ def train_state_from_jax(source: Mapping[str, np.ndarray] | str
     return TrainState.from_tree(CheckpointManager(path).restore(step))
 
 
-def lm_params_from_numpy(tree: Mapping) -> dict:
-    """Nested dict of numpy arrays -> the same dict of CPU tensors (copies).
-    A bfloat16 array (the `ml_dtypes` type JAX hands numpy) keeps its
-    bits."""
+def lm_params_from_numpy(tree: Mapping,
+                         device: torch.device | str = "cpu") -> dict:
+    """Nested dict of numpy arrays -> the same dict of tensors (copies) on
+    `device`.  A bfloat16 array (the `ml_dtypes` type JAX hands numpy)
+    keeps its bits."""
     if isinstance(tree, Mapping):
-        return {k: lm_params_from_numpy(v) for k, v in tree.items()}
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(np.array(a))
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def lm_params_to_numpy(params: Mapping) -> dict:
@@ -109,3 +113,19 @@ def lm_params_to_numpy(params: Mapping) -> dict:
         return {k: lm_params_to_numpy(v) for k, v in params.items()}
     t = params.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_opt_state_from_numpy(tree: Mapping,
+                            device: torch.device | str = "cpu") -> dict:
+    """A JAX optimizer state as numpy (`{"m", "v", "count"}` for AdamW,
+    `{"vr", "vc", "count"}` for Adafactor, `{"m", "count"}` for SGD) ->
+    the port's, key for key, on `device`: the moments f32 tensors and
+    `count` an int32 0-d tensor, as `repro_torch.training.optimizer`
+    keeps them."""
+    return lm_params_from_numpy(tree, device)
+
+
+def lm_opt_state_to_numpy(state: Mapping) -> dict:
+    """The port's optimizer state -> nested dict of numpy arrays (the
+    dtypes JAX's optimizer keeps: f32 moments, an int32 count)."""
+    return lm_params_to_numpy(state)

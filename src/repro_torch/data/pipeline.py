@@ -1,14 +1,78 @@
-"""Background prefetch between a host-side item stream and its consumer.
+"""Host-side batching and background prefetch: the port's counterpart of
+`src/repro/data/pipeline.py`.
 
-The port's counterpart of `Prefetcher` in `src/repro/data/pipeline.py`.
-`BatchIterator`, `TokenSource` and `shard_batch` belong to the LM scaffold
-and are not ported yet (ROADMAP A11).
+`BatchIterator` (shuffled epochs over array dicts) and `TokenSource` (the
+synthetic LM token stream the trainer, its launcher and example train on)
+are the JAX package's numpy code, so their batches equal JAX's array for
+array; a real deployment would swap `TokenSource` for a file-backed
+loader with the same interface (`__iter__` yielding dict batches).
+`shard_batch`, which places a batch onto a mesh, comes with the
+distributed LM slice (ROADMAP A11c).
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Callable, Iterator, Optional
+
+import numpy as np
+
+
+class BatchIterator:
+    """Shuffled epoch iterator over array dicts."""
+
+    def __init__(self, arrays: dict[str, np.ndarray], batch_size: int, *,
+                 shuffle: bool = True, seed: int = 0,
+                 drop_remainder: bool = True):
+        self.arrays = arrays
+        self.n = next(iter(arrays.values())).shape[0]
+        for v in arrays.values():
+            if v.shape[0] != self.n:
+                raise ValueError("ragged arrays")
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.drop_remainder = drop_remainder
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        order = (self.rng.permutation(self.n) if self.shuffle
+                 else np.arange(self.n))
+        stop = (self.n - self.n % self.batch_size if self.drop_remainder
+                else self.n)
+        for s in range(0, stop, self.batch_size):
+            sel = order[s:s + self.batch_size]
+            yield {k: v[sel] for k, v in self.arrays.items()}
+
+
+class TokenSource:
+    """Synthetic LM token stream: (tokens, labels) with next-token labels.
+
+    `next_batch(step)` depends on `step` alone, so a resumed run replays
+    the stream from any step."""
+
+    def __init__(self, vocab_size: int, seq_len: int, batch_size: int,
+                 seed: int = 0):
+        self.vocab_size = vocab_size
+        self.seq_len = seq_len
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self, step: int | None = None) -> dict[str, np.ndarray]:
+        rng = (np.random.default_rng(step) if step is not None else self.rng)
+        # Markov-ish stream so a model can actually reduce loss.
+        base = rng.integers(0, self.vocab_size,
+                            size=(self.batch_size, self.seq_len + 1))
+        base[:, 1::2] = (base[:, 0::2][:, :base[:, 1::2].shape[1]]
+                         + 1) % self.vocab_size
+        return {"tokens": base[:, :-1].astype(np.int32),
+                "labels": base[:, 1:].astype(np.int32)}
+
+    def __iter__(self):
+        step = 0
+        while True:
+            yield self.next_batch(step)
+            step += 1
+
 
 # How long `close` waits for the worker to finish the item in hand.
 CLOSE_TIMEOUT_S = 60.0

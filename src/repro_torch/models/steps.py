@@ -1,9 +1,5 @@
-"""Step functions: eval / prefill / decode step factories, the port's
-counterpart of the JAX package's `models/steps.py`.
-
-`make_train_step` needs the optimizer (`training/optimizer.py`), which
-comes with the LM trainer (ROADMAP A11b).
-"""
+"""Step functions: train / eval / prefill / decode step factories, the
+port's counterpart of the JAX package's `models/steps.py`."""
 from __future__ import annotations
 
 from typing import Callable
@@ -31,6 +27,46 @@ def loss_fn(cfg: ModelConfig, params, batch, mesh=None
     ce = token_loss(cfg, logits, batch["labels"])
     total = ce + AUX_WEIGHT * aux
     return total, {"ce": ce, "aux": aux}
+
+
+def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
+    """Returns fn(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    The gradient is `torch.autograd.grad` of `loss_fn` over the floating
+    leaves; `optimizer` follows `repro_torch.training.optimizer` (its
+    `update` runs with ``inplace=True``), and each parameter becomes
+    ``p + u.to(p.dtype)``.  The step updates `params` and `opt_state` in
+    place and returns them: JAX's trainer donates both, so no caller reads
+    the old values (clone them first to keep them).  `metrics` holds
+    `loss`, `ce`, `aux` and `grad_norm` as 0-d tensors on the parameters'
+    device; nothing in the step waits for the device.
+    """
+    def train_step(params, opt_state, batch):
+        paths = [path for path, leaf in tf.tree_leaves(params)
+                 if leaf.is_floating_point()]
+        flat = dict(tf.tree_leaves(params))
+        with torch.enable_grad():
+            diff = {path: flat[path].detach().requires_grad_()
+                    for path in paths}
+            loss, parts = loss_fn(cfg, tf.unflatten({**flat, **diff}),
+                                  batch, mesh=mesh)
+            grads = torch.autograd.grad(loss, [diff[p] for p in paths])
+        del diff
+        grads = tf.unflatten(dict(zip(paths, grads)))
+        with torch.no_grad():
+            gnorm = optimizer.global_norm(grads)
+            updates, opt_state = optimizer.update(grads, opt_state, params,
+                                                  inplace=True)
+            del grads
+            for path, u in tf.tree_leaves(updates):
+                p = flat[path]
+                p.add_(u.to(p.dtype))
+        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                   "aux": torch.as_tensor(parts["aux"]).detach(),
+                   "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

@@ -13,11 +13,20 @@ layers), vlm (internvl2: stub patch embeddings + decoder LM), audio
 (whisper: stub frame embeddings + enc-dec).
 
 Block parameters keep JAX's leading layer axis; each of JAX's `lax.scan`
-over layers is a Python loop over `p[i]` here.  `cfg.remat` and
-`cfg.scan_unroll` shape JAX's compiled program and change nothing in
-eager execution.  Only `mesh=None` is served: ring attention,
-`flash_decode` and `sequence_parallel` need the distributed LM pieces
-(ROADMAP A11b).
+over layers is a Python loop over one `torch.unbind` of each stacked leaf
+(whose backward is one `stack`: indexing `v[i]` layer by layer would fill
+and add a zero gradient of the whole stacked leaf L times).
+
+With `cfg.remat` and autograd on, each layer of a scan runs under
+`torch.utils.checkpoint` (non-reentrant): its activations are recomputed
+in the backward, as under JAX's `jax.checkpoint`; `remat_policy="dots"`
+keeps the outputs of `aten.mm` / `aten.addmm` (JAX's
+`dots_with_no_batch_dims_saveable`).  A hybrid's shared attention block
+is checkpointed as well: its f32 scores, kept for each of zamba2's six
+applications, would not fit one card at a 4k sequence.  Remat changes no
+value.  `cfg.scan_unroll` shapes JAX's compiled program only.  Only
+`mesh=None` is served: ring attention, `flash_decode` and
+`sequence_parallel` need the distributed LM pieces (ROADMAP A11c).
 
 Batches hold tensors on the parameters' device: `tokens` (B, S) integer
 and, for vlm / audio, `frontend_embeds` (B, S_f, D).
@@ -26,7 +35,10 @@ from __future__ import annotations
 
 from typing import Callable
 
+import functools
+
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ll
@@ -69,7 +81,7 @@ def _no_mesh(mesh) -> None:
         raise NotImplementedError(
             "the port's LM models run on one device (mesh=None); ring "
             "attention, flash_decode and sequence_parallel need the "
-            "distributed LM pieces (ROADMAP A11b)")
+            "distributed LM pieces (ROADMAP A11c)")
 
 
 # ==========================================================================
@@ -202,7 +214,8 @@ def tree_leaves(tree: dict, prefix: str = ""):
             yield path, value
 
 
-def _unflatten(items: dict) -> dict:
+def unflatten(items: dict) -> dict:
+    """The nested dict of a {"a/b/c": leaf} dict (`tree_leaves`' paths)."""
     tree: dict = {}
     for path, value in items.items():
         *heads, last = path.split("/")
@@ -224,7 +237,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     JAX's weights across with `convert.lm_params_from_numpy`."""
     dtype = _dtype(cfg.param_dtype)
     shapes = param_shapes(cfg, max_positions=max_positions)
-    return _unflatten({path: _init_leaf(generator, path, shape, dtype,
+    return unflatten({path: _init_leaf(generator, path, shape, dtype,
                                         device)
                        for path, shape in tree_leaves(shapes)})
 
@@ -233,7 +246,7 @@ def abstract_params(cfg: ModelConfig, *, max_positions: int = 0) -> Params:
     """The parameter dict as `meta` tensors: shapes and dtypes, no memory."""
     dtype = _dtype(cfg.param_dtype)
     shapes = param_shapes(cfg, max_positions=max_positions)
-    return _unflatten({path: torch.empty(shape, dtype=dtype, device="meta")
+    return unflatten({path: torch.empty(shape, dtype=dtype, device="meta")
                        for path, shape in tree_leaves(shapes)})
 
 
@@ -292,22 +305,51 @@ def _ssm_params(p) -> ssm_lib.SSMParams:
     return ssm_lib.SSMParams(*(p[f] for f in _SSM_FIELDS))
 
 
-def _layer(blocks: dict, i: int) -> dict:
-    return {k: v[i] for k, v in blocks.items()}
+def _layers(blocks: dict) -> list[dict]:
+    """One dict a layer, from one `torch.unbind` of each stacked leaf."""
+    cols = {k: torch.unbind(v) for k, v in blocks.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
-def _n_layers(blocks: dict) -> int:
-    return next(iter(blocks.values())).shape[0]
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE
+            if op in _SAVED_BY_DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """`fn` under a non-reentrant `torch.utils.checkpoint` when cfg.remat
+    asks for it and autograd is on; else `fn` itself."""
+    if not cfg.remat:
+        return fn
+    context_fn = (functools.partial(
+        torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+        if cfg.remat_policy == "dots" else torch_checkpoint.noop_context_fn)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the bodies draw no random numbers: no RNG state to stash
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           preserve_rng_state=False,
+                                           context_fn=context_fn)
+    return run
 
 
 # ==========================================================================
 # Forward (training / prefill body)
 # ==========================================================================
-def _scan_blocks(x, blocks, body):
-    """JAX's `lax.scan` over the stacked layers: (x, summed aux)."""
+def _scan_blocks(cfg: ModelConfig, x, layers: list, body):
+    """JAX's `lax.scan` (under `jax.checkpoint` with cfg.remat) over the
+    layers: (x, summed aux)."""
+    body = _remat(cfg, body)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_n_layers(blocks)):
-        x, a = body(x, _layer(blocks, i))
+    for p in layers:
+        x, a = body(x, p)
         aux = aux + a
     return x, aux
 
@@ -317,7 +359,7 @@ def _decoder_stack(cfg: ModelConfig, x, params, positions):
     def body(h, p):
         h = _attn_block(cfg, h, p, positions)
         return _mlp_block(cfg, h, p)
-    return _scan_blocks(x, params["blocks"], body)
+    return _scan_blocks(cfg, x, _layers(params["blocks"]), body)
 
 
 def _ssm_body(cfg: ModelConfig):
@@ -345,16 +387,20 @@ def _hybrid_segments(cfg: ModelConfig):
 def _hybrid_stack(cfg: ModelConfig, x, params, positions):
     """zamba2: mamba stack with a SHARED attention block every k layers."""
     shared = params["shared_attn"]
-    blocks = params["blocks"]
+    layers = _layers(params["blocks"])
     body = _ssm_body(cfg)
+
+    def attend_block(h, p):
+        h = _attn_block(cfg, h, p, positions)
+        return _mlp_block(cfg, h, p)[0]
+
+    attend_block = _remat(cfg, attend_block)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for start, stop, attend in _hybrid_segments(cfg):
-        seg = {k: v[start:stop] for k, v in blocks.items()}
-        x, a = _scan_blocks(x, seg, body)
+        x, a = _scan_blocks(cfg, x, layers[start:stop], body)
         aux = aux + a
         if attend:
-            x = _attn_block(cfg, x, shared, positions)
-            x, _ = _mlp_block(cfg, x, shared)
+            x = attend_block(x, shared)
     return x, aux
 
 
@@ -368,7 +414,7 @@ def _whisper_encode(cfg: ModelConfig, params, frames):
         h = _attn_block(cfg, h, p, None, causal=False)
         return _mlp_block(cfg, h, p)
 
-    x, _ = _scan_blocks(x, params["enc_blocks"], body)
+    x, _ = _scan_blocks(cfg, x, _layers(params["enc_blocks"]), body)
     return _norm(cfg, x, params["enc_final_norm"],
                  params.get("enc_final_norm_bias"))
 
@@ -394,7 +440,7 @@ def _whisper_decode_stack(cfg: ModelConfig, x, params, enc_out, positions):
                         kv_override=_cross_kv(cfg, enc_out, xp))
         return _mlp_block(cfg, h, p)
 
-    return _scan_blocks(x, params["dec_blocks"], body)
+    return _scan_blocks(cfg, x, _layers(params["dec_blocks"]), body)
 
 
 def _embed_tokens(cfg, params, tokens, positions):
@@ -441,7 +487,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
         x = x[:, x_img.shape[1]:, :]                    # text positions only
     elif cfg.family == "ssm":
         x = _embed_tokens(cfg, params, tokens, None)
-        x, aux = _scan_blocks(x, params["blocks"], _ssm_body(cfg))
+        x, aux = _scan_blocks(cfg, x, _layers(params["blocks"]),
+                              _ssm_body(cfg))
     elif cfg.family == "hybrid":
         x = _embed_tokens(cfg, params, tokens, None)
         x, aux = _hybrid_stack(cfg, x, params, positions)
@@ -557,22 +604,22 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         return x + y
 
     if cfg.family in ("dense", "moe", "vlm"):
-        for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
+        for i, p in enumerate(_layers(params["blocks"])):
             x = _decode_attn_block(cfg, x, p, cache["k"][i], cache["v"][i],
                                    pos)
             x, _ = _mlp_block(cfg, x, p)
 
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x = ssm_layer(x, _layer(params["blocks"], i), i)
+        for i, p in enumerate(_layers(params["blocks"])):
+            x = ssm_layer(x, p, i)
 
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
+        layers = _layers(params["blocks"])
         app = 0
         for start, stop, attend in _hybrid_segments(cfg):
             for i in range(start, stop):
-                x = ssm_layer(x, _layer(params["blocks"], i), i)
+                x = ssm_layer(x, layers[i], i)
             if attend:
                 x = _decode_attn_block(cfg, x, shared, cache["ak"][app],
                                        cache["av"][app], pos)
@@ -581,8 +628,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
 
     elif cfg.family == "audio":
         hd_ = cfg.resolved_head_dim
-        for i in range(cfg.n_layers):
-            p = _layer(params["dec_blocks"], i)
+        for i, p in enumerate(_layers(params["dec_blocks"])):
             x = _decode_attn_block(cfg, x, p, cache["k"][i], cache["v"][i],
                                    pos)
             xp = _cross(p)
@@ -649,8 +695,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
         St = x.shape[1]
         positions = _positions(St, device)
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
+        for p in _layers(params["blocks"]):
             hn = _norm(cfg, x, p["attn_norm"])
             k, v = _prefill_kv(cfg, hn, p, positions, B, St)
             ks.append(k)
@@ -666,10 +711,10 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
         positions = _positions(S, device)
         dims = ssm_dims(cfg)
         hs, convs, aks, avs = [], [], [], []
+        layers = _layers(params["blocks"])
 
         def ssm_layers(x, start, stop):
-            for i in range(start, stop):
-                p = _layer(params["blocks"], i)
+            for p in layers[start:stop]:
                 hn = ll.rms_norm(x, p["norm"])
                 y, c = ssm_lib.ssd_forward(_ssm_params(p), hn, dims,
                                            chunk=_eff_chunk(cfg, S),
@@ -703,8 +748,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
                           torch.arange(S, device=device))
         positions = _positions(S, device)
         ks, vs, xks, xvs = [], [], [], []
-        for i in range(cfg.n_layers):
-            p = _layer(params["dec_blocks"], i)
+        for p in _layers(params["dec_blocks"]):
             hn = _norm(cfg, x, p["attn_norm"])
             k, v = _prefill_kv(cfg, hn, p, positions, B, S)
             x = _attn_block(cfg, x, p, positions)

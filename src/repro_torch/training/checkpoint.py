@@ -15,7 +15,7 @@ here and one written here loads there:
   * `keep_last` prunes old steps; `latest` finds the step to resume from.
 
 `restore_sharded`, which places a checkpoint onto a mesh, comes with the
-multi-device port (ROADMAP A11).
+distributed LM slice (ROADMAP A11c).
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import threading
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 
 def _flatten(tree, prefix=""):
@@ -52,8 +53,16 @@ def _unflatten(flat: dict):
 
 
 def _host(value) -> np.ndarray:
+    """A host copy of a leaf.  A tensor is copied even on the CPU: the
+    LM train step updates its tensors in place while the save's worker
+    still writes the copy.  numpy has no bfloat16, so a bfloat16 tensor
+    is refused rather than widened (its restore would change dtype)."""
     if hasattr(value, "detach"):        # a torch tensor, on any device
-        return value.detach().cpu().numpy()
+        if value.dtype == torch.bfloat16:
+            raise TypeError(
+                "a bfloat16 tensor cannot be checkpointed: numpy has no "
+                "bfloat16; keep param_dtype float32 to checkpoint a run")
+        return value.detach().to("cpu", copy=True).numpy()
     return np.asarray(value)
 
 

@@ -7,6 +7,9 @@
     `predict_multi`, `--show-kernels` (the registry's `format_table`, the
     layout table, the resolved layouts), `--mode lm --arch` for a
     decoder and for the encoder-decoder (JAX's line);
+  * `repro_torch.launch.train` (the default arch and `--arch
+    internvl2-1b`) and `examples/torch/train_lm.py`: JAX's `[train]` and
+    loss lines; a multi-process run exits 2;
   * `examples/torch/{quickstart,serve_gbdt,embeddings_knn}.py`;
   * each launcher's `--trace-out x.json --metrics-out y.prom`: a Chrome
     trace that loads, with the launcher's spans, and the JAX launchers'
@@ -27,7 +30,7 @@ torch = pytest.importorskip("torch")
 
 from repro.launch import train_gbdt as jtrain_gbdt  # noqa: E402
 from repro_torch.kernels import registry  # noqa: E402
-from repro_torch.launch import score, serve, train_gbdt  # noqa: E402
+from repro_torch.launch import score, serve, train, train_gbdt  # noqa: E402
 from repro_torch.obs.trace import get_tracer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -119,6 +122,36 @@ def test_serve_lm_arch_defaults_to_jax_default():
                     "cpu"])
 
 
+@pytest.mark.parametrize("arch", [None, "internvl2-1b"])
+def test_train_lm_launcher_on_the_cpu(arch, tmp_path, capsys):
+    argv = ["--device", "cpu", "--steps", "3", "--ckpt-dir", str(tmp_path)]
+    assert train.main(argv + (["--arch", arch] if arch else [])) == 0
+    name = f"{arch or 'glm4-9b'}-smoke"
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith(f"[train] {name}: step 3, loss ")
+    assert line.endswith(("stragglers 0", "stragglers 1"))
+    # a second run resumes at step 3 and has nothing left to do
+    assert train.main(argv + (["--arch", arch] if arch else [])) == 0
+    assert capsys.readouterr().out == ""
+
+
+def test_train_lm_launcher_defaults_and_refusals(capsys):
+    args = train.parse_args([])
+    assert (args.arch, args.steps, args.smoke, args.seq_len, args.batch,
+            args.device) == ("glm4-9b", 50, True, 64, 8, "cuda")
+    assert train.main(["--coordinator", "localhost:1234",
+                       "--num-processes", "2", "--device", "cpu"]) == 2
+    assert "A11c" in capsys.readouterr().err
+
+
+def test_train_lm_example(tmp_path, capsys):
+    got = _example("train_lm").main(["--device", "cpu", "--steps", "20",
+                                     "--ckpt-dir", str(tmp_path)])
+    assert got["steps"] == 20 and got["last_loss"] < got["first_loss"]
+    out = capsys.readouterr().out
+    assert "arch=glm4-9b-smoke" in out and "over 20 steps" in out
+
+
 def test_format_table_has_a_row_per_implementation():
     lines = registry.format_table().splitlines()
     assert lines[0].split("|")[1].strip() == "op"
@@ -172,7 +205,9 @@ def test_launchers_and_examples_default_to_the_card():
                                                  "--trees", "2"]),
             lambda: _example("serve_gbdt").main(["--trees", "2"]),
             lambda: _example("embeddings_knn").main(["--scale", "0.05",
-                                                     "--trees", "2"])]
+                                                     "--trees", "2"]),
+            lambda: train.main(["--steps", "1"]),
+            lambda: _example("train_lm").main(["--steps", "1"])]
     for run in runs:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()

@@ -295,7 +295,7 @@ def test_a_mesh_is_refused_naming_the_roadmap_item():
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     for call in (lambda: tf.forward(cfg, params, batch, mesh=object()),
                  lambda: tf.prefill(cfg, params, batch, 8, mesh=object())):
-        with pytest.raises(NotImplementedError, match="A11b"):
+        with pytest.raises(NotImplementedError, match="A11c"):
             call()
 
 
