@@ -4916,7 +4916,8 @@ def lm_train_fit(card_bytes: int) -> dict:
     need = LM_TRAIN_STATE_BYTES * n
     return {"arch": LM_TRAIN_FIT_ARCH, "params": n, "state_bytes": need,
             "card_bytes": card_bytes, "fits_one_card": need < card_bytes,
-            "needs": "FSDP across cards (ROADMAP A11c)"}
+            "needs": "several cards: the lm_dist phase, "
+            "scripts/lm_dist_probe.py"}
 
 
 def run_lm_train_phase(card_name: str, card: str = "cuda") -> dict:
@@ -4961,6 +4962,346 @@ def run_lm_train_phase(card_name: str, card: str = "cuda") -> dict:
                               .total_memory)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+LM_DIST_MAX_RANKS = 4    # one rank a visible card, at most this many
+LM_DIST_RUN_ARCH = "glm4-9b"   # the smoke config of the 4-step run
+LM_DIST_RUN_STEPS = 4
+LM_DIST_RUN_EVERY = 2    # the checkpoint the elastic restore starts from
+LM_DIST_DIR = "build/lm_dist"
+LM_DIST_TIMEOUT = 600    # seconds a rank process may take
+# (rtol, atol in lr) of the sharded step's parameters and optimizer state
+# against the one-device update of the same gradients: the sums over
+# sharded dims (the norm, Adafactor's means) round in another order
+LM_DIST_REPLAY = {"params": (2 * U, 1e-4), "state": (1e-5, 0.0)}
+
+
+def lm_dist_shapes(world: int) -> tuple:
+    """The phase's mesh and the one its run is restored onto: (W // 2, 2)
+    and (1, W) on an even W >= 2, else (1, W) both ways."""
+    if world >= 2 and world % 2 == 0:
+        return (world // 2, 2), (1, world)
+    return (1, world), (1, world)
+
+
+def lm_dist_optimizer(cfg, lr: float, kind: str = ""):
+    """A constant-rate optimizer of `kind`, by default the kind the
+    config's trainer makes (`optimizer.make`), without weight decay."""
+    from repro_torch.training import optimizer as opt
+    kind = kind or opt.make(cfg).kind
+    return {"adamw": opt.adamw, "adafactor": opt.adafactor,
+            "sgd": opt.sgd}[kind](lr=lr)
+
+
+def lm_dist_step_pair(cfg, mesh, params: dict, batch: dict, optimizer,
+                      seq: int) -> dict:
+    """One step of `make_train_step` on one device and the same step on
+    DTensor leaves placed by the trainer's specs on `mesh`, from the same
+    parameters (`params`: {path: tensor}, alike on every rank, on this
+    rank's device) and numpy `batch`:
+
+      one:     gradients, parameters, optimizer state and metrics of the
+               one-device step;
+      sharded: the same of the sharded step (each tensor gathered whole),
+               its metrics' types and `count`;
+      replay:  the one-device optimizer update applied to the sharded
+               step's gradients (parameters and state), which holds the
+               sharded optimizer to the plain one on equal gradients.
+
+    `chip_smoke.py`'s lm_dist phase and the CPU tests
+    (`tests/torch_dist_worker.py`) both compare through this."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    device = next(iter(params.values())).device
+    o, step = optimizer, steps.make_train_step(cfg, optimizer)
+
+    def flat(tree) -> dict:
+        return {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                for k, v in tf.tree_leaves(tree)}
+
+    def plain_step(grads: dict | None) -> dict:
+        p = tf.unflatten({k: v.clone() for k, v in params.items()})
+        if grads is None:
+            new, state, metrics = step(p, o.init(p), b)
+            return {"params": flat(new), "state": flat(state),
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
+        with torch.no_grad():
+            u, state = o.update(tf.unflatten(grads), o.init(p), p)
+            u = dict(tf.tree_leaves(u))
+            new = {k: v + u[k].to(v.dtype) for k, v in tf.tree_leaves(p)}
+        return {"params": new, "state": flat(state)}
+
+    b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    one = {"grads": lm_grads(cfg, tf.unflatten(params), b),
+           **plain_step(None)}
+    specs = dict(tf.tree_leaves(shd.param_specs(cfg, mesh,
+                                                max_positions=seq)))
+    placed = {k: shd.place(v.clone(), mesh, specs[k], src_data_rank=None)
+              for k, v in params.items()}
+    sb = shard_batch(batch, mesh, shd.P(shd.dp_axes(mesh)))
+    with implicit_replication():
+        grads = {k: g.redistribute(placed[k].device_mesh,
+                                   placed[k].placements).full_tensor()
+                 for k, g in lm_grads(cfg, tf.unflatten(placed),
+                                      sb).items()}
+    p = tf.unflatten(placed)
+    new, state, metrics = step(p, o.init(p), sb)
+    sharded = {"grads": grads, "params": flat(new), "state": flat(state),
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "metric_types": sorted({type(v).__name__
+                                       for v in metrics.values()}),
+               "count": int(state["count"].full_tensor())}
+    return {"one": one, "sharded": sharded, "replay": plain_step(grads)}
+
+
+def lm_dist_step_checks(mesh, device, world: int) -> dict:
+    """Each smoke config's sharded step held to the one-device step on
+    this rank's device from the same parameters and batch
+    (`lm_dist_step_pair`), with the optimizer its trainer makes (AdamW),
+    and kimi-k2 once more with its full config's Adafactor and glm4-9b
+    with SGD: at world 1 bit for bit,
+    gradients, parameters, optimizer state and metrics; else the
+    gradients, loss and grad_norm within rtol = atol = LM_PARITY, AdamW's
+    parameters within `lm_param_rule`, and every optimizer's parameters
+    and state within rounding of the one-device update replayed on the
+    sharded gradients (LM_DIST_REPLAY)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    out = {}
+    cases = [(name, "") for name in configs.ARCHS] + [
+        ("kimi-k2-1t-a32b", "adafactor"), (LM_DIST_RUN_ARCH, "sgd")]
+    for seed, (name, kind) in enumerate(cases):
+        cfg = configs.get(name, smoke=True)
+        params = {k: v.to(device) for k, v in tf.tree_leaves(tf.init_params(
+            cfg, torch.Generator().manual_seed(seed),
+            max_positions=LM_TRAIN_SEQ, device="cpu"))}
+        o = lm_dist_optimizer(cfg, LM_TRAIN_LR, kind)
+        pair = lm_dist_step_pair(cfg, mesh, params,
+                                 lm_train_batch(cfg, seed), o, LM_TRAIN_SEQ)
+        one, got, replay = pair["one"], pair["sharded"], pair["replay"]
+        key = f"{name}/{o.kind}"
+        errs = {what: max(float((got[what][k] - one[what][k]).abs().max())
+                          for k in one[what] if one[what][k].numel())
+                for what in ("grads", "params", "state")}
+        check(got["metric_types"] == ["Tensor"] and got["count"] == 1,
+              f"lm_dist {key}: metrics {got['metric_types']}, count "
+              f"{got['count']}")
+        if world == 1:
+            for what in ("grads", "params", "state"):
+                for k, want in one[what].items():
+                    check(torch.equal(got[what][k], want),
+                          f"lm_dist {key}: world-1 {what} {k} differs "
+                          f"from the one-device step's by "
+                          f"{errs[what]}")
+            check(got["metrics"] == one["metrics"],
+                  f"lm_dist {key}: world-1 metrics {got['metrics']} "
+                  f"against the one-device step's {one['metrics']}")
+            over = 0.0
+        else:
+            for k, want in one["grads"].items():
+                check(torch.allclose(got["grads"][k], want, rtol=LM_PARITY,
+                                     atol=LM_PARITY),
+                      f"lm_dist {key}: sharded gradient {k} differs from "
+                      f"the one-device step's by {errs['grads']}")
+            for m in ("loss", "grad_norm", "ce", "aux"):
+                check(abs(got["metrics"][m] - one["metrics"][m])
+                      <= LM_PARITY * (1 + abs(one["metrics"][m])),
+                      f"lm_dist {key}: sharded {m} {got['metrics'][m]} "
+                      f"against the one-device step's {one['metrics'][m]}")
+            for what in ("params", "state"):
+                rtol, atol = LM_DIST_REPLAY[what]
+                for k, want in replay[what].items():
+                    check(torch.allclose(got[what][k], want, rtol=rtol,
+                                         atol=atol * LM_TRAIN_LR),
+                          f"lm_dist {key}: sharded {what} {k} against the "
+                          f"one-device update of the same gradients")
+            over = None
+            if o.kind == "adamw":
+                rule = lm_param_rule(
+                    {k: v.cpu() for k, v in one["grads"].items()},
+                    {k: v.cpu() for k, v in one["params"].items()},
+                    one["metrics"]["grad_norm"])
+                over = max(float(((got["params"][k] - v).double().abs()
+                                  .cpu() / rule[k]).max())
+                           for k, v in one["params"].items())
+                check(over <= 1.0, f"lm_dist {key}: parameters after the "
+                      f"sharded step differ by {over:.3g} times the rule")
+        out[key] = {"loss": got["metrics"]["loss"],
+                    "grad_max_abs_err": errs["grads"],
+                    "param_max_abs_err": errs["params"],
+                    "state_max_abs_err": errs["state"],
+                    "bit_for_bit": not any(errs.values())
+                    and got["metrics"] == one["metrics"],
+                    "params_err_over_rule": over}
+    return out
+
+
+def lm_dist_run(shape_a, shape_b, device_type: str, world: int,
+                ckpt: str) -> dict:
+    """LM_DIST_RUN_ARCH's smoke config trained LM_DIST_RUN_STEPS steps by
+    the sharded `Trainer` on `shape_a`, checkpointing every
+    LM_DIST_RUN_EVERY; the first checkpoint restored by a `Trainer` on
+    `shape_b` with FSDP on (other specs: an elastic restore) and run to
+    the end.  Its losses within LM_PARITY of the uninterrupted run's (at
+    world 1, where both meshes are (1, 1), bit for bit, and so are the
+    parameters); its parameters within 2 lr a step of them."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenSource
+    from repro_torch.distributed import runtime
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = configs.get(LM_DIST_RUN_ARCH, smoke=True)
+    tcfg = TrainerConfig(total_steps=LM_DIST_RUN_STEPS,
+                         ckpt_every=LM_DIST_RUN_EVERY, peak_lr=LM_TRAIN_LR)
+    ts = TokenSource(cfg.vocab_size, LM_TRAIN_SEQ, LM_BATCH)
+
+    def batches():
+        step = 0
+        while True:
+            yield ts.next_batch(step)
+            step += 1
+
+    first, second = os.path.join(ckpt, "a"), os.path.join(ckpt, "b")
+    t0 = time.perf_counter()
+    whole = Trainer(cfg, make_local_mesh(model=shape_a[1],
+                                         device=device_type), first, tcfg)
+    whole.init_or_restore()
+    want = {h["step"]: h["loss"] for h in whole.train(batches())}
+    whole_params = {k: v.full_tensor() for k, v in
+                    tf.tree_leaves(whole.params)}
+    if runtime.is_primary():
+        shutil.copytree(os.path.join(first, f"step_{LM_DIST_RUN_EVERY:09d}"),
+                        os.path.join(second,
+                                     f"step_{LM_DIST_RUN_EVERY:09d}"))
+    runtime.barrier()
+    fsdp = dataclasses.replace(cfg, fsdp=True)
+    resumed = Trainer(fsdp, make_local_mesh(model=shape_b[1],
+                                            device=device_type),
+                      second, tcfg)
+    check(resumed.restore() and resumed.step == LM_DIST_RUN_EVERY,
+          "lm_dist: the elastic restore found no checkpoint")
+    got = {h["step"]: h["loss"] for h in resumed.train(batches())}
+    check(sorted(got) == list(range(LM_DIST_RUN_EVERY + 1,
+                                    LM_DIST_RUN_STEPS + 1)),
+          f"lm_dist: the resumed run ran steps {sorted(got)}")
+    loss_err = max(abs(got[s] - want[s]) for s in got)
+    params = {k: v.full_tensor() for k, v in tf.tree_leaves(resumed.params)}
+    param_err = max(float((params[k] - whole_params[k]).abs().max())
+                    for k in params)
+    steps_left = LM_DIST_RUN_STEPS - LM_DIST_RUN_EVERY
+    if world == 1:
+        check(got == {s: want[s] for s in got} and param_err == 0.0,
+              f"lm_dist: the world-1 resumed run differs from the "
+              f"uninterrupted one (losses {loss_err}, parameters "
+              f"{param_err})")
+    else:
+        check(loss_err <= LM_PARITY * (1 + max(abs(v) for v in got.values())),
+              f"lm_dist: resumed losses {got} against {want}")
+        check(param_err <= 2 * LM_TRAIN_LR * steps_left + 1e-6,
+              f"lm_dist: resumed parameters differ by {param_err}")
+    return {"arch": cfg.name, "mesh": list(shape_a),
+            "restored_onto": list(shape_b), "fsdp_after_restore": True,
+            "losses": want, "resumed_losses": got,
+            "loss_max_abs_err": loss_err,
+            "param_max_abs_err": param_err,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_lm_dist_rank(rank: int, world: int, rendezvous: str,
+                     out_dir: str, device_type: str = "cuda") -> None:
+    """`python3 chip_smoke.py --lm-dist-rank RANK WORLD FILE DIR`: one
+    rank of the lm_dist phase, on its card (`LOCAL_RANK`; NCCL, or gloo
+    with ``device_type="cpu"``, a rehearsal).  Prints its record as its
+    last line; any failed check exits 1 (`check`)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    if device_type == "cuda" and not torch.cuda.is_available():
+        fail("no CUDA device; this script measures the port on the card")
+    from repro_torch.distributed import runtime
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    runtime.initialize(f"file://{rendezvous}", world, rank,
+                       device=device_type)
+    shape_a, shape_b = lm_dist_shapes(world)
+    mesh = make_local_mesh(model=shape_a[1], device=device_type)
+    device = mesh.device_list[rank]
+    out = {"rank": rank, "world": world, "device": str(device),
+           "mesh": list(shape_a), "backend": torch.distributed.get_backend()}
+    t1 = time.perf_counter()
+    out["steps"] = lm_dist_step_checks(mesh, device, world)
+    out["steps_s"] = time.perf_counter() - t1
+    out["run"] = lm_dist_run(shape_a, shape_b, device_type, world,
+                             os.path.join(out_dir, "ckpt"))
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if device.type == "cuda" else None)
+    out["seconds"] = time.perf_counter() - t0
+    runtime.shutdown()
+    print(json.dumps(out), flush=True)
+
+
+def run_lm_dist_phase(card_name: str) -> dict:
+    """The `lm_dist` phase: one process a visible card (at most
+    LM_DIST_MAX_RANKS) joined over NCCL, each running `run_lm_dist_rank`;
+    on one card that is world 1 on a (1, 1) mesh.  Ranks cannot share a
+    card: NCCL refuses two ranks on one device, and DTensor's collectives
+    over gloo on CUDA tensors crash (`PERF.md`, PR 31's card facts).
+    Every rank must exit 0 and all must agree on the run's losses; the
+    phase catches nothing."""
+    import shutil
+
+    import torch
+    world = min(torch.cuda.device_count(), LM_DIST_MAX_RANKS)
+    print(f"lm_dist: {world} card(s)", flush=True)
+    out_dir = os.path.join(ROOT, LM_DIST_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--lm-dist-rank", str(rank), str(world),
+         os.path.join(out_dir, "rendezvous"), out_dir],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "LOCAL_RANK": str(rank),
+                        "PYTHONPATH": os.path.join(ROOT, "src")})
+        for rank in range(world)]
+    ranks, failed = [], []
+    for rank, proc in enumerate(procs):
+        try:
+            stdout, stderr = proc.communicate(timeout=LM_DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail(f"lm_dist rank {rank} took over {LM_DIST_TIMEOUT} s")
+        if proc.returncode != 0:
+            failed.append(f"rank {rank} exited {proc.returncode}: "
+                          + " | ".join((stdout + stderr).strip()
+                                       .splitlines()[-6:]))
+            continue
+        ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+    check(not failed, f"lm_dist ({world} ranks): " + "; ".join(failed))
+    first = ranks[0]
+    for rec in ranks[1:]:
+        check(rec["run"]["losses"] == first["run"]["losses"],
+              f"lm_dist: rank {rec['rank']} saw other losses than rank 0")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"cards": world, "ranks": world, "card": card_name,
+            "backend": first["backend"], "mesh": first["mesh"],
+            "steps": first["steps"],
+            "run": first["run"],
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "rank_seconds": [r["seconds"] for r in ranks],
+            "seconds": time.perf_counter() - t0}
+
 
 PATH_KERNELS = {
     "soa": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
@@ -5376,6 +5717,16 @@ def main() -> None:
           f"{ops.launch_counts()}")
     print(f"lm_train: {json.dumps(lm_train)}", flush=True)
 
+    # --- the distributed LM trainer: one process a card, DTensor over
+    # NCCL; plain PyTorch in other processes, so no kernel is launched
+    torch.cuda.empty_cache()
+    before = ops.launch_counts()
+    lm_dist = run_lm_dist_phase(card)
+    check(ops.launch_counts() == before,
+          f"the lm_dist phase launched hand-written kernels: {before} -> "
+          f"{ops.launch_counts()}")
+    print(f"lm_dist: {json.dumps(lm_dist)}", flush=True)
+
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
         "layouts_vs_soa": layout_err,
@@ -5407,7 +5758,7 @@ def main() -> None:
                       "training_remainders": remainders,
                       "fit_scan": fit_scan, "launchers": launchers,
                       "splits": splits, "telemetry": telemetry, "lm": lm,
-                      "lm_train": lm_train,
+                      "lm_train": lm_train, "lm_dist": lm_dist,
                       "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {
@@ -5418,5 +5769,15 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--launcher"] and len(sys.argv) == 3:
         run_launcher(sys.argv[2])
+    elif sys.argv[1:] == ["--lm-dist"]:
+        # the lm_dist phase alone, on the card (a quick first call)
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        print(json.dumps(run_lm_dist_phase(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0])), flush=True)
+    elif sys.argv[1:2] == ["--lm-dist-rank"] and len(sys.argv) == 6:
+        run_lm_dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5])
     else:
         main()

@@ -6,7 +6,7 @@ JAX's.  `scan_unroll` changes nothing in the port's eager models;
 `remat` / `remat_policy` choose what a training backward recomputes
 (`models/transformer.py`), never a value; the mesh fields
 (`attention_impl="ring"`, `flash_decode`, `sequence_parallel`) need the
-distributed LM pieces (ROADMAP A11c).
+collectives of ROADMAP A11c-ii.
 """
 from __future__ import annotations
 

@@ -21,6 +21,13 @@ nested dict of tensors, key for key; `lm_params_to_numpy` is its inverse.
 optimizer state, so both packages can start from one state.  LM
 checkpoints need no converter: both trainers write the same
 `leaves.npz` keys and dtypes.
+
+Sharded trees (DTensor leaves, one process a shard) convert leaf by leaf:
+`lm_params_to_numpy` gathers each leaf (`full_tensor`, a collective every
+rank calls) and copies it to the host before the next, and
+`distributed.sharding.shard_tree(tree, mesh, specs)` places a numpy tree
+on the mesh by its specs, so no rank holds more of the tree than one
+whole leaf beside its shards.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.knn import KNNFeaturizer
 from repro_torch.core.trees import ObliviousEnsemble
@@ -106,13 +114,16 @@ def lm_params_from_numpy(tree: Mapping,
 
 
 def lm_params_to_numpy(params: Mapping) -> dict:
-    """The port's parameter dict -> nested dict of numpy arrays, key for
-    key; bfloat16 tensors come back as float32 (exact: numpy has no
-    bfloat16)."""
+    """The port's parameter dict -> nested dict of numpy arrays (copies,
+    which a later in-place step leaves alone), key for key; bfloat16
+    tensors come back as float32 (exact: numpy has no bfloat16)."""
     if isinstance(params, Mapping):
         return {k: lm_params_to_numpy(v) for k, v in params.items()}
-    t = params.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(params, DTensor):
+        params = params.full_tensor()
+    t = params.detach()
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
 
 def lm_opt_state_from_numpy(tree: Mapping,

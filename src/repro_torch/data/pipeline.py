@@ -6,8 +6,8 @@ synthetic LM token stream the trainer, its launcher and example train on)
 are the JAX package's numpy code, so their batches equal JAX's array for
 array; a real deployment would swap `TokenSource` for a file-backed
 loader with the same interface (`__iter__` yielding dict batches).
-`shard_batch`, which places a batch onto a mesh, comes with the
-distributed LM slice (ROADMAP A11c).
+`shard_batch` places a batch onto a mesh as DTensors, one process a
+shard (`distributed.runtime`).
 """
 from __future__ import annotations
 
@@ -76,6 +76,19 @@ class TokenSource:
 
 # How long `close` waits for the worker to finish the item in hand.
 CLOSE_TIMEOUT_S = 60.0
+
+
+def shard_batch(batch: dict, mesh, spec=None) -> dict:
+    """JAX's `shard_batch`: each array of `batch` as a DTensor on `mesh`
+    by `spec` (default ``P(("data",))``: the leading dim over "data"),
+    fitted to its shape (an axis that does not divide a dim leaves it
+    whole).  Every rank holds the whole global batch, as JAX's host does,
+    and keeps its own slice of it: no collective."""
+    from repro_torch.distributed import sharding as shd
+
+    spec = shd.P(("data",)) if spec is None else spec
+    return {k: shd.place(v, mesh, spec, src_data_rank=None)
+            for k, v in batch.items()}
 
 
 class Prefetcher:

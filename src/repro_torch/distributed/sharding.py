@@ -2,11 +2,12 @@
 partition specs for the production meshes, as metadata.
 
 The port's counterpart of `src/repro/distributed/sharding.py`, rule for
-rule.  It reads only a mesh's `.shape` and `.axis_names`, so it runs on
-the port's single-controller `Mesh` (whose devices may repeat) without a
-device.  The `Trainer` computes its specs here; placing tensors by them
-(`named`, `shard_tree`, `restore_sharded`) comes with the distributed LM
-slice (ROADMAP A11c).
+rule.  The spec rules read only a mesh's `.shape` and `.axis_names`, so
+they run on the port's `Mesh` (whose devices may repeat) without a
+device.  `placements`, `named` and `shard_tree` place tensors by the
+specs as DTensors over the mesh's `DeviceMesh`, one process a shard
+(`distributed.runtime`): a spec's axis on tensor dim i is `Shard(i)` on
+that mesh dimension, every other mesh dimension `Replicate()`.
 
 Strategy:
   * batch dims shard over ("pod", "data")   [data parallel]
@@ -25,6 +26,13 @@ Strategy:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
@@ -75,22 +83,29 @@ def _map_specs(fn, tree):
 
 
 def dp_axes(mesh) -> tuple:
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return tuple(a for a in ("pod", "data") if a in _names(mesh))
+
+
+def _shape(mesh) -> dict:
+    """{axis name: size} of the port's `Mesh` or of a `DeviceMesh`."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return mesh.shape
 
 
 def mesh_size(mesh, axes) -> int:
-    return math.prod(mesh.shape[a] for a in axes) if axes else 1
+    return math.prod(_shape(mesh)[a] for a in axes) if axes else 1
 
 
 def _model_size(mesh) -> int:
-    return mesh.shape.get("model", 1)
+    return _shape(mesh).get("model", 1)
 
 
 def param_specs(cfg: ModelConfig, mesh, *, max_positions: int = 0):
     """Spec tree matching `transformer.param_shapes(cfg)`."""
     shapes = tf.param_shapes(cfg, max_positions=max_positions)
     ms = _model_size(mesh)
-    fsdp = "data" if (cfg.fsdp and "data" in mesh.axis_names) else None
+    fsdp = "data" if (cfg.fsdp and "data" in _names(mesh)) else None
     q_ok = cfg.n_heads and cfg.n_heads % ms == 0
     kv_ok = cfg.n_kv_heads and cfg.n_kv_heads % ms == 0
     ep_ok = cfg.n_experts and cfg.n_experts % ms == 0 \
@@ -237,3 +252,98 @@ def opt_state_specs(p_specs, kind: str):
         return {"vr": _map_specs(vr, p_specs), "vc": _map_specs(vc, p_specs),
                 "count": P()}
     raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# Placing tensors: specs -> DTensor placements
+# --------------------------------------------------------------------------
+def _names(mesh) -> tuple:
+    return tuple(mesh.mesh_dim_names if isinstance(mesh, DeviceMesh)
+                 else mesh.axis_names)
+
+
+def placements(spec, mesh) -> tuple[Placement, ...]:
+    """The DTensor placements of `spec` on `mesh` (the port's `Mesh` or a
+    `DeviceMesh` with dim names): one a mesh dimension, `Shard(i)` where
+    the spec puts that axis on tensor dim i, else `Replicate()`.
+
+    A tuple of axes on one dim, ``P(("pod", "data"))``, shards that dim
+    over each of them with the first named the outer (slowest) split, as
+    JAX does; DTensor splits in mesh-dimension order, so the tuple must
+    name the axes in the mesh's order."""
+    names = _names(mesh)
+    out: list[Placement] = [Replicate()] * len(names)
+    for dim, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{part} names mesh axes out of the mesh's "
+                             f"order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"axis {names[i]!r} shards two dims of "
+                                 f"{spec}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+class NamedSharding(NamedTuple):
+    """JAX's `NamedSharding`: a `DeviceMesh` and the placements of one
+    spec on it."""
+    mesh: object
+    placements: tuple
+
+
+def _device_mesh(mesh) -> DeviceMesh:
+    from repro_torch.distributed import runtime
+    return mesh if isinstance(mesh, DeviceMesh) else \
+        runtime.device_mesh(mesh)
+
+
+def named(mesh, spec_tree):
+    """The spec tree as `NamedSharding`s on `mesh`'s `DeviceMesh`."""
+    dm = _device_mesh(mesh)
+    return _map_specs(lambda s: NamedSharding(dm, placements(s, dm)),
+                      spec_tree)
+
+
+def place(leaf, mesh, spec, *, src_data_rank: int | None = 0) -> DTensor:
+    """One leaf as a DTensor on `mesh` by `spec` (fitted to its shape).
+
+    With ``src_data_rank=0`` rank 0's values are scattered (the other
+    ranks' `leaf` gives only the shape and dtype); with None every rank
+    holds the same values and keeps its own slice, with no collective
+    (the slice may share memory with `leaf`).  A numpy leaf is copied to
+    this rank's device first."""
+    dm = _device_mesh(mesh)
+    device = torch.device(dm.device_type, torch.cuda.current_device()) \
+        if dm.device_type == "cuda" else torch.device(dm.device_type)
+    if isinstance(leaf, DTensor):
+        return leaf.redistribute(dm, placements(
+            fit_specs(spec, leaf, dm), dm))
+    if not torch.is_tensor(leaf):
+        leaf = _from_numpy(np.asarray(leaf))
+    leaf = leaf.to(device)
+    return distribute_tensor(leaf, dm, placements(
+        fit_specs(spec, leaf, dm), dm), src_data_rank=src_data_rank)
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def shard_tree(tree, mesh, spec_tree, *, src_data_rank: int | None = 0):
+    """JAX's `shard_tree`: every leaf of `tree` (tensors or numpy arrays)
+    placed by the matching spec, leaf by leaf: each leaf is scattered
+    from rank 0 and dropped before the next, so no rank holds more than
+    one whole leaf at a time beside its shards."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, mesh, spec_tree[k],
+                              src_data_rank=src_data_rank)
+                for k, v in tree.items()}
+    return place(tree, mesh, spec_tree, src_data_rank=src_data_rank)

@@ -8,6 +8,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.distributed import runtime
 from repro_torch.distributed.mesh import Mesh, make_mesh
 
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
@@ -29,12 +30,28 @@ def make_local_mesh(n_shards: Optional[int] = None, model: int = 1,
     """A small (n_shards // model, model) ("data", "model") mesh for
     tests, examples and one machine.
 
-    On ``device="cuda"``, `n_shards` defaults to the card count and the
-    shards are dealt round robin over the cards, so more shards than
-    cards put several logical shards on one card.  A device with an
-    index ("cuda:1") or ``"cpu"`` puts every shard there."""
+    Inside a process group (`distributed.runtime.initialize`) each entry
+    is a rank, in rank order: `n_shards` defaults to the world size and
+    must equal it, and entry i names rank i's device (its card,
+    ``cuda:LOCAL_RANK`` on one machine, or ``cpu``).
+
+    Outside one, on ``device="cuda"``, `n_shards` defaults to the card
+    count and the shards are dealt round robin over the cards, so more
+    shards than cards put several logical shards on one card.  A device
+    with an index ("cuda:1") or ``"cpu"`` puts every shard there."""
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
+    if runtime.is_distributed():
+        n = n_shards or runtime.world_size()
+        if n != runtime.world_size():
+            raise ValueError(f"{n} shards in a group of "
+                             f"{runtime.world_size()} ranks: one a rank")
+        if device.type == "cuda":
+            n_cards = max(torch.cuda.device_count(), 1)
+            devices = [torch.device("cuda", r % n_cards) for r in range(n)]
+            devices[runtime.rank()] = runtime.local_device("cuda")
+        else:
+            devices = [device] * n
+    elif device.type == "cuda" and device.index is None:
         n_cards = torch.cuda.device_count()
         if n_cards == 0:
             raise RuntimeError("no CUDA device: the mesh runs on the card "

@@ -14,6 +14,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 NEG_INF = -1e30
 
@@ -34,6 +38,119 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dt)
+
+
+def from_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A DTensor of global `shape` (contiguous) from this rank's shard."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=torch.empty(
+                                  shape, device="meta").stride())
+
+
+def batch_sharded(x: torch.Tensor) -> torch.Tensor:
+    """`x` as it is, or, for a DTensor, sharded on its batch dimension
+    (dim 0) only: any other shard gathered, any pending sum reduced."""
+    if not isinstance(x, DTensor):
+        return x
+    want = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    return x if list(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
+
+
+def regroup(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """`x.reshape(shape)` where the leading dimension changes size but
+    stays split the same way: for a DTensor, each shard of the batch
+    dimension reshapes its own rows (and its gradient is brought back to
+    the same placements in the backward); where the new leading
+    dimension does not split into those shards, `x` is gathered first.
+
+    Explicit redistribution: DTensor's view rules give a wrong local
+    shape for the gradient of such a reshape of a tensor sharded on two
+    dimensions, and refuse one that drops a sharded dimension of size 1,
+    so the regrouping is done shard by shard."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    x = batch_sharded(x)
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(x.placements)
+             if p.is_shard(0) and mesh.size(i) > 1]
+    parts = math.prod(mesh.size(i) for i in split)
+    if shape[0] % parts:
+        x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+        split, parts = [], 1
+    local = x.to_local(grad_placements=x.placements).reshape(
+        (shape[0] // parts,) + tuple(shape[1:]))
+    return from_local(local, mesh, [Shard(0) if i in split else Replicate()
+                                    for i in range(mesh.ndim)], shape)
+
+
+def batch_local(fn, x: torch.Tensor, *weights: torch.Tensor
+                ) -> torch.Tensor:
+    """``fn(x, *weights)`` for a computation that is independent from one
+    batch row to the next.  For a DTensor `x` each shard of its batch
+    runs `fn` on its own rows with the weights gathered whole (their
+    gradient a sum over the batch shards), and the result is sharded as
+    `x` is; `fn` must keep the batch dimension first.
+
+    Explicit placement: the SSD block (`models/ssm.py`) reshapes, pads and
+    slices its activations in ways DTensor's rules under torch 2.11 cannot
+    propagate; its weights are never sharded but by FSDP, so each shard
+    runs it whole on its rows.
+
+    On a plain `x`, `fn` takes a view of it, so that x's gradient adds
+    fn's own contributions up first and the rest to their sum, as the
+    DTensor branch does (through `to_local`): with x used three times or
+    more the order changes the rounding, and a (1, 1) mesh would not give
+    the one-device step's bits."""
+    if not isinstance(x, DTensor):
+        return fn(x.view_as(x), *weights)
+    x = batch_sharded(x)
+    mesh = x.device_mesh
+    grad = [Partial() if p.is_shard(0) else Replicate()
+            for p in x.placements]
+    local = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad) if isinstance(w, DTensor) else w
+        for w in weights]
+    y = fn(x.to_local(), *local).contiguous()
+    return from_local(y, mesh, x.placements,
+                      (x.shape[0],) + tuple(y.shape[1:]))
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]`: rows of an embedding table.  For a DTensor table each
+    shard looks up its own ids in its own columns: the rows are gathered
+    whole first where the table shards them (FSDP), and its gradient is a
+    sum over the shards that split the ids (`Partial`).
+
+    Explicit placement: DTensor's rule for the backward of this indexing
+    (`index_put` into a column-sharded table) fails under torch 2.11."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = distribute_tensor(ids, mesh, [Replicate()] * mesh.ndim,
+                                src_data_rank=None)
+    ids = ids.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in ids.placements])
+    keep, out, grad = [], [], []
+    for i, (t, d) in enumerate(zip(table.placements, ids.placements)):
+        if d.is_shard():
+            keep.append(Replicate())
+            out.append(d)
+            grad.append(Partial())
+        elif t.is_shard(1):
+            keep.append(t)
+            out.append(Shard(ids.ndim))
+            grad.append(t)
+        else:
+            keep.append(Replicate())
+            out.append(Replicate())
+            grad.append(Replicate())
+    table = table.redistribute(mesh, keep)
+    rows = table.to_local(grad_placements=grad)[ids.to_local()]
+    return from_local(rows.contiguous(), mesh, out,
+                      tuple(ids.shape) + (table.shape[1],))
 
 
 # --------------------------------------------------------------------------
@@ -114,6 +231,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     `q_chunk > 0` enables row-blocked execution: exact softmax per query
     block, O(S * q_chunk) score memory instead of O(S^2).
     """
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal=causal, window=window,
+                                  q_chunk=q_chunk)
     B, S, H, Dh = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -132,6 +252,72 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   device=q.device) if (causal or window) else None
         out = _attend_block(qg, k, v, m)
     return out.reshape(B, S, H, Dh)
+
+
+def _heads_on(x: DTensor, n_heads: int) -> list:
+    """x's placements for attention: the batch (dim 0) keeps its shards,
+    the heads (dim 2) are sharded over each other mesh dim that divides
+    them, every other dim whole."""
+    mesh, out, left = x.device_mesh, [], n_heads
+    for i, p in enumerate(x.placements):
+        if p.is_shard(0):
+            out.append(p)
+        elif left % mesh.size(i) == 0:
+            out.append(Shard(2))
+            left //= mesh.size(i)
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _sharded_attention(q: DTensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool, window: int, q_chunk: int) -> DTensor:
+    """`attention` of DTensors, each shard on its own heads.
+
+    Explicit redistribution: GQA regroups q's heads as (KVH, G), which
+    DTensor cannot keep sharded when the shards split a kv head's group
+    (glm4-9b: 32 heads and 2 kv heads on model = 4); it would gather q
+    and replicate the scores.  Instead q keeps its heads sharded (each
+    shard a run of whole heads), k and v their own heads where the kv
+    head count divides the shards and are whole otherwise, and each shard
+    attends its q heads to the kv heads they read.  The gradient of a
+    whole k / v is a sum over the shards (`Partial`)."""
+    mesh = q.device_mesh
+    H, KVH = q.shape[2], k.shape[2]
+    G = H // KVH
+    qp = _heads_on(q, H)
+    kp = _heads_on(k, KVH) if isinstance(k, DTensor) else None
+    if kp is not None:
+        # k / v take q's batch shards and the head shards both can keep
+        kp = [qp[i] if qp[i].is_shard(0) or kp[i] == qp[i] else Replicate()
+              for i in range(len(qp))]
+    else:
+        kp = [p if p.is_shard(0) else Replicate() for p in qp]
+        k, v = (distribute_tensor(t, mesh, [Replicate()] * mesh.ndim,
+                                  src_data_rank=None) for t in (k, v))
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    kv_grad = [Partial() if p.is_shard(2) and not kp[i].is_shard(2)
+               else kp[i] for i, p in enumerate(qp)]
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=kv_grad) for t in (k, v))
+    h_local, kv_local = ql.shape[2], kl.shape[2]
+    if kv_local * G != h_local:
+        # k / v whole on some head shards: this shard's q heads read the
+        # kv heads h // G of its global heads [h0, h0 + h_local)
+        _, offset = compute_local_shape_and_global_offset(
+            q.shape, mesh, q.placements)
+        h0, k_off = offset[2], compute_local_shape_and_global_offset(
+            k.shape, mesh, k.placements)[1][2]
+        if h_local % G and G % h_local:
+            raise ValueError(f"{h_local} heads a shard split GQA groups "
+                             f"of {G} unevenly")
+        first = h0 // G - k_off
+        n_kv = max(h_local // G, 1)
+        kl, vl = kl[:, :, first:first + n_kv], vl[:, :, first:first + n_kv]
+    out = attention(ql, kl, vl, causal=causal, window=window,
+                    q_chunk=q_chunk).contiguous()
+    return from_local(out, mesh, qp, q.shape)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

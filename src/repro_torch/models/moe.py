@@ -14,6 +14,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import regroup
+
 
 class MoEMetrics(NamedTuple):
     aux_loss: torch.Tensor       # load-balance loss (Switch-style)
@@ -41,7 +43,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     S = T // G                                           # tokens per group
     C = max(k, int(S * k / E * capacity_factor))         # capacity per group
 
-    xg = x.reshape(G, S, D)
+    xg = regroup(x, (G, S, D))
     logits = xg.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)                # (G, S, E)
     top_p, top_e = stable_top_k(probs, k)                # (G, S, k)
@@ -64,7 +66,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     # selections have distinct slots; only the trash slot E*C may be
     # written several times, in an order the scatter does not promise, and
     # it is cut off below, so the result does not depend on that order.
-    table = torch.zeros((G, E * C + 1), dtype=torch.int64, device=x.device)
+    table = slot.new_zeros((G, E * C + 1), dtype=torch.int64)
     table.scatter_(1, slot.reshape(G, S * k), src_token.reshape(G, S * k))
     src = table[:, :E * C]                               # (G, E*C)
 
@@ -93,5 +95,5 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     mean_p = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac_sel * mean_p)
     drop = 1.0 - keep.float().mean()
-    return y.reshape(T, D), MoEMetrics(aux, drop)
+    return regroup(y, (T, D)), MoEMetrics(aux, drop)
 

@@ -2,11 +2,19 @@
 port's counterpart of the JAX package's `models/steps.py`."""
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 
 AUX_WEIGHT = 0.01     # MoE load-balance loss weight
@@ -16,9 +24,69 @@ def token_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor
                ) -> torch.Tensor:
     """Mean next-token cross entropy; logits (B, S, V) fp32."""
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        logits = _settle(logits)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(lse - gold)
+    return torch.mean(lse - _gold(logits, labels))
+
+
+def _settle(logits: DTensor) -> DTensor:
+    """The logits with each pending sum (a `Partial` placement, left by a
+    product DTensor sharded over its contraction) reduce-scattered onto
+    the batch or the vocabulary dimension where one is free and divides,
+    else all-reduced.
+
+    Explicit redistribution: DTensor would all-reduce them inside
+    `logsumexp`, which leaves every shard of that mesh dimension the
+    whole (B, S, V) block."""
+    mesh, placements = logits.device_mesh, list(logits.placements)
+    if not any(p.is_partial() for p in placements):
+        return logits
+    for i, p in enumerate(placements):
+        if not p.is_partial():
+            continue
+        placements[i] = Replicate()
+        for dim in (0, logits.ndim - 1):
+            taken = [q for q in placements if q.is_shard(dim)]
+            size = logits.shape[dim] // math.prod(
+                mesh.size(j) for j, q in enumerate(placements)
+                if q.is_shard(dim))
+            if not taken and size % mesh.size(i) == 0:
+                placements[i] = Shard(dim)
+                break
+    return logits.redistribute(mesh, placements)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels]: a `torch.gather` over the vocabulary, or, on
+    vocab-sharded DTensor logits, each shard's gather of the labels that
+    fall in its slice (0 elsewhere) summed over the shards.
+
+    Explicit redistribution: DTensor's own gather of a vocab-sharded
+    dimension gives a masked partial it cannot reduce; this is that
+    reduction, an all-reduce of (B, S) values over the vocabulary's mesh
+    dimensions, and no shard ever holds the whole vocabulary."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    vocab_dims = [i for i, p in enumerate(logits.placements)
+                  if p.is_shard(vdim)]
+    rest = [Replicate() if i in vocab_dims else p
+            for i, p in enumerate(logits.placements)]
+    labels = labels.redistribute(mesh, rest) if isinstance(
+        labels, DTensor) else distribute_tensor(labels, mesh, rest,
+                                                src_data_rank=None)
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    local = logits.to_local()
+    idx = labels.to_local().long() - offset[vdim]
+    inside = (idx >= 0) & (idx < local.shape[-1])
+    picked = torch.gather(local, -1, idx.clamp(0, local.shape[-1] - 1)
+                          [..., None])[..., 0]
+    picked = torch.where(inside, picked, torch.zeros_like(picked))
+    return layers.from_local(picked, mesh, [
+        Partial() if i in vocab_dims else p for i, p in enumerate(rest)],
+        labels.shape)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, mesh=None
@@ -40,33 +108,63 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
     the old values (clone them first to keep them).  `metrics` holds
     `loss`, `ce`, `aux` and `grad_norm` as 0-d tensors on the parameters'
     device; nothing in the step waits for the device.
+
+    On DTensor parameters (the sharded trainer) the same step runs under
+    `implicit_replication` (tensors the model makes, masks and positions,
+    count as replicated): each gradient is reduced onto its parameter's
+    placements (DTensor leaves it as a pending sum over the shards that
+    share it: the data-parallel all-reduce, or reduce-scatter where the
+    parameter is sharded) before the norm and the update, and each
+    metric is replicated and handed back as this rank's plain 0-d tensor,
+    the same on every rank.
     """
     def train_step(params, opt_state, batch):
         paths = [path for path, leaf in tf.tree_leaves(params)
                  if leaf.is_floating_point()]
         flat = dict(tf.tree_leaves(params))
-        with torch.enable_grad():
-            diff = {path: flat[path].detach().requires_grad_()
-                    for path in paths}
-            loss, parts = loss_fn(cfg, tf.unflatten({**flat, **diff}),
-                                  batch, mesh=mesh)
-            grads = torch.autograd.grad(loss, [diff[p] for p in paths])
-        del diff
-        grads = tf.unflatten(dict(zip(paths, grads)))
-        with torch.no_grad():
-            gnorm = optimizer.global_norm(grads)
-            updates, opt_state = optimizer.update(grads, opt_state, params,
-                                                  inplace=True)
-            del grads
-            for path, u in tf.tree_leaves(updates):
-                p = flat[path]
-                p.add_(u.to(p.dtype))
-        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                   "aux": torch.as_tensor(parts["aux"]).detach(),
-                   "grad_norm": gnorm}
+        sharded = any(isinstance(v, DTensor) for v in flat.values())
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            with torch.enable_grad():
+                diff = {path: flat[path].detach().requires_grad_()
+                        for path in paths}
+                loss, parts = loss_fn(cfg, tf.unflatten({**flat, **diff}),
+                                      batch, mesh=mesh)
+                grads = torch.autograd.grad(loss, [diff[p] for p in paths])
+            del diff
+            if sharded:
+                grads = [_like(g, flat[p]) for g, p in zip(grads, paths)]
+            grads = tf.unflatten(dict(zip(paths, grads)))
+            with torch.no_grad():
+                gnorm = optimizer.global_norm(grads)
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params, inplace=True)
+                del grads
+                for path, u in tf.tree_leaves(updates):
+                    p = flat[path]
+                    p.add_(_like(u, p).to(p.dtype))
+            metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                       "aux": torch.as_tensor(parts["aux"]).detach(),
+                       "grad_norm": gnorm}
+            if sharded:
+                metrics = {k: _replicated(v) for k, v in metrics.items()}
         return params, opt_state, metrics
 
     return train_step
+
+
+def _like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """DTensor `x` on `ref`'s placements (a pending sum reduced)."""
+    if isinstance(x, DTensor) and x.placements != ref.placements:
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def _replicated(x: torch.Tensor) -> torch.Tensor:
+    """A 0-d metric as this rank's plain tensor of its replicated value."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim).to_local()
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

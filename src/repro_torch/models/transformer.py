@@ -26,7 +26,11 @@ is checkpointed as well: its f32 scores, kept for each of zamba2's six
 applications, would not fit one card at a 4k sequence.  Remat changes no
 value.  `cfg.scan_unroll` shapes JAX's compiled program only.  Only
 `mesh=None` is served: ring attention, `flash_decode` and
-`sequence_parallel` need the distributed LM pieces (ROADMAP A11c).
+`sequence_parallel` need the collectives of ROADMAP A11c-ii.  The sharded
+trainer passes DTensor parameters and batches instead (one process a
+shard); where DTensor cannot carry a sharding through an op, the op runs
+shard by shard (`layers.lookup`, `layers.regroup`, `layers.batch_local`,
+the attention in `layers.attention`).
 
 Batches hold tensors on the parameters' device: `tokens` (B, S) integer
 and, for vlm / audio, `frontend_embeds` (B, S_f, D).
@@ -79,9 +83,9 @@ def params_on(cfg: ModelConfig, params: Params,
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "the port's LM models run on one device (mesh=None); ring "
-            "attention, flash_decode and sequence_parallel need the "
-            "distributed LM pieces (ROADMAP A11c)")
+            "the port's LM models take no mesh (DTensor leaves carry the "
+            "sharding); ring attention, flash_decode and "
+            "sequence_parallel need the collectives (ROADMAP A11c-ii)")
 
 
 # ==========================================================================
@@ -228,17 +232,23 @@ def unflatten(items: dict) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 max_positions: int = 0,
-                device: torch.device | str = "cuda") -> Params:
+                device: torch.device | str = "cuda",
+                place: Callable | None = None) -> Params:
     """Parameters by the JAX package's `_init_leaf` rules, in
     `cfg.param_dtype` on `device`: norms and scales ones, biases zeros,
     `A_log` the log-linspace, `dt_bias` -1, the rest normal x min(0.02,
     fan_in^-0.5), drawn from `generator` (on its own device) leaf by leaf
     in JAX's flattening order.  The random leaves are not JAX's: carry
-    JAX's weights across with `convert.lm_params_from_numpy`."""
+    JAX's weights across with `convert.lm_params_from_numpy`.
+
+    `place(path, leaf)`, where given, takes each leaf as it is drawn and
+    returns what the tree keeps (the sharded trainer keeps a DTensor
+    shard), so the whole tree is never built."""
     dtype = _dtype(cfg.param_dtype)
     shapes = param_shapes(cfg, max_positions=max_positions)
-    return unflatten({path: _init_leaf(generator, path, shape, dtype,
-                                        device)
+    place = place or (lambda path, leaf: leaf)
+    return unflatten({path: place(path, _init_leaf(generator, path, shape,
+                                                   dtype, device))
                        for path, shape in tree_leaves(shapes)})
 
 
@@ -285,12 +295,14 @@ def _mlp_block(cfg: ModelConfig, x, p):
     h = _norm(cfg, x, p["mlp_norm"])
     if cfg.n_experts:
         B, S, D = h.shape
+        # explicit redistribution (`ll.regroup`): the routing sees tokens
+        # sharded on batch alone, regrouped shard by shard
         y, metrics = moe_lib.moe_ffn(
-            h.reshape(B * S, D), p["router"], p["w_gate"], p["w_in"],
+            ll.regroup(h, (B * S, D)), p["router"], p["w_gate"], p["w_in"],
             p["w_out"], top_k=cfg.experts_per_token,
             group_size=cfg.moe_group_size,
             capacity_factor=cfg.moe_capacity_factor)
-        return x + y.reshape(B, S, D), metrics.aux_loss
+        return x + ll.regroup(y, (B, S, D)), metrics.aux_loss
     if cfg.mlp == "swiglu":
         return x + ll.swiglu(h, p["w_gate"], p["w_in"], p["w_out"]), 0.0
     return x + ll.gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"],
@@ -365,11 +377,16 @@ def _decoder_stack(cfg: ModelConfig, x, params, positions):
 def _ssm_body(cfg: ModelConfig):
     dims = ssm_dims(cfg)
 
+    def block(h, norm, *fields):
+        hn = ll.rms_norm(h, norm)
+        return ssm_lib.ssd_forward(ssm_lib.SSMParams(*fields), hn, dims,
+                                   chunk=_eff_chunk(cfg, hn.shape[1]))
+
     def body(h, p):
-        hn = ll.rms_norm(h, p["norm"])
-        return h + ssm_lib.ssd_forward(_ssm_params(p), hn, dims,
-                                       chunk=_eff_chunk(cfg, hn.shape[1])
-                                       ), 0.0
+        # each batch shard runs the SSD block on its own rows
+        # (`ll.batch_local`: an explicit placement)
+        return h + ll.batch_local(block, h, p["norm"],
+                                  *(p[f] for f in _SSM_FIELDS)), 0.0
     return body
 
 
@@ -444,11 +461,11 @@ def _whisper_decode_stack(cfg: ModelConfig, x, params, enc_out, positions):
 
 
 def _embed_tokens(cfg, params, tokens, positions):
-    x = params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    x = ll.lookup(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
     if cfg.learned_positions:
         pos = positions if positions is not None else torch.arange(
             tokens.shape[1], device=tokens.device)
-        x = x + params["pos_embed"][pos].to(x.dtype)
+        x = x + ll.lookup(params["pos_embed"], pos).to(x.dtype)
     return x
 
 

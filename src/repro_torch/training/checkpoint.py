@@ -14,8 +14,14 @@ here and one written here loads there:
     an error there is raised by the next `wait`;
   * `keep_last` prunes old steps; `latest` finds the step to resume from.
 
-`restore_sharded`, which places a checkpoint onto a mesh, comes with the
-distributed LM slice (ROADMAP A11c).
+Sharded state (DTensor leaves, one process a shard) is saved in the same
+format, one leaf at a time: every rank gathers the leaf (`full_tensor`,
+a collective), rank 0 writes it as the next `.npy` entry of the npz and
+drops it, so no host ever holds more than one leaf; then every rank waits
+at a barrier.  Such a save blocks (its collectives would race the train
+step's on a worker thread).  `restore_sharded` places a checkpoint onto
+any mesh, leaf by leaf, reading each entry lazily on rank 0 and
+scattering it.
 """
 from __future__ import annotations
 
@@ -25,10 +31,12 @@ import pathlib
 import re
 import shutil
 import threading
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def _flatten(tree, prefix=""):
@@ -66,6 +74,16 @@ def _host(value) -> np.ndarray:
     return np.asarray(value)
 
 
+def _write_manifest(directory: pathlib.Path, step: int, meta: dict):
+    manifest = {"step": step, "keys": sorted(meta),
+                "shapes": {k: v[0] for k, v in meta.items()},
+                "dtypes": {k: v[1] for k, v in meta.items()}}
+    with open(directory / "manifest.json", "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
 def load_step(path: str | pathlib.Path) -> Any:
     """The tree of numpy arrays in one `step_N` directory."""
     with np.load(pathlib.Path(path) / "leaves.npz") as z:
@@ -86,30 +104,20 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
     def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
         self.wait()                      # one in-flight save at a time
-        host = {k: _host(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        if any(isinstance(v, DTensor) for v in flat.values()):
+            self._save_sharded(step, flat)
+            return
+        host = {k: _host(v) for k, v in flat.items()}
 
         def work():
             try:
-                tmp = self.dir / f"step_{step:09d}.tmp"
-                final = self.dir / f"step_{step:09d}"
-                if tmp.exists():
-                    shutil.rmtree(tmp)
-                tmp.mkdir()
+                tmp, final = self._begin(step)
                 np.savez(tmp / "leaves.npz", **host)
-                manifest = {"step": step,
-                            "keys": sorted(host.keys()),
-                            "shapes": {k: list(v.shape)
-                                       for k, v in host.items()},
-                            "dtypes": {k: str(v.dtype)
-                                       for k, v in host.items()}}
-                with open(tmp / "manifest.json", "w") as f:
-                    json.dump(manifest, f)
-                    f.flush()
-                    os.fsync(f.fileno())
-                if final.exists():
-                    shutil.rmtree(final)
-                os.replace(tmp, final)
-                self._prune()
+                _write_manifest(tmp, step, {
+                    k: (list(v.shape), str(v.dtype))
+                    for k, v in host.items()})
+                self._commit(tmp, final)
             except BaseException as e:      # surfaced on next wait()
                 self._error = e
 
@@ -119,6 +127,63 @@ class CheckpointManager:
         else:
             work()
             self._raise_pending()
+
+    def _begin(self, step: int):
+        tmp = self.dir / f"step_{step:09d}.tmp"
+        final = self.dir / f"step_{step:09d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        return tmp, final
+
+    def _commit(self, tmp: pathlib.Path, final: pathlib.Path):
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._prune()
+
+    def _save_sharded(self, step: int, flat: dict) -> None:
+        """Every rank calls it.  Each leaf is gathered by every rank in key
+        order and written by rank 0 as the next `.npy` entry of the npz
+        (as `np.savez` lays them out), then dropped; then a barrier.  An
+        error on rank 0 stops its writing, not the gathers, so no rank is
+        left waiting in a collective; it is raised after the barrier."""
+        from repro_torch.distributed import runtime
+
+        primary, error, meta, zf = runtime.is_primary(), None, {}, None
+        if primary:
+            try:
+                tmp, final = self._begin(step)
+                zf = zipfile.ZipFile(tmp / "leaves.npz", mode="w",
+                                     compression=zipfile.ZIP_STORED,
+                                     allowZip64=True)
+            except BaseException as e:      # raised after the barrier
+                error = e
+        for key in sorted(flat):
+            value = flat[key]
+            if isinstance(value, DTensor):
+                value = value.full_tensor()
+            if zf is not None and error is None:
+                try:
+                    arr = _host(value)
+                    with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                        np.lib.format.write_array(f, arr, allow_pickle=False)
+                    meta[key] = (list(arr.shape), str(arr.dtype))
+                    del arr
+                except BaseException as e:
+                    error = e
+            del value
+        if zf is not None:
+            try:
+                zf.close()
+                if error is None:
+                    _write_manifest(tmp, step, meta)
+                    self._commit(tmp, final)
+            except BaseException as e:
+                error = error or e
+        runtime.barrier()
+        if error is not None:
+            raise error
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -155,3 +220,43 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         return load_step(self.dir / f"step_{step:09d}")
+
+    def restore_sharded(self, mesh, spec_tree, step: Optional[int] = None
+                        ) -> Any:
+        """Elastic restore: the checkpoint placed onto `mesh` (any shape)
+        by `spec_tree`, leaf by leaf.  Every rank calls it; rank 0 reads
+        one npz entry at a time and scatters it.  A leaf with no spec
+        (the step counter) comes back as the numpy array every rank
+        reads."""
+        from repro_torch.distributed import runtime
+        from repro_torch.distributed import sharding as shd
+
+        if step is None:
+            step = self.latest()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = self.dir / f"step_{step:09d}"
+        with open(path / "manifest.json") as f:
+            manifest = json.load(f)
+        specs = {k: v for k, v in _flatten(spec_tree).items()}
+        out = {}
+        primary = runtime.is_primary()
+        with np.load(path / "leaves.npz") as z:
+            for key in manifest["keys"]:
+                spec = specs.get(key)
+                if spec is None:
+                    out[key] = z[key]
+                    continue
+                if primary:
+                    leaf = torch.from_numpy(z[key])
+                else:
+                    leaf = torch.empty(manifest["shapes"][key],
+                                       dtype=_TORCH[manifest["dtypes"][key]])
+                out[key] = shd.place(leaf, mesh, spec, src_data_rank=0)
+                del leaf
+        return _unflatten(out)
+
+
+_TORCH = {"float32": torch.float32, "int32": torch.int32,
+          "int64": torch.int64, "float64": torch.float64,
+          "float16": torch.float16}

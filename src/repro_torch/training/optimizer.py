@@ -17,6 +17,15 @@ The schedule, the bias corrections (``b ** count`` with an f32 count) and
 the clip scale are f32 tensors on the state's device, as JAX computes
 them; `global_norm` sums the leaves' squares in JAX's flattening order.
 
+On DTensor leaves (the sharded trainer) the same code runs shard by
+shard: the state takes each parameter's placements (Adafactor's `vr` /
+`vc` those of the dims they keep, as `sharding.opt_state_specs` has
+them), `count` and the scalars are replicated, and each sum over a
+sharded dim (`global_norm`, Adafactor's means and RMS) is reduced over
+the shards by DTensor.  Plain tensors beside DTensors (a constant rate)
+need `torch.distributed.tensor.experimental.implicit_replication`, which
+the train step enters.
+
 Adafactor exists because 1T-param models (kimi-k2) cannot afford Adam's
 two f32 moments: the second moment is factored into row and column
 statistics (O(n + m) per matrix instead of O(nm)).
@@ -28,6 +37,8 @@ import math
 from typing import Callable, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.models.transformer import tree_leaves
 
@@ -82,17 +93,36 @@ class Optimizer:
     global_norm: Callable = global_norm
 
 
+def _zeros(p: torch.Tensor, shape, keep=None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Zeros of `shape` on p's device.  For a DTensor `p` a DTensor on its
+    mesh: ``keep[i]`` is the dim of the new tensor that p's dim i
+    becomes (None: reduced away, its shards replicated); by default the
+    dims are p's own."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    keep = list(range(p.ndim)) if keep is None else keep
+    out = [Shard(keep[pl.dim]) if pl.is_shard()
+           and keep[pl.dim] is not None else Replicate()
+           for pl in p.placements]
+    return dtensor_zeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                         placements=out)
+
+
 def _zeros_like_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return _zeros(p, p.shape)
 
 
 def _count0(params) -> torch.Tensor:
-    device = next(tree_leaves(params))[1].device
-    return torch.zeros((), dtype=torch.int32, device=device)
+    return _zeros(next(tree_leaves(params))[1], (), [], torch.int32)
 
 
 def _store(old: torch.Tensor, new: torch.Tensor, inplace: bool
            ) -> torch.Tensor:
+    """`new`, written into `old` with ``inplace``; a DTensor keeps `old`'s
+    placements."""
+    if isinstance(old, DTensor) and old.placements != new.placements:
+        new = new.redistribute(old.device_mesh, old.placements)
     return old.copy_(new) if inplace else new
 
 
@@ -145,13 +175,17 @@ def adafactor(lr: Schedule = 1e-2, decay: float = 0.8, eps: float = 1e-30,
               weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         def vr(p):
-            shape = p.shape[:-1] if _factored(p.shape) else p.shape
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            if not _factored(p.shape):
+                return _zeros(p, p.shape)
+            n = p.ndim
+            return _zeros(p, p.shape[:-1], [*range(n - 1), None])
 
         def vc(p):
-            shape = (p.shape[:-2] + p.shape[-1:] if _factored(p.shape)
-                     else (0,))
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            if not _factored(p.shape):
+                return _zeros(p, (0,), [None] * p.ndim)
+            n = p.ndim
+            return _zeros(p, p.shape[:-2] + p.shape[-1:],
+                          [*range(n - 2), None, n - 2])
 
         return {"vr": _map(vr, params), "vc": _map(vc, params),
                 "count": _count0(params)}

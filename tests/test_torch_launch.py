@@ -9,7 +9,8 @@
     decoder and for the encoder-decoder (JAX's line);
   * `repro_torch.launch.train` (the default arch and `--arch
     internvl2-1b`) and `examples/torch/train_lm.py`: JAX's `[train]` and
-    loss lines; a multi-process run exits 2;
+    loss lines; two gloo processes with `--coordinator` train a (1, 2)
+    mesh and exit 0, rank 0 alone printing;
   * `examples/torch/{quickstart,serve_gbdt,embeddings_knn}.py`;
   * each launcher's `--trace-out x.json --metrics-out y.prom`: a Chrome
     trace that loads, with the launcher's spans, and the JAX launchers'
@@ -20,7 +21,10 @@ Each runs with ``--device cpu``; without it they run on the card.
 """
 import importlib.util
 import json
+import os
 import pathlib
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -135,13 +139,28 @@ def test_train_lm_launcher_on_the_cpu(arch, tmp_path, capsys):
     assert capsys.readouterr().out == ""
 
 
-def test_train_lm_launcher_defaults_and_refusals(capsys):
+def test_train_lm_launcher_defaults_and_refusals(tmp_path):
     args = train.parse_args([])
     assert (args.arch, args.steps, args.smoke, args.seq_len, args.batch,
-            args.device) == ("glm4-9b", 50, True, 64, 8, "cuda")
-    assert train.main(["--coordinator", "localhost:1234",
-                       "--num-processes", "2", "--device", "cpu"]) == 2
-    assert "A11c" in capsys.readouterr().err
+            args.device, args.model) == ("glm4-9b", 50, True, 64, 8,
+                                         "cuda", 1)
+    # JAX's multi-process flags: two gloo processes train one (1, 2) mesh
+    # and exit 0; only rank 0 prints the [train] line
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--steps", "2", "--seq-len", "16", "--batch", "2", "--model", "2",
+         "--ckpt-dir", str(tmp_path / "ckpt"), "--coordinator",
+         f"file://{tmp_path / 'store'}", "--num-processes", "2",
+         "--process-id", str(r)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert outs[0][0].strip().startswith(
+        "[train] glm4-9b-smoke: step 2, loss ")
+    assert outs[1][0].strip() == ""
 
 
 def test_train_lm_example(tmp_path, capsys):

@@ -20,9 +20,14 @@ positions, zero frontend embeddings, as the launcher feeds it):
     JAX's pipeline tests on the port;
   * the optimizer-state converter and the checkpoint's bfloat16 refusal;
   * the trainer's specs equal JAX's trainer's; a mesh of several shards
-    and a card-less "cuda" mesh are refused.
+    is refused without a process group, and in a group of 2 gloo ranks
+    the sharded trainer's init is the one-device init bit for bit; a
+    card-less "cuda" mesh is refused.
 """
+import pathlib
 import shutil
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -233,6 +238,36 @@ def test_checkpoint_refuses_bfloat16(tmp_path):
     assert cm.latest() is None
 
 
+SHARDED_TRAINER = """
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+from repro_torch import configs
+from repro_torch.distributed import runtime
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import transformer as tf
+from repro_torch.training.trainer import Trainer
+torch.set_num_threads(1)
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+runtime.initialize("file://" + store, 2, rank, device="cpu")
+tr = Trainer(configs.get({arch!r}, smoke=True),
+             make_local_mesh(model=2, device="cpu"), out)
+tr.initialize()
+specs = dict(tf.tree_leaves(tr.p_specs))
+whole = {{}}
+for path, leaf in tf.tree_leaves(tr.params):
+    assert leaf.placements == shd.placements(specs[path], tr.mesh), path
+    whole[path.replace("/", ".")] = leaf.full_tensor().numpy()
+for path, leaf in tf.tree_leaves(tr.opt_state):
+    assert leaf.placements[0].is_replicate(), path
+if runtime.is_primary():
+    np.savez(out + "/params.npz", **whole)
+runtime.shutdown()
+"""
+
+
 def test_trainer_specs_equal_jax_and_one_shard_only(tmp_path):
     cfg, jcfg = configs.get(ARCH), jconfigs.get(ARCH)
     jtr = JTrainer(jcfg, jmake_mesh((1, 1), ("data", "model")),
@@ -247,8 +282,30 @@ def test_trainer_specs_equal_jax_and_one_shard_only(tmp_path):
         for path, spec in want:
             key = "/".join(p.key for p in path)
             assert tuple(flat[key]) == tuple(spec), key
-    with pytest.raises(NotImplementedError, match="A11c"):
+    # a mesh of several shards trains one process a shard: refused
+    # without a process group, and in a group of 2 gloo ranks its leaves
+    # are DTensors placed by those specs whose whole values are the
+    # one-device trainer's init, bit for bit
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(cfg, make_local_mesh(2, device="cpu"), tmp_path / "q")
+    one = Trainer(configs.get(ARCH, smoke=True),
+                  make_local_mesh(device="cpu"), tmp_path / "one")
+    one.initialize()
+    want = {k: v.numpy() for k, v in tf.tree_leaves(one.params)}
+    code = SHARDED_TRAINER.format(src=str(pathlib.Path(__file__).parents[1]
+                                          / "src"), arch=ARCH)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(tmp_path / "store"),
+         str(tmp_path / "q")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=240)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    got = np.load(tmp_path / "q" / "params.npz")
+    assert sorted(got.files) == sorted(k.replace("/", ".") for k in want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k.replace("/", ".")], v,
+                                      err_msg=k)
     if not torch.cuda.is_available():
         from repro_torch.distributed.mesh import make_mesh
         with pytest.raises(RuntimeError, match="device='cpu'"):
