@@ -5057,6 +5057,128 @@ def lm_dist_step_pair(cfg, mesh, params: dict, batch: dict, optimizer,
     return {"one": one, "sharded": sharded, "replay": plain_step(grads)}
 
 
+# the models' mesh branches (ROADMAP A11c-ii): each smoke config with the
+# branches JAX's perf variants name (`launch/perf.py`): ring attention
+# with sequence parallelism in the dense / moe / vlm stacks (mixtral's
+# sliding window keeps the plain attention), flash decode in every family
+# with a KV cache
+LM_MESH_CASES = (("glm4-9b", "ring"), ("kimi-k2-1t-a32b", "ring"),
+                 ("internvl2-1b", "ring"), ("mixtral-8x22b", "ring"),
+                 ("glm4-9b", "flash"), ("zamba2-1.2b", "flash"),
+                 ("whisper-small", "flash"))
+LM_MESH_VARIANTS = {"ring": {"attention_impl": "ring",
+                             "sequence_parallel": True},
+                    "flash": {"flash_decode": True}}
+LM_MESH_DECODE = 3       # decode steps after the prefill
+LM_MESH_MAX_SEQ = 64     # the serving cache: S + 32, split 2 and 4 ways
+
+
+def lm_mesh_config(name: str, variant: str):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(name, smoke=True),
+                               **LM_MESH_VARIANTS[variant])
+
+
+def lm_mesh_pair(cfg, mesh, params: dict, batch: dict, decode: np.ndarray,
+                 plain_mesh: bool = False) -> dict:
+    """`cfg`'s mesh branches on `mesh` against mesh=None, from the same
+    parameters ({path: tensor}, alike on every rank, on this rank's
+    device), numpy `batch` (tokens, labels, frontend) and `decode`
+    tokens (steps, B, 1).  Each side's record: forward's logits, the
+    `loss_fn` gradients (what `make_train_step` differentiates), one
+    SGD `make_train_step`'s loss and grad_norm, then `make_prefill_step`'s
+    logits, each `make_decode_step`'s logits and the cache after them,
+    every tensor whole on this rank.
+
+      one:   mesh=None on plain tensors;
+      mesh:  mesh=mesh on DTensor leaves placed by the trainer's specs,
+             the batch over the data axes (the prefill's cache placed by
+             `cache_specs`);
+      plain_mesh (with `plain_mesh`): mesh=mesh on the plain tensors
+             (each collective takes and returns whole values).
+
+    `chip_smoke.py`'s lm_dist phase and the CPU tests
+    (`tests/torch_dist_worker.py`) both compare through this."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt
+    device = next(iter(params.values())).device
+    seq = batch["tokens"].shape[1]
+
+    def whole(x):
+        if isinstance(x, dict):
+            return {k: whole(v) for k, v in x.items()}
+        return (x.full_tensor() if isinstance(x, DTensor) else x).detach()
+
+    def side(tree, b, m, place_batch) -> dict:
+        cast = (lambda a: shard_batch(a, m, shd.P(shd.dp_axes(m)))) \
+            if place_batch else (lambda a: {
+                k: torch.as_tensor(v, device=device) for k, v in a.items()})
+        bt = cast(b)
+        rec = {}
+        with implicit_replication():
+            rec["logits"] = whole(tf.forward(cfg, tree, bt, mesh=m)[0])
+            leaves = dict(tf.tree_leaves(tree))
+            diff = {k: v.detach().requires_grad_()
+                    for k, v in leaves.items()}
+            loss, _ = steps.loss_fn(cfg, tf.unflatten(diff), bt, mesh=m)
+            rec["grads"] = {k: whole(g) for k, g in zip(diff, torch.autograd
+                                                         .grad(loss, list(
+                                                             diff.values())))}
+        o = opt.sgd(lr=LM_TRAIN_LR)
+        p = tf.unflatten({k: v.clone() for k, v in leaves.items()})
+        _, _, metrics = steps.make_train_step(cfg, o, mesh=m)(
+            p, o.init(p), bt)
+        rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+        prompt = {k: v for k, v in b.items() if k != "labels"}
+        logits, cache = steps.make_prefill_step(cfg, LM_MESH_MAX_SEQ,
+                                                mesh=m)(tree, cast(prompt))
+        rec["prefill"] = whole(logits)
+        rec["cache_placements"] = {
+            k: [repr(p) for p in v.placements] for k, v in cache.items()
+            if isinstance(v, DTensor)}
+        step = steps.make_decode_step(cfg, mesh=m)
+        rec["decode"] = []
+        for tokens in decode:
+            logits, cache = step(tree, cache,
+                                 cast({"tokens": tokens})["tokens"])
+            rec["decode"].append(whole(logits))
+        rec["cache"] = whole(cache)
+        return rec
+
+    plain = tf.unflatten(params)
+    out = {"one": side(plain, batch, None, False)}
+    specs = dict(tf.tree_leaves(shd.param_specs(cfg, mesh,
+                                                max_positions=seq)))
+    placed = tf.unflatten({k: shd.place(v.clone(), mesh, specs[k],
+                                        src_data_rank=None)
+                           for k, v in params.items()})
+    out["mesh"] = side(placed, batch, mesh, True)
+    if plain_mesh:
+        out["plain_mesh"] = side(plain, batch, mesh, False)
+    return out
+
+
+def lm_mesh_inputs(cfg, seed: int) -> tuple:
+    """(params {path: tensor on the CPU}, numpy batch, decode tokens) of
+    one mesh case: f32 weights drawn by `init_params`, the batch of the
+    step checks and LM_MESH_DECODE steps of one token a row."""
+    import torch
+    from repro_torch.models import transformer as tf
+    params = dict(tf.tree_leaves(tf.init_params(
+        cfg, torch.Generator().manual_seed(seed),
+        max_positions=LM_MESH_MAX_SEQ, device="cpu")))
+    decode = np.random.default_rng(seed + 100).integers(
+        0, cfg.vocab_size, (LM_MESH_DECODE, LM_BATCH, 1)).astype(np.int32)
+    return params, lm_train_batch(cfg, seed), decode
+
+
 def lm_dist_step_checks(mesh, device, world: int) -> dict:
     """Each smoke config's sharded step held to the one-device step on
     this rank's device from the same parameters and batch
@@ -5137,6 +5259,231 @@ def lm_dist_step_checks(mesh, device, world: int) -> dict:
                     "bit_for_bit": not any(errs.values())
                     and got["metrics"] == one["metrics"],
                     "params_err_over_rule": over}
+    return out
+
+
+LM_MESH_SUM_TOL = 1e-6   # a collective against its one-process emulation
+#                          where a sum over the shards rounds in another
+#                          order (flash decode's two SUM all-reduces)
+LM_MESH_MM_TOL = 1e-3    # the ring matmul against x @ W (JAX's test's)
+LM_MESH_BODIES = 4       # shards the one-card body checks emulate
+
+
+def lm_mesh_errors(got: dict, want: dict) -> dict:
+    """Largest |got - want| of each field of two `lm_mesh_pair` sides."""
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max()) if a.numel() \
+            else 0.0
+    return {"logits": err(got["logits"], want["logits"]),
+            "grads": max(err(got["grads"][k], v)
+                         for k, v in want["grads"].items()),
+            "prefill": err(got["prefill"], want["prefill"]),
+            "decode": max(err(a, b) for a, b in zip(got["decode"],
+                                                    want["decode"])),
+            "cache": max(err(got["cache"][k], v)
+                         for k, v in want["cache"].items()),
+            "loss": abs(got["metrics"]["loss"] - want["metrics"]["loss"]),
+            "grad_norm": abs(got["metrics"]["grad_norm"]
+                             - want["metrics"]["grad_norm"])}
+
+
+def lm_mesh_within(got: dict, want: dict, tol: float) -> bool:
+    """Every tensor of `got` within rtol = atol = `tol` of `want`'s."""
+    import torch
+
+    def close(a, b):
+        return torch.allclose(a.double(), b.double(), rtol=tol, atol=tol)
+    pairs = [(got["logits"], want["logits"]), (got["prefill"],
+                                               want["prefill"])]
+    pairs += [(got["grads"][k], v) for k, v in want["grads"].items()]
+    pairs += list(zip(got["decode"], want["decode"]))
+    pairs += [(got["cache"][k], v) for k, v in want["cache"].items()]
+    metrics = all(abs(got["metrics"][m] - want["metrics"][m])
+                  <= tol * (1 + abs(want["metrics"][m]))
+                  for m in ("loss", "grad_norm"))
+    return metrics and all(close(a, b) for a, b in pairs)
+
+
+def lm_mesh_checks(mesh, device, world: int) -> dict:
+    """Each LM_MESH_CASES config's mesh branches on `mesh`
+    (`lm_mesh_pair`): forward, gradients, a train step, prefill and
+    decode steps within rtol = atol = LM_PARITY of mesh=None; at world 1
+    also the DTensor path bit for bit the plain tensors' mesh path.  (At
+    world 1 the ring and flash decode still run their online softmax, as
+    JAX's do at model = 1, so they round otherwise than mesh=None's
+    softmax.)"""
+    out = {}
+    for seed, (name, variant) in enumerate(LM_MESH_CASES):
+        cfg = lm_mesh_config(name, variant)
+        params, batch, decode = lm_mesh_inputs(cfg, seed)
+        params = {k: v.to(device) for k, v in params.items()}
+        pair = lm_mesh_pair(cfg, mesh, params, batch, decode,
+                            plain_mesh=world == 1)
+        key = f"{name}/{variant}"
+        errs = lm_mesh_errors(pair["mesh"], pair["one"])
+        check(lm_mesh_within(pair["mesh"], pair["one"], LM_PARITY),
+              f"lm_dist mesh {key}: the mesh branches differ from "
+              f"mesh=None by {errs}")
+        rec = {"vs_one": errs}
+        if world == 1:
+            rec["vs_plain_mesh"] = lm_mesh_errors(pair["mesh"],
+                                                  pair["plain_mesh"])
+            check(not any(rec["vs_plain_mesh"].values()),
+                  f"lm_dist mesh {key}: at world 1 the DTensor path "
+                  f"differs from the plain mesh path by "
+                  f"{rec['vs_plain_mesh']}")
+        out[key] = rec
+    return out
+
+
+def lm_collective_checks(mesh, device, world: int) -> dict:
+    """The four collectives on the rank's mesh at the glm4-9b smoke
+    shapes, f32: each against the one-process emulation of its shard
+    bodies at the mesh's shard count (the rings bit for bit, flash decode
+    within LM_MESH_SUM_TOL; at world 1 bit for bit) and against the plain
+    function (the attentions and ring attention's gradient within
+    LM_PARITY, the matmul within LM_MESH_MM_TOL); the int8 all-reduce
+    over "data", two steps with the residuals carried, bit for bit its
+    emulation (shared scale, int32 sums)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import runtime
+    from repro_torch.models import layers as ll
+    cfg = configs.get("glm4-9b", smoke=True)
+    B, S, H, KVH = LM_BATCH, LM_TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads
+    Dh = cfg.resolved_head_dim
+    n, data = mesh.shape["model"], mesh.shape["data"]
+    idx = runtime.rank() % n                     # the rank's "model" index
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    out = {}
+    q, k, v, ct = rand(B, S, H, Dh), rand(B, S, KVH, Dh), \
+        rand(B, S, KVH, Dh), rand(B, S, H, Dh)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = C.ring_attention(mesh)(*qkv)
+    grads = torch.autograd.grad((got * ct).sum(), qkv)
+    plain_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = ll.attention(*plain_in)
+    want_grads = torch.autograd.grad((want * ct).sum(), plain_in)
+    got, want = got.detach(), want.detach()
+    emulated = C.emulate_ring_attention(q, k, v, n)
+    out["ring_attention"] = {"vs_emulated": err(got, emulated),
+                             "vs_plain": err(got, want),
+                             "grad_vs_plain": max(map(err, grads,
+                                                      want_grads))}
+    check(torch.equal(got, emulated), f"lm_dist ring_attention differs "
+          f"from its emulation by {err(got, emulated)}")
+    check(torch.allclose(got, want, rtol=LM_PARITY, atol=LM_PARITY),
+          f"lm_dist ring_attention: {out['ring_attention']}")
+    check(all(torch.allclose(a, b, rtol=LM_PARITY, atol=LM_PARITY)
+              for a, b in zip(grads, want_grads)),
+          f"lm_dist ring_attention's gradient: {out['ring_attention']}")
+
+    qd = q[:, 0].contiguous()
+    valid = torch.tensor(S - 7, dtype=torch.int32, device=device)
+    got = C.flash_decode(mesh)(qd, k, v, valid)
+    emulated = C.emulate_flash_decode(qd, k, v, valid, n)
+    want = ll.decode_attention(qd[:, None], k, v, valid)[:, 0]
+    out["flash_decode"] = {"vs_emulated": err(got, emulated),
+                           "vs_plain": err(got, want)}
+    check(torch.equal(got, emulated) if world == 1 else torch.allclose(
+        got, emulated, rtol=LM_MESH_SUM_TOL, atol=LM_MESH_SUM_TOL),
+        f"lm_dist flash_decode against its emulation: "
+        f"{out['flash_decode']}")
+    check(torch.allclose(got, want, rtol=LM_PARITY, atol=LM_PARITY),
+          f"lm_dist flash_decode: {out['flash_decode']}")
+
+    x, w = rand(4 * B, cfg.d_model), rand(cfg.d_model, cfg.d_ff)
+    got = C.ring_allgather_matmul(mesh)(x, w)
+    emulated = C.emulate_ring_allgather_matmul(x, w, n)[idx]
+    out["ring_allgather_matmul"] = {"vs_emulated": err(got, emulated),
+                                    "vs_plain": err(got, x @ w)}
+    check(torch.equal(got, emulated), f"lm_dist ring_allgather_matmul "
+          f"against its emulation: {out['ring_allgather_matmul']}")
+    check(torch.allclose(got, x @ w, rtol=LM_MESH_MM_TOL,
+                         atol=LM_MESH_MM_TOL),
+          f"lm_dist ring_allgather_matmul: {out['ring_allgather_matmul']}")
+
+    # every rank draws every data shard's gradients; its own is row
+    # rank // n, as the "data" index of a (data, model) mesh
+    g_all = [rand(data, cfg.d_model) for _ in range(2)]
+    me = runtime.rank() // n
+    resid = {"w": torch.zeros(cfg.d_model, device=device)}
+    resid_all = torch.zeros(data, cfg.d_model, device=device)
+    worst = 0.0
+    for g in g_all:
+        mean, resid = C.compressed_psum_grads({"w": g[me]}, resid,
+                                              mesh=mesh, axis="data")
+        local = g + resid_all
+        scale = local.abs().amax() / 127.0 + 1e-12
+        q8 = torch.clamp(torch.round(local / scale), -127, 127) \
+            .to(torch.int8)
+        want_mean = q8.to(torch.int32).sum(0).to(torch.float32) \
+            * scale / data
+        resid_all = local - q8.to(torch.float32) * scale
+        worst = max(worst, err(mean["w"], want_mean),
+                    err(resid["w"], resid_all[me]))
+    out["compressed_psum_grads"] = {"vs_emulated": worst}
+    check(worst == 0.0, f"lm_dist compressed_psum_grads differs from its "
+          f"emulation by {worst}")
+    return out
+
+
+def lm_shard_body_checks(device) -> dict:
+    """Each collective's shard bodies at n = LM_MESH_BODIES on this one
+    card, fed the blocks in the order each ring delivers them
+    (`collectives.emulate_*`), at the glm4-9b smoke shapes in bf16 and
+    f32, against the plain attention, the plain decode attention and the
+    plain product: f32 within LM_PARITY (the matmul LM_MESH_MM_TOL), bf16
+    within the bf16 rule of one block (`bf16_limit(1, ...)`)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import layers as ll
+    cfg = configs.get("glm4-9b", smoke=True)
+    B, S, H, KVH = LM_BATCH, LM_TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads
+    Dh, n = cfg.resolved_head_dim, LM_MESH_BODIES
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen,
+                               device=device).to(dtype)
+        q, k, v = rand(B, S, H, Dh), rand(B, S, KVH, Dh), rand(B, S, KVH, Dh)
+        x, w = rand(4 * B, cfg.d_model), rand(cfg.d_model, cfg.d_ff)
+        valid = torch.tensor(S - 7, dtype=torch.int32, device=device)
+        cases = {
+            "ring_attention": ([C.emulate_ring_attention(q, k, v, n)],
+                               ll.attention(q, k, v), LM_PARITY),
+            "flash_decode": ([C.emulate_flash_decode(q[:, 0], k, v, valid,
+                                                     n)],
+                             ll.decode_attention(q[:, :1], k, v,
+                                                 valid)[:, 0], LM_PARITY),
+            "ring_allgather_matmul": (
+                C.emulate_ring_allgather_matmul(x, w, n),
+                (x.float() @ w.float()), LM_MESH_MM_TOL)}
+        rec = {}
+        for name, (gots, want, tol) in cases.items():
+            want = want.float()
+            limit = bf16_limit(1, want) if dtype == torch.bfloat16 else \
+                tol + tol * want.abs()
+            over = max(float(((got.float() - want).abs() / limit).max())
+                       for got in gots)
+            rec[name] = {"max_abs_err": max(float((got.float() - want)
+                                                  .abs().max())
+                                            for got in gots),
+                         "err_over_limit": over}
+            check(over <= 1.0, f"lm_dist shard body {name} ({dtype}, n = "
+                  f"{n}) is {over:.3g} times its limit from the plain "
+                  f"function")
+        out[str(dtype).replace("torch.", "")] = rec
     return out
 
 
@@ -5240,6 +5587,19 @@ def run_lm_dist_rank(rank: int, world: int, rendezvous: str,
     t1 = time.perf_counter()
     out["steps"] = lm_dist_step_checks(mesh, device, world)
     out["steps_s"] = time.perf_counter() - t1
+    # the models' mesh branches and the collectives: no hand-written
+    # kernel runs on them
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out["mesh_branches"] = lm_mesh_checks(mesh, device, world)
+    out["collectives"] = lm_collective_checks(mesh, device, world)
+    out["shard_bodies"] = lm_shard_body_checks(device)
+    out["mesh_s"] = time.perf_counter() - t1
+    out["mesh_launches"] = ops.launch_counts()
+    for name, count in out["mesh_launches"].items():
+        check((count > 0) == (name in PATH_KERNELS["lm_collectives"]),
+              f"the lm_collectives path launched {name} {count} times")
     out["run"] = lm_dist_run(shape_a, shape_b, device_type, world,
                              os.path.join(out_dir, "ckpt"))
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
@@ -5297,6 +5657,10 @@ def run_lm_dist_phase(card_name: str) -> dict:
     return {"cards": world, "ranks": world, "card": card_name,
             "backend": first["backend"], "mesh": first["mesh"],
             "steps": first["steps"],
+            "mesh_branches": first["mesh_branches"],
+            "collectives": first["collectives"],
+            "shard_bodies": first["shard_bodies"],
+            "mesh_s": [r["mesh_s"] for r in ranks],
             "run": first["run"],
             "peak_bytes": [r["peak_bytes"] for r in ranks],
             "rank_seconds": [r["seconds"] for r in ranks],
@@ -5345,6 +5709,8 @@ PATH_KERNELS = {
     "serve_lm_whisper": set(),
     "train_lm": set(),
     "train_lm_example": set(),
+    # the lm_dist ranks' mesh branches and collectives (`run_lm_dist_rank`)
+    "lm_collectives": set(),
 }
 
 

@@ -5,8 +5,9 @@ defaults and arithmetic, so `dataclasses.asdict` of every config equals
 JAX's.  `scan_unroll` changes nothing in the port's eager models;
 `remat` / `remat_policy` choose what a training backward recomputes
 (`models/transformer.py`), never a value; the mesh fields
-(`attention_impl="ring"`, `flash_decode`, `sequence_parallel`) need the
-collectives of ROADMAP A11c-ii.
+(`attention_impl="ring"`, `flash_decode`, `sequence_parallel`) choose
+the models' mesh branches when a mesh is passed
+(`distributed/collectives.py`), as in JAX.
 """
 from __future__ import annotations
 

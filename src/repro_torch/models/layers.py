@@ -48,12 +48,17 @@ def from_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
                                   shape, device="meta").stride())
 
 
+def batch_placements(x: DTensor) -> list:
+    """x's placements with only its batch (dim 0) shards kept."""
+    return [p if p.is_shard(0) else Replicate() for p in x.placements]
+
+
 def batch_sharded(x: torch.Tensor) -> torch.Tensor:
     """`x` as it is, or, for a DTensor, sharded on its batch dimension
     (dim 0) only: any other shard gathered, any pending sum reduced."""
     if not isinstance(x, DTensor):
         return x
-    want = [p if p.is_shard(0) else Replicate() for p in x.placements]
+    want = batch_placements(x)
     return x if list(x.placements) == want else x.redistribute(
         x.device_mesh, want)
 
@@ -90,8 +95,9 @@ def batch_local(fn, x: torch.Tensor, *weights: torch.Tensor
     """``fn(x, *weights)`` for a computation that is independent from one
     batch row to the next.  For a DTensor `x` each shard of its batch
     runs `fn` on its own rows with the weights gathered whole (their
-    gradient a sum over the batch shards), and the result is sharded as
-    `x` is; `fn` must keep the batch dimension first.
+    gradient a sum over the batch shards), and the result (or each
+    tensor of a tuple of results) is sharded as `x` is; `fn` must keep
+    the batch dimension first.
 
     Explicit placement: the SSD block (`models/ssm.py`) reshapes, pads and
     slices its activations in ways DTensor's rules under torch 2.11 cannot
@@ -112,9 +118,12 @@ def batch_local(fn, x: torch.Tensor, *weights: torch.Tensor
     local = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
         grad_placements=grad) if isinstance(w, DTensor) else w
         for w in weights]
-    y = fn(x.to_local(), *local).contiguous()
-    return from_local(y, mesh, x.placements,
-                      (x.shape[0],) + tuple(y.shape[1:]))
+    y = fn(x.to_local(), *local)
+
+    def out(t: torch.Tensor) -> DTensor:
+        return from_local(t.contiguous(), mesh, x.placements,
+                          (x.shape[0],) + tuple(t.shape[1:]))
+    return tuple(map(out, y)) if isinstance(y, tuple) else out(y)
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -329,6 +338,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     integer tensor on the caches' device — the number of valid cache
     positions (the new token's k/v already written).
     """
+    if isinstance(k_cache, DTensor):
+        return _sharded_decode_attention(q, k_cache, v_cache, cur_pos,
+                                         window=window)
     B, _, H, Dh = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
@@ -345,6 +357,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhgqs,bshd->bqhgd", probs.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def _sharded_decode_attention(q: torch.Tensor, k_cache: DTensor,
+                              v_cache: DTensor, cur_pos, *, window: int
+                              ) -> DTensor:
+    """`decode_attention` over a DTensor cache: each batch shard of the
+    cache attends its rows over the whole sequence, gathered from the
+    sequence shards (what GSPMD does for JAX's plain decode attention
+    over a cache that `cache_specs` shards on S).
+
+    Explicit redistribution: DTensor would keep the scores sharded on S
+    and gather them for the softmax."""
+    mesh, rows = k_cache.device_mesh, batch_placements(k_cache)
+    if not isinstance(q, DTensor):
+        q = from_local(q, mesh, [Replicate()] * mesh.ndim, q.shape)
+    if isinstance(cur_pos, DTensor):
+        cur_pos = cur_pos.to_local()
+    ql, kl, vl = (t.redistribute(mesh, rows).to_local()
+                  for t in (q, k_cache, v_cache))
+    out = decode_attention(ql, kl, vl, cur_pos, window=window)
+    return from_local(out.contiguous(), mesh, rows, q.shape)
 
 
 # --------------------------------------------------------------------------

@@ -123,7 +123,7 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
                  if leaf.is_floating_point()]
         flat = dict(tf.tree_leaves(params))
         sharded = any(isinstance(v, DTensor) for v in flat.values())
-        with implicit_replication() if sharded else contextlib.nullcontext():
+        with _replicating(params):
             with torch.enable_grad():
                 diff = {path: flat[path].detach().requires_grad_()
                         for path in paths}
@@ -174,14 +174,27 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
     return eval_step
 
 
+def _replicating(params):
+    """`implicit_replication` on DTensor parameters (the tensors the model
+    makes count as replicated), else nothing."""
+    sharded = any(isinstance(v, DTensor) for _, v in tf.tree_leaves(params))
+    return implicit_replication() if sharded else contextlib.nullcontext()
+
+
 def make_prefill_step(cfg: ModelConfig, max_seq: int,
                       mesh=None) -> Callable:
+    """fn(params, batch) -> (last-position logits, cache); on DTensor
+    parameters the cache comes back placed by `sharding.cache_specs`."""
     def prefill_step(params, batch):
-        return tf.prefill(cfg, params, batch, max_seq, mesh=mesh)
+        with _replicating(params):
+            return tf.prefill(cfg, params, batch, max_seq, mesh=mesh)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None) -> Callable:
+    """fn(params, cache, tokens) -> (logits, cache), writing the cache it
+    is given (`transformer.decode_step`)."""
     def decode_step(params, cache, tokens):
-        return tf.decode_step(cfg, params, cache, tokens, mesh=mesh)
+        with _replicating(params):
+            return tf.decode_step(cfg, params, cache, tokens, mesh=mesh)
     return decode_step

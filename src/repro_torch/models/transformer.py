@@ -24,13 +24,21 @@ keeps the outputs of `aten.mm` / `aten.addmm` (JAX's
 `dots_with_no_batch_dims_saveable`).  A hybrid's shared attention block
 is checkpointed as well: its f32 scores, kept for each of zamba2's six
 applications, would not fit one card at a 4k sequence.  Remat changes no
-value.  `cfg.scan_unroll` shapes JAX's compiled program only.  Only
-`mesh=None` is served: ring attention, `flash_decode` and
-`sequence_parallel` need the collectives of ROADMAP A11c-ii.  The sharded
-trainer passes DTensor parameters and batches instead (one process a
-shard); where DTensor cannot carry a sharding through an op, the op runs
-shard by shard (`layers.lookup`, `layers.regroup`, `layers.batch_local`,
-the attention in `layers.attention`).
+value.  `cfg.scan_unroll` shapes JAX's compiled program only.  The sharded
+trainer passes DTensor parameters and batches (one process a shard);
+where DTensor cannot carry a sharding through an op, the op runs shard by
+shard (`layers.lookup`, `layers.regroup`, `layers.batch_local`, the
+attention in `layers.attention` and `layers.decode_attention`).
+
+`mesh=` takes JAX's three mesh branches on JAX's conditions, through
+`distributed.collectives`: ring attention (`attention_impl="ring"`, in
+the dense / moe / vlm stacks), `_sp` (`sequence_parallel`: the hidden
+state placed on P(None, "model", None) between blocks; DTensors only, a
+plain tensor carries no placement) and `flash_decode` (the decode
+attention of every family with a KV cache).  On DTensor parameters,
+`prefill` returns its cache placed by `sharding.cache_specs`, as JAX's
+prefill step's out-shardings place it, and `decode_step` writes the new
+token's k / v into the one sequence shard that holds its slot.
 
 Batches hold tensors on the parameters' device: `tokens` (B, S) integer
 and, for vlm / audio, `frontend_embeds` (B, S_f, D).
@@ -43,6 +51,9 @@ import functools
 
 import torch
 import torch.utils.checkpoint as torch_checkpoint
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ll
@@ -78,14 +89,6 @@ def params_on(cfg: ModelConfig, params: Params,
     cdt = _dtype(cfg.compute_dtype)
     return _tree_map(lambda a: a.to(device, cdt) if a.is_floating_point()
                      else a.to(device), params)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port's LM models take no mesh (DTensor leaves carry the "
-            "sharding); ring attention, flash_decode and "
-            "sequence_parallel need the collectives (ROADMAP A11c-ii)")
 
 
 # ==========================================================================
@@ -270,11 +273,20 @@ def _norm(cfg, x, scale, bias=None):
     return ll.rms_norm(x, scale)
 
 
+def _bspec(mesh, B: int):
+    """JAX's `bspec`: the data axes where they split the batch, else None."""
+    from repro_torch.distributed import sharding as shd
+    dp = shd.dp_axes(mesh)
+    return dp if (B % max(shd.mesh_size(mesh, dp), 1) == 0 and dp) \
+        else None
+
+
 def _attn_block(cfg: ModelConfig, x, p, positions, *, causal=True,
-                kv_override=None):
+                kv_override=None, mesh=None):
     """Pre-norm attention. kv_override=(k, v) for cross-attention."""
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
+    x = _seq_whole(x)
     h = _norm(cfg, x, p["attn_norm"])
     q = (h @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
     if kv_override is None:
@@ -285,13 +297,24 @@ def _attn_block(cfg: ModelConfig, x, p, positions, *, causal=True,
             k = ll.apply_rope(k, positions, cfg.rope_theta)
     else:
         k, v = kv_override
-    q_chunk = cfg.attn_chunk if S > cfg.attn_chunk_threshold else 0
-    out = ll.attention(q, k, v, causal=causal and kv_override is None,
-                       window=cfg.sliding_window, q_chunk=q_chunk)
+    use_ring = (cfg.attention_impl == "ring" and mesh is not None
+                and "model" in mesh.axis_names
+                and kv_override is None and causal
+                and not cfg.sliding_window
+                and S % mesh.shape["model"] == 0)
+    if use_ring:
+        from repro_torch.distributed import collectives
+        out = _seq_whole(collectives.ring_attention(
+            mesh, dp=_bspec(mesh, B))(q, k, v))
+    else:
+        q_chunk = cfg.attn_chunk if S > cfg.attn_chunk_threshold else 0
+        out = ll.attention(q, k, v, causal=causal and kv_override is None,
+                           window=cfg.sliding_window, q_chunk=q_chunk)
     return x + out.reshape(B, S, -1) @ p["wo"]
 
 
 def _mlp_block(cfg: ModelConfig, x, p):
+    x = _seq_whole(x)
     h = _norm(cfg, x, p["mlp_norm"])
     if cfg.n_experts:
         B, S, D = h.shape
@@ -355,23 +378,55 @@ def _remat(cfg: ModelConfig, fn):
 # ==========================================================================
 # Forward (training / prefill body)
 # ==========================================================================
-def _scan_blocks(cfg: ModelConfig, x, layers: list, body):
+def _sp(cfg: ModelConfig, mesh, x):
+    """Sequence-parallel constraint: shard S over 'model' between blocks
+    (JAX's P(None, "model", None): the batch whole).  A redistribution of
+    a DTensor, which changes no value; a plain tensor is left as it is."""
+    if not (cfg.sequence_parallel and mesh is not None
+            and "model" in mesh.axis_names):
+        return x
+    if x.shape[1] % mesh.shape["model"] or not isinstance(x, DTensor):
+        return x
+    from repro_torch.distributed import sharding as shd
+    return x.redistribute(x.device_mesh, shd.placements(
+        shd.P(None, "model", None), x.device_mesh))
+
+
+def _seq_whole(x):
+    """`x` whole along the sequence (dim 1): a DTensor that `_sp` (or the
+    ring) left sharded there is gathered, anything else is returned as
+    it is.  Explicit redistribution: under torch 2.11 DTensor refuses the
+    (B·S, D) view that a product of a sequence-sharded activation (or its
+    gradient) takes, so each block gathers its input and the ring's
+    output (Megatron's all-gather before a tensor-parallel product), its
+    residual sum and every product's gradient stay whole along the
+    sequence, and `_sp` shards the block's output again."""
+    if not isinstance(x, DTensor) or not any(
+            p.is_shard(1) for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in x.placements])
+
+
+def _scan_blocks(cfg: ModelConfig, x, layers: list, body, mesh=None):
     """JAX's `lax.scan` (under `jax.checkpoint` with cfg.remat) over the
-    layers: (x, summed aux)."""
+    layers, with `_sp` before and after every block: (x, summed aux)."""
     body = _remat(cfg, body)
+    x = _sp(cfg, mesh, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
         x, a = body(x, p)
+        x = _sp(cfg, mesh, x)
         aux = aux + a
     return x, aux
 
 
-def _decoder_stack(cfg: ModelConfig, x, params, positions):
+def _decoder_stack(cfg: ModelConfig, x, params, positions, mesh=None):
     """dense / moe / vlm decoder-only stack."""
     def body(h, p):
-        h = _attn_block(cfg, h, p, positions)
+        h = _attn_block(cfg, h, p, positions, mesh=mesh)
         return _mlp_block(cfg, h, p)
-    return _scan_blocks(cfg, x, _layers(params["blocks"]), body)
+    return _scan_blocks(cfg, x, _layers(params["blocks"]), body, mesh=mesh)
 
 
 def _ssm_body(cfg: ModelConfig):
@@ -485,7 +540,6 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
 
     batch: tokens (B, S) [+ frontend_embeds (B, S_f, D) for vlm/audio].
     """
-    _no_mesh(mesh)
     params = _cast_params(cfg, params)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -500,8 +554,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
         x_img = batch["frontend_embeds"].to(x_txt.dtype)
         x = torch.cat([x_img, x_txt], dim=1)
         x, aux = _decoder_stack(cfg, x, params,
-                                _positions(x.shape[1], x.device))
-        x = x[:, x_img.shape[1]:, :]                    # text positions only
+                                _positions(x.shape[1], x.device), mesh=mesh)
+        x = _seq_whole(x)[:, x_img.shape[1]:, :]        # text positions only
     elif cfg.family == "ssm":
         x = _embed_tokens(cfg, params, tokens, None)
         x, aux = _scan_blocks(cfg, x, _layers(params["blocks"]),
@@ -511,9 +565,10 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
         x, aux = _hybrid_stack(cfg, x, params, positions)
     else:
         x = _embed_tokens(cfg, params, tokens, None)
-        x, aux = _decoder_stack(cfg, x, params, positions)
+        x, aux = _decoder_stack(cfg, x, params, positions, mesh=mesh)
 
-    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+    x = _norm(cfg, _seq_whole(x), params["final_norm"],
+              params.get("final_norm_bias"))
     return _logits(cfg, params, x), aux
 
 
@@ -565,7 +620,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
-def _decode_attn_block(cfg, x, p, kc, vc, pos):
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot) -> None:
+    """cache[:, slot] = new, in place.  cache: (B, S, ...); new: (B, 1,
+    ...); slot: a 0-d integer tensor.  On a DTensor cache sharded on S
+    each shard writes only where it holds the slot (a masked write of
+    its own block: no host branch on the slot, so no host sync)."""
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(1, slot.reshape(1).long(), new.to(cache.dtype))
+        return
+    mesh = cache.device_mesh
+    new = new.redistribute(mesh, ll.batch_placements(cache)).to_local()
+    local = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    at = slot - offset[1]
+    inside = (at >= 0) & (at < local.shape[1])
+    at = torch.clamp(at, 0, local.shape[1] - 1).reshape(1).long()
+    local.index_copy_(1, at, torch.where(inside, new.to(local.dtype),
+                                         local.index_select(1, at)))
+
+
+def _decode_attn_block(cfg, x, p, kc, vc, pos, mesh=None):
     """One-token attention with cache update. x: (B, 1, D); kc / vc:
     (B, S, KVH, hd), written in place at the token's slot; pos: 0-d int32
     tensor."""
@@ -585,12 +660,50 @@ def _decode_attn_block(cfg, x, p, kc, vc, pos):
     # order, `pos % S` can overwrite a key still inside the window.
     slot = torch.remainder(pos, S) if cfg.sliding_window else \
         torch.clamp(pos, max=S - 1)
-    slot = slot.reshape(1).long()
-    kc.index_copy_(1, slot, k.to(kc.dtype))
-    vc.index_copy_(1, slot, v.to(vc.dtype))
+    _write_slot(kc, k, slot)
+    _write_slot(vc, v, slot)
     valid = torch.clamp(pos + 1, max=S) if cfg.sliding_window else pos + 1
-    out = ll.decode_attention(q, kc, vc, valid)
+    if cfg.flash_decode and mesh is not None:
+        from repro_torch.distributed import collectives
+        fd = collectives.flash_decode(mesh, dp=_bspec(mesh, B))
+        out = fd(q.select(1, 0), kc, vc, valid).unsqueeze(1)
+    else:
+        out = ll.decode_attention(q, kc, vc, valid)
     return x + out.reshape(B, 1, -1) @ p["wo"]
+
+
+def _ssm_decode(cfg: ModelConfig, x, p, hc, cc):
+    """One SSM layer's decode step: x plus its output; the layer's state
+    and conv tail written into hc / cc in place.  On a DTensor cache each
+    batch shard steps its own rows with the whole state of its rows and
+    the weights gathered, and keeps its own shard of the new state (an
+    explicit placement, as `layers.batch_local` in the forward)."""
+    dims = ssm_dims(cfg)
+
+    def step(h, state, conv, norm, *fields):
+        return ssm_lib.ssd_decode_step(ssm_lib.SSMParams(*fields),
+                                       ll.rms_norm(h, norm),
+                                       ssm_lib.SSMCache(state, conv), dims)
+
+    weights = [p["norm"], *(p[f] for f in _SSM_FIELDS)]
+    if not isinstance(hc, DTensor):
+        y, c2 = step(x, hc, cc, *weights)
+        hc.copy_(c2.h)
+        cc.copy_(c2.conv)
+        return x + y
+    mesh, rows = hc.device_mesh, ll.batch_placements(hc)
+    whole = [Replicate()] * mesh.ndim
+    local = [t.redistribute(mesh, rows).to_local() for t in (x, hc, cc)]
+    w = [t.redistribute(mesh, whole).to_local() if isinstance(t, DTensor)
+         else t for t in weights]
+    y, c2 = step(*local, *w)
+    for dst, new in ((hc, c2.h), (cc, c2.conv)):
+        shape, offset = compute_local_shape_and_global_offset(
+            dst.shape, mesh, dst.placements)
+        for d in range(1, new.dim()):
+            new = new.narrow(d, offset[d], shape[d])
+        dst.to_local().copy_(new)
+    return x + ll.from_local(y.contiguous(), mesh, rows, x.shape)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
@@ -601,34 +714,25 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     conv tail) are written into the tensors of the cache it is given; the
     returned dict holds those same tensors and a new `pos`.  Clone a cache
     before this call to keep it."""
-    _no_mesh(mesh)
     params = _cast_params(cfg, params)
     pos = cache["pos"]
+    pos_l = pos.to_local() if isinstance(pos, DTensor) else pos
     B = tokens.shape[0]
-    x = params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    x = ll.lookup(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
     if cfg.learned_positions:
-        x = x + params["pos_embed"].index_select(
-            0, pos.reshape(1).long())[None].to(x.dtype)
+        x = x + ll.lookup(params["pos_embed"], pos_l.reshape(1).long())[
+            None].to(x.dtype)
     new_cache = dict(cache)
-
-    def ssm_layer(x, p, i):
-        hn = ll.rms_norm(x, p["norm"])
-        y, c2 = ssm_lib.ssd_decode_step(
-            _ssm_params(p), hn,
-            ssm_lib.SSMCache(cache["h"][i], cache["conv"][i]), ssm_dims(cfg))
-        cache["h"][i].copy_(c2.h)
-        cache["conv"][i].copy_(c2.conv)
-        return x + y
 
     if cfg.family in ("dense", "moe", "vlm"):
         for i, p in enumerate(_layers(params["blocks"])):
             x = _decode_attn_block(cfg, x, p, cache["k"][i], cache["v"][i],
-                                   pos)
+                                   pos_l, mesh=mesh)
             x, _ = _mlp_block(cfg, x, p)
 
     elif cfg.family == "ssm":
         for i, p in enumerate(_layers(params["blocks"])):
-            x = ssm_layer(x, p, i)
+            x = _ssm_decode(cfg, x, p, cache["h"][i], cache["conv"][i])
 
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
@@ -636,10 +740,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         app = 0
         for start, stop, attend in _hybrid_segments(cfg):
             for i in range(start, stop):
-                x = ssm_layer(x, layers[i], i)
+                x = _ssm_decode(cfg, x, layers[i], cache["h"][i],
+                                cache["conv"][i])
             if attend:
                 x = _decode_attn_block(cfg, x, shared, cache["ak"][app],
-                                       cache["av"][app], pos)
+                                       cache["av"][app], pos_l, mesh=mesh)
                 x, _ = _mlp_block(cfg, x, shared)
                 app += 1
 
@@ -647,11 +752,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         hd_ = cfg.resolved_head_dim
         for i, p in enumerate(_layers(params["dec_blocks"])):
             x = _decode_attn_block(cfg, x, p, cache["k"][i], cache["v"][i],
-                                   pos)
+                                   pos_l, mesh=mesh)
             xp = _cross(p)
             hq = _norm(cfg, x, xp["attn_norm"])
             q = (hq @ xp["wq"]).reshape(B, 1, cfg.n_heads, hd_)
             xk, xv = cache["xk"][i], cache["xv"][i]
+            # JAX's plain decode attention over the cross cache (gathered
+            # where `cache_specs` shards it on S)
             out = ll.decode_attention(q, xk, xv, xk.shape[1])
             x = x + out.reshape(B, 1, -1) @ xp["wo"]
             x, _ = _mlp_block(cfg, x, p)
@@ -663,6 +770,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
 
 def _prefill_kv(cfg, hn, p, positions, B, S):
     hd = cfg.resolved_head_dim
+    hn = _seq_whole(hn)
     k = (hn @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (hn @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     if not cfg.learned_positions:
@@ -685,6 +793,29 @@ def _pos_scalar(n: int, device) -> torch.Tensor:
     return torch.full((), n, dtype=torch.int32, device=device)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on this rank; a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _place_cache(cfg: ModelConfig, cache: Cache, mesh) -> Cache:
+    """A whole serving cache (alike on every rank) as DTensors placed by
+    `sharding.cache_specs` on `mesh` (a `DeviceMesh`), the counterpart of
+    the out-shardings of JAX's prefill step: each rank keeps a copy of
+    its own slice only."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    batch = next(v.shape[1] for k, v in cache.items() if k != "pos")
+    shape = ShapeConfig("cache", 0, batch, "decode")
+    specs = shd.fit_specs(shd.cache_specs(cfg, shape, mesh), cache, mesh)
+    out = {}
+    for key, leaf in cache.items():
+        placed = shd.place(leaf, mesh, specs[key], src_data_rank=None)
+        out[key] = ll.from_local(placed.to_local().clone(), mesh,
+                                 placed.placements, leaf.shape)
+    return out
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: dict,
             max_seq: int, mesh=None) -> tuple:
     """Full-sequence forward filling the serving cache.
@@ -694,7 +825,6 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     <= max_seq); for audio, frontend_embeds feed the encoder and the
     cross-attention KV is precomputed here.
     """
-    _no_mesh(mesh)
     params = _cast_params(cfg, params)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -712,13 +842,15 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
         St = x.shape[1]
         positions = _positions(St, device)
         ks, vs = [], []
+        x = _sp(cfg, mesh, x)
         for p in _layers(params["blocks"]):
             hn = _norm(cfg, x, p["attn_norm"])
             k, v = _prefill_kv(cfg, hn, p, positions, B, St)
-            ks.append(k)
-            vs.append(v)
-            x = _attn_block(cfg, x, p, positions)
+            ks.append(_whole(k))
+            vs.append(_whole(v))
+            x = _attn_block(cfg, x, p, positions, mesh=mesh)
             x, _ = _mlp_block(cfg, x, p)
+            x = _sp(cfg, mesh, x)
         cache["k"] = _store_kv(cache["k"], torch.stack(ks), St)
         cache["v"] = _store_kv(cache["v"], torch.stack(vs), St)
         cache["pos"] = _pos_scalar(St, device)
@@ -730,15 +862,21 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
         hs, convs, aks, avs = [], [], [], []
         layers = _layers(params["blocks"])
 
+        def block(h, norm, *fields):
+            y, c = ssm_lib.ssd_forward(ssm_lib.SSMParams(*fields),
+                                       ll.rms_norm(h, norm), dims,
+                                       chunk=_eff_chunk(cfg, S),
+                                       return_cache=True)
+            return y, c.h, c.conv
+
         def ssm_layers(x, start, stop):
             for p in layers[start:stop]:
-                hn = ll.rms_norm(x, p["norm"])
-                y, c = ssm_lib.ssd_forward(_ssm_params(p), hn, dims,
-                                           chunk=_eff_chunk(cfg, S),
-                                           return_cache=True)
+                # each batch shard on its own rows (`ll.batch_local`)
+                y, h, conv = ll.batch_local(block, x, p["norm"],
+                                            *(p[f] for f in _SSM_FIELDS))
                 x = x + y
-                hs.append(c.h)
-                convs.append(c.conv)
+                hs.append(_whole(h))
+                convs.append(_whole(conv))
             return x
 
         if cfg.family == "ssm":
@@ -750,8 +888,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
                 if attend:
                     hn = _norm(cfg, x, shared["attn_norm"])
                     k, v = _prefill_kv(cfg, hn, shared, positions, B, S)
-                    aks.append(k)
-                    avs.append(v)
+                    aks.append(_whole(k))
+                    avs.append(_whole(v))
                     x = _attn_block(cfg, x, shared, positions)
                     x, _ = _mlp_block(cfg, x, shared)
             cache["ak"] = _store_kv(cache["ak"], torch.stack(aks), S)
@@ -774,7 +912,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
             x = _attn_block(cfg, x, xp, None, kv_override=(xk, xv))
             x, _ = _mlp_block(cfg, x, p)
             for acc, t in zip((ks, vs, xks, xvs), (k, v, xk, xv)):
-                acc.append(t)
+                acc.append(_whole(t))
         cache["k"] = _store_kv(cache["k"], torch.stack(ks), S)
         cache["v"] = _store_kv(cache["v"], torch.stack(vs), S)
         cache["xk"] = torch.stack(xks).to(cache["xk"].dtype)
@@ -783,6 +921,9 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     else:
         raise ValueError(cfg.family)
 
-    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_bias"))
+    if isinstance(x, DTensor):
+        cache = _place_cache(cfg, cache, x.device_mesh)
+    x = _norm(cfg, _seq_whole(x), params["final_norm"],
+              params.get("final_norm_bias"))
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits, cache

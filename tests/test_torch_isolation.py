@@ -48,6 +48,7 @@ def test_fresh_import_loads_no_jax_and_no_repro_module():
     assert "repro_torch.training.trainer" in loaded
     assert "repro_torch.distributed.sharding" in loaded
     assert "repro_torch.distributed.runtime" in loaded
+    assert "repro_torch.distributed.collectives" in loaded
     assert "repro_torch.launch.train" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -289,13 +289,23 @@ def test_full_width_mamba2_refuses_a_cached_prefill_in_both():
 
 
 def test_a_mesh_is_refused_naming_the_roadmap_item():
-    cfg = configs.get("glm4-9b", smoke=True)
+    """The mesh branches (ROADMAP A11c-ii, `distributed/collectives.py`)
+    take a mesh of several shards only in a process group of as many
+    ranks: forward and prefill (ring attention) and decode_step (flash
+    decode) refuse one outside a group."""
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = dataclasses.replace(configs.get("glm4-9b", smoke=True),
+                              attention_impl="ring", flash_decode=True)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    for call in (lambda: tf.forward(cfg, params, batch, mesh=object()),
-                 lambda: tf.prefill(cfg, params, batch, 8, mesh=object())):
-        with pytest.raises(NotImplementedError, match="A11c"):
+    mesh = make_local_mesh(2, model=2, device="cpu")
+    cache = tf.prefill(cfg, params, batch, 8)[1]
+    for call in (lambda: tf.forward(cfg, params, batch, mesh=mesh),
+                 lambda: tf.prefill(cfg, params, batch, 8, mesh=mesh),
+                 lambda: tf.decode_step(cfg, params, cache,
+                                        batch["tokens"][:, :1], mesh=mesh)):
+        with pytest.raises(RuntimeError, match="process group"):
             call()
 
 

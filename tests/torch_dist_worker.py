@@ -121,6 +121,8 @@ def _batch(cfg, seed: int) -> dict:
 def _numpy(x):
     if isinstance(x, dict):
         return {k: _numpy(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_numpy(v) for v in x]
     return x.numpy() if torch.is_tensor(x) else x
 
 
@@ -232,6 +234,150 @@ def check_raises() -> dict:
     return out
 
 
+# the mesh cases run on (1, 4) and at world 1 (every case runs on (2, 2))
+MESH_1X4_CASES = (("internvl2-1b", "ring"), ("whisper-small", "flash"))
+MESH_1X1_CASES = (("glm4-9b", "ring"), ("zamba2-1.2b", "flash"))
+
+# the collectives at the JAX tests' shapes (tests/test_distributed.py)
+FD_SHAPE = (4, 32, 8, 2, 16)       # flash decode: B, S, H, KVH, Dh
+FD_VALID = 20
+RING_SHAPE = (2, 32, 6, 2, 8)      # ring attention: 6 heads, not 4-divisible
+MM_SHAPE = (16, 32, 8)             # x (16, 32) @ W (32, 8)
+GRAD_SIZE = 64                     # compressed all-reduce: 8 ranks x 64
+
+
+def collective_inputs() -> dict:
+    """The JAX tests' inputs (their numpy seeds), the ring's cotangent and
+    two steps of gradients for the compressed all-reduce."""
+    B, S, H, KVH, Dh = FD_SHAPE
+    rng = np.random.default_rng(0)
+    fd = [rng.normal(size=s).astype(np.float32)
+          for s in ((B, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh))]
+    grads = np.random.default_rng(1).normal(size=(8, GRAD_SIZE)) \
+        .astype(np.float32)
+    rng = np.random.default_rng(2)
+    M, K, N = MM_SHAPE
+    mm = [rng.normal(size=(M, K)).astype(np.float32),
+          rng.normal(size=(K, N)).astype(np.float32)]
+    B, S, H, KVH, Dh = RING_SHAPE
+    rng = np.random.default_rng(4)
+    ring = [rng.normal(size=s).astype(np.float32)
+            for s in ((B, S, H, Dh), (B, S, KVH, Dh), (B, S, KVH, Dh))]
+    extra = np.random.default_rng(5)
+    return {"fd": fd, "grads": [grads, extra.normal(size=grads.shape)
+                                .astype(np.float32)],
+            "mm": mm, "ring": ring,
+            "ring_ct": extra.normal(size=ring[0].shape).astype(np.float32)}
+
+
+def _int8_sum(local: torch.Tensor, group) -> tuple:
+    """The int8 all-reduce spelled out: the shared scale, this rank's int8
+    values and their int32 sum over `group`."""
+    scale = local.abs().max().clone()
+    torch.distributed.all_reduce(scale, torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    scale = scale / 127.0 + 1e-12
+    q = torch.clamp(torch.round(local / scale), -127, 127).to(torch.int8)
+    total = q.to(torch.int32)
+    torch.distributed.all_reduce(total, group=group)
+    return scale, q, total
+
+
+def check_collectives() -> dict:
+    """The four collectives on JAX's meshes (8 ranks): flash decode, the
+    ring matmul and ring attention (with its gradient) on (2, 4), the
+    compressed all-reduce on (8,) "data" (int8 two steps, with the
+    residuals carried, and bf16), each beside the one-process emulation
+    of its shard bodies and the plain function; flash decode and ring
+    attention also on DTensor inputs."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.models import layers as ll
+    inp = collective_inputs()
+    mesh = _mesh((2, 4))
+    rank = runtime.rank()
+    idx = rank % 4                                   # index on "model"
+    out = {}
+    t = {k: [torch.from_numpy(a) for a in v] for k, v in inp.items()
+         if isinstance(v, list)}
+    q, k, v = t["fd"]
+    valid = torch.tensor(FD_VALID, dtype=torch.int32)
+    placed = [shd.place(a, mesh, spec, src_data_rank=None) for a, spec in
+              ((q, shd.P("data", "model")), (k, shd.P("data", "model")),
+               (v, shd.P(None, None, "model")))]
+    dt = C.flash_decode(mesh)(*placed, valid)
+    out["flash_decode"] = {
+        "got": C.flash_decode(mesh)(q, k, v, valid).numpy(),
+        "dtensor": dt.full_tensor().numpy(),
+        "dtensor_placements": [repr(p) for p in dt.placements],
+        "emulated": C.emulate_flash_decode(q, k, v, valid, 4).numpy(),
+        "plain": ll.decode_attention(q[:, None], k, v, valid)[:, 0].numpy()}
+
+    x, w = t["mm"]
+    out["matmul"] = {
+        "got": C.ring_allgather_matmul(mesh, axis="model")(x, w).numpy(),
+        "emulated": C.emulate_ring_allgather_matmul(x, w, 4)[idx].numpy(),
+        "plain": (x @ w).numpy()}
+
+    q, k, v = (a.requires_grad_() for a in t["ring"])
+    ct = torch.from_numpy(inp["ring_ct"])
+    rec = {}
+    for name, fn in (("got", C.ring_attention(mesh)),
+                     ("whole_batch", C.ring_attention(mesh, dp=None)),
+                     ("plain", lambda *a: ll.attention(*a, causal=True))):
+        o = fn(q, k, v)
+        rec[name] = o.detach().numpy()
+        rec[name + "_grads"] = [g.numpy() for g in torch.autograd.grad(
+            (o * ct).sum(), (q, k, v))]
+    with torch.no_grad():
+        rec["emulated"] = C.emulate_ring_attention(q, k, v, 4).numpy()
+        heads = [shd.place(a, mesh, shd.P("data", None, "model"),
+                           src_data_rank=None) for a in (q, k, v)]
+        dt = C.ring_attention(mesh)(*heads)
+    rec["dtensor"] = dt.full_tensor().numpy()
+    rec["dtensor_placements"] = [repr(p) for p in dt.placements]
+    rec["dtensor_type"] = type(dt).__name__
+    out["ring_attention"] = rec
+
+    mesh8 = make_mesh((8,), ("data",), devices=["cpu"] * 8)
+    group = runtime.device_mesh(mesh8).get_group("data")
+    rec = {}
+    resid = {"w": torch.zeros(GRAD_SIZE)}
+    for i, g in enumerate(inp["grads"]):
+        local = torch.from_numpy(g[rank])
+        spelled = _int8_sum(local + resid["w"], group)
+        mean, resid = C.compressed_psum_grads({"w": local}, resid,
+                                              mesh=mesh8, axis="data")
+        rec[f"int8_{i}"] = {"mean": mean["w"].numpy(),
+                            "resid": resid["w"].numpy(),
+                            "scale": float(spelled[0]),
+                            "q": spelled[1].numpy(),
+                            "sum": spelled[2].numpy()}
+    g = torch.from_numpy(inp["grads"][0][rank])
+    mean, resid = C.compressed_psum_grads({"w": g}, {"w": torch.zeros_like(
+        g)}, group, mode="bf16")
+    rec["bf16"] = {"mean": mean["w"].numpy(), "resid": resid["w"].numpy()}
+    out["compressed"] = rec
+    return out
+
+
+def check_mesh_models(shape, cases) -> dict:
+    """Each (arch, variant) of `cases` (`chip_smoke.LM_MESH_CASES`) on
+    `shape` through `chip_smoke.lm_mesh_pair`: forward, gradients, a
+    train step, prefill and decode steps, with mesh=None and on the
+    mesh: {case: record as numpy}."""
+    mesh = _mesh(shape)
+    out = {}
+    for name, variant in cases:
+        seed = chip_smoke.LM_MESH_CASES.index((name, variant))
+        cfg = chip_smoke.lm_mesh_config(name, variant)
+        params, batch, decode = chip_smoke.lm_mesh_inputs(cfg, seed)
+        pair = chip_smoke.lm_mesh_pair(cfg, mesh, params, batch, decode,
+                                       plain_mesh=shape == (1, 1))
+        out[f"{name}/{variant}"] = _numpy(pair)
+    return out
+
+
 def main(argv) -> None:
     group, rank, world, store, out = argv[:5]
     torch.set_num_threads(1)
@@ -263,6 +409,14 @@ def _checks(group: str, args: list):
                  ("steps_2x2", lambda: check_steps((2, 2))),
                  ("elastic_second", lambda: check_elastic_second(args[0])),
                  ("from_jax", lambda: check_from_jax(args[1], args[2]))],
+        "collectives": [("collectives", check_collectives)],
+        "mesh_models": [
+            ("models_2x2", lambda: check_mesh_models(
+                (2, 2), chip_smoke.LM_MESH_CASES)),
+            ("models_1x4", lambda: check_mesh_models(
+                (1, 4), MESH_1X4_CASES))],
+        "mesh_one": [("models_1x1", lambda: check_mesh_models(
+            (1, 1), MESH_1X1_CASES))],
     }
     return table[group]
 
