@@ -91,7 +91,21 @@ to 0 before each path and read after it:
     steps, the mid-run checkpoint restored and run to the end: step ms
     (CUDA events) against the step's FLOP bound, tokens/s, peak memory,
     checkpoint and restore seconds, a profiled step; glm4-9b's f32
-    training state (150 GB) against the card's memory, not allocated.
+    training state (150 GB) against the card's memory, not allocated;
+  * after the lm_dist phase, the dryrun phase in a process of its own
+    (`python3 chip_smoke.py --dryrun`, outputs under build/): the
+    `dryrun_gbdt` cells on the 16 x 16 fake group (both ok); one
+    device's predict-1m shard (65,536 rows, 625 seeded trees) run for
+    real through its plan, its launches equal to the trace's in name
+    and shapes, each kernel's first launch held to its plain version
+    (integers exactly, sums within `sum_limit`) and timed again on CUDA
+    events beside its cost bound and the cell's memory term; the
+    internlm2-20b decode_32k cell at full width (ok); internvl2-1b's
+    remat train step at B = 2, S = 4,096 traced on one device, its
+    products' FLOPs against `lm_train_flops` part by part; `perf --cell
+    gbdt-predict --force`, the four variants' microseconds a call and
+    their raws (the tree-order routes bit for bit alike, the tree-blocked
+    one within `sum_limit`).
 
 It checks:
 
@@ -539,6 +553,8 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
     from repro_torch.kernels.fused_predict import fused_predict
     from repro_torch.kernels.leaf_gather import leaf_gather
     from repro_torch.kernels.leaf_index import leaf_index
+    # a value's bin costs a binary search's compares, whatever the scan
+    from repro_torch.launch.hlo_analysis import compares
 
     low = plan.lowered
     sf, sb, lv, borders = (low.split_features, low.split_bins,
@@ -645,7 +661,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
                 library=lambda: torch.searchsorted(bt, xt[:, :n],
                                                    out_int32=True),
                 bytes=n * n_feat * 4 + n_b * n_feat * 4 + n * n_feat,
-                ops=n * n_feat * n_b),
+                ops=n * n_feat * compares(n_b)),
             "leaf_index": dict(
                 kernel=lambda: leaf_index(bn, sf, sb),
                 plain=lambda: ref.leaf_index(bn, sf, sb),
@@ -665,7 +681,7 @@ def check_and_time_kernels(x_test: np.ndarray, plan, launches,
                 library=None,
                 bytes=n * n_feat * 4 + n_b * n_feat * 4 + table_bytes
                 + n * c * 4,
-                ops=n * n_feat * n_b + n * t * d + n * t * c),
+                ops=n * n_feat * compares(n_b) + n * t * d + n * t * c),
         }
 
     sources = {
@@ -868,6 +884,7 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
                                                    fused_predict_dm)
     from repro_torch.kernels.leaf_index import leaf_index_bp, leaf_index_dm
     from repro_torch.kernels.tuning import fused_plan
+    from repro_torch.launch.hlo_analysis import compares
 
     dev = dm.borders.device
     x = torch.as_tensor(x_test, device=dev)
@@ -997,7 +1014,8 @@ def check_and_time_layout_kernels(x_test: np.ndarray, soa, dm, bp, bp_one,
                     k(xn, borders, *p, lv),
                 bytes=n * n_feat * 4 + n_b * n_feat * 4 + plane_bytes
                 + leaf_bytes + n * c * 4,
-                ops=n * n_feat * n_b + n * t * d + n * t * c, n_trees=t,
+                ops=n * n_feat * compares(n_b) + n * t * d + n * t * c,
+                n_trees=t,
                 depth=d)
         return out
 
@@ -3404,6 +3422,7 @@ def check_and_time_knn_binarize(x_train, x_aug, borders, flush):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.binarize import binarize
+    from repro_torch.launch.hlo_analysis import compares
     cases = {"train split": x_train, "test split": x_aug,
              f"{KNN_SMALL_ROWS} rows": x_aug[:KNN_SMALL_ROWS],
              "test split from row 1": x_aug[1:]}
@@ -3422,7 +3441,8 @@ def check_and_time_knn_binarize(x_train, x_aug, borders, flush):
           "searchsorted yardstick computes other bins")
     n, f = x_train.shape
     nb = borders.shape[0]
-    bound_ms, bound_by = bound(n * f * 4 + nb * f * 4 + n * f, n * f * nb)
+    bound_ms, bound_by = bound(n * f * 4 + nb * f * 4 + n * f,
+                               n * f * compares(nb))
     return {
         "checked": list(cases), "rows": n, "features": f, "borders": nb,
         "ms": time_ms(lambda: binarize(x_train, borders,
@@ -5336,6 +5356,111 @@ def lm_mesh_checks(mesh, device, world: int) -> dict:
     return out
 
 
+# the MoE expert products (`moe._expert_product`): each smoke MoE config
+# by its own placements, and the layouts whose weights share a mesh dim
+# with the tokens (mixtral with FSDP, kimi-k2 as expert2d)
+LM_MOE_CASES = (("mixtral-8x22b", {}), ("mixtral-8x22b", {"fsdp": True}),
+                ("kimi-k2-1t-a32b", {}),
+                ("kimi-k2-1t-a32b", {"moe_shard": "expert2d"}))
+LM_MOE_TOKENS = 256      # 4 routing groups of the smoke configs' 64
+
+
+def lm_moe_key(name: str, over: dict) -> str:
+    return name + "".join(f"/{k}={v}" for k, v in over.items())
+
+
+def lm_moe_config(name: str, over: dict):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(name, smoke=True), **over)
+
+
+def lm_moe_run(cfg, weights: dict, x, dy) -> dict:
+    """`moe_ffn` forward and backward under an op counter: the output
+    and the gradients of x and the weights (whole, as numpy), and the
+    FLOPs of the expert products a device: the batched products whose
+    batch dim is the experts or a shard of them (the combine's is the
+    tokens)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.models import moe, steps
+
+    def whole(t):
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        return t.detach().cpu().numpy().copy()
+    leaves = {k: v.detach().requires_grad_() for k, v in
+              {"x": x, **weights}.items()}
+    with steps._replicating(weights), hlo.counting() as counter:
+        y, _ = moe.moe_ffn(leaves["x"], leaves["router"], leaves["w_gate"],
+                           leaves["w_in"], leaves["w_out"],
+                           top_k=cfg.experts_per_token,
+                           group_size=cfg.moe_group_size,
+                           capacity_factor=cfg.moe_capacity_factor)
+        y = y.full_tensor() if isinstance(y, DTensor) else y
+        (y * dy).sum().backward()
+    return {"y": whole(y), "grads": {k: whole(v.grad)
+                                     for k, v in leaves.items()},
+            "flops": sum(f for (name, shapes), f in counter.products.items()
+                         if name == "bmm"
+                         and cfg.n_experts % shapes[0][0] == 0)}
+
+
+def lm_moe_pair(cfg, mesh, seed: int, device) -> dict:
+    """`cfg`'s `moe_ffn` (one block's weights, LM_MOE_TOKENS tokens, seeded)
+    on one device and on `mesh`, the weights placed by `param_specs` and
+    the tokens sharded on data: {"one", "sharded": `lm_moe_run`,
+    "placements"}."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as tf
+    specs = shd.param_specs(cfg, mesh)["blocks"]
+    shapes = tf.param_shapes(cfg)["blocks"]
+    gen = torch.Generator().manual_seed(seed)
+    weights = {k: 0.1 * torch.randn(tuple(shapes[k])[1:], generator=gen)
+               for k in ("router", "w_gate", "w_in", "w_out")}
+    x, dy = (torch.randn((LM_MOE_TOKENS, cfg.d_model), generator=gen)
+             for _ in range(2))
+    placed = {k: shd.place(v, mesh, shd.P(*tuple(specs[k])[1:]),
+                           src_data_rank=None) for k, v in weights.items()}
+    return {"one": lm_moe_run(cfg, {k: v.to(device)
+                                    for k, v in weights.items()},
+                              x.to(device), dy.to(device)),
+            "sharded": lm_moe_run(cfg, placed, shd.place(
+                x, mesh, shd.P("data", None), src_data_rank=None),
+                dy.to(device)),
+            "placements": {k: [repr(p) for p in v.placements]
+                           for k, v in placed.items()}}
+
+
+def lm_moe_checks(mesh, world: int, device) -> dict:
+    """Each LM_MOE_CASES config's `lm_moe_pair`: output and gradients
+    within rtol = atol = LM_PARITY of the one-device run, and the expert
+    products' FLOPs a device the one-device run's over `world` (no
+    weight dim gathered where the work could stay split)."""
+    import numpy as np
+    out = {}
+    for seed, (name, over) in enumerate(LM_MOE_CASES):
+        key = lm_moe_key(name, over)
+        pair = lm_moe_pair(lm_moe_config(name, over), mesh, seed, device)
+        one, sharded = pair["one"], pair["sharded"]
+        errs = {k: float(np.abs(sharded["grads"][k] - v).max())
+                for k, v in one["grads"].items()}
+        errs["y"] = float(np.abs(sharded["y"] - one["y"]).max())
+        within = np.allclose(sharded["y"], one["y"], rtol=LM_PARITY,
+                             atol=LM_PARITY) and all(
+            np.allclose(sharded["grads"][k], v, rtol=LM_PARITY,
+                        atol=LM_PARITY) for k, v in one["grads"].items())
+        check(within, f"lm_dist moe {key}: the sharded moe_ffn differs "
+              f"from one device's by {errs}")
+        check(sharded["flops"] * world == one["flops"] > 0,
+              f"lm_dist moe {key}: {sharded['flops']} expert FLOPs a "
+              f"device on {world} ranks against {one['flops']} on one")
+        out[key] = {"errs": errs, "flops": sharded["flops"],
+                    "one_flops": one["flops"],
+                    "placements": pair["placements"]}
+    return out
+
+
 def lm_collective_checks(mesh, device, world: int) -> dict:
     """The four collectives on the rank's mesh at the glm4-9b smoke
     shapes, f32: each against the one-process emulation of its shard
@@ -5594,6 +5719,7 @@ def run_lm_dist_rank(rank: int, world: int, rendezvous: str,
     t1 = time.perf_counter()
     out["mesh_branches"] = lm_mesh_checks(mesh, device, world)
     out["collectives"] = lm_collective_checks(mesh, device, world)
+    out["moe"] = lm_moe_checks(mesh, world, device)
     out["shard_bodies"] = lm_shard_body_checks(device)
     out["mesh_s"] = time.perf_counter() - t1
     out["mesh_launches"] = ops.launch_counts()
@@ -5659,12 +5785,270 @@ def run_lm_dist_phase(card_name: str) -> dict:
             "steps": first["steps"],
             "mesh_branches": first["mesh_branches"],
             "collectives": first["collectives"],
+            "moe": {k: {"errs": v["errs"], "flops": v["flops"],
+                        "one_flops": v["one_flops"]}
+                    for k, v in first["moe"].items()},
             "shard_bodies": first["shard_bodies"],
             "mesh_s": [r["mesh_s"] for r in ranks],
             "run": first["run"],
             "peak_bytes": [r["peak_bytes"] for r in ranks],
             "rank_seconds": [r["seconds"] for r in ranks],
             "seconds": time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------------------
+# The dry run: the launchers traced on a fake process group
+# --------------------------------------------------------------------------
+DRYRUN_LM_CELL = ("internlm2-20b", "decode_32k")   # perf.py's decode cell
+DRYRUN_TRAIN_ARCH = "internvl2-1b"   # the lm_train phase's step, B = LM_BATCH
+DRYRUN_TRAIN_SEQ = 4096
+DRYRUN_TIMED = 20        # event-timed relaunches of a recorded launch
+DRYRUN_TIMEOUT = 600     # seconds the --dryrun process may take
+
+
+def relaunch(rec) -> None:
+    """A recorded launch made again, its tensor arguments the record's
+    own tensors (no wrapper: the launch counts do not move)."""
+    from repro_torch.kernels import _build
+    tensors = iter(rec.tensors)
+    _build.launch(rec.name, rec.device, *[
+        next(tensors) if isinstance(a, _build.TensorArg) else a
+        for a in rec.args])
+
+
+def hold_launch(rec) -> dict:
+    """One launch's output, after the launch, against the plain version
+    of its own inputs: binarize and leaf_index exactly, sums within
+    `sum_limit`."""
+    import torch
+    from repro_torch.kernels import ref
+    name = rec.name.removeprefix("repro_")
+    t = rec.tensors
+    if name == "binarize":
+        x, borders, out = t
+        want = (ref.binarize_u8 if out.dtype == torch.uint8
+                else ref.binarize)(x, borders)
+        check(torch.equal(out, want), "binarize at the predict-1m shard "
+              "differs from its plain version")
+        return {"max_abs_err": 0.0}
+    if name == "leaf_index":
+        bins, sf, sb, out = t
+        check(torch.equal(out, ref.leaf_index(bins, sf, sb)),
+              "leaf_index at the predict-1m shard differs from its plain "
+              "version")
+        return {"max_abs_err": 0.0}
+    if name == "leaf_gather":
+        idx, lv, out = t
+        err, share = compare_sums("leaf_gather at the predict-1m shard", out,
+                                  ref.leaf_gather(idx, lv),
+                                  sum_limit(idx, lv))
+        return {"max_abs_err": err, "of_limit": share}
+    if name in ("fused_predict", "fused_predict_spread"):
+        x, borders, sf, sb, lv, out = t[:6]
+        idx = ref.leaf_index(ref.binarize(x, borders), sf, sb)
+        err, share = compare_sums(
+            f"{name} at the predict-1m shard", out,
+            ref.fused_predict(x, borders, sf, sb, lv), sum_limit(idx, lv))
+        return {"max_abs_err": err, "of_limit": share}
+    fail(f"the predict-1m shard launched {rec.name}, which the dry-run "
+         "phase does not hold to a plain version")
+
+
+def dryrun_predict_shard(cell: dict, card: str) -> dict:
+    """(b) One device's predict-1m shard for real: the seeded 625-tree
+    ensemble on 65,536 rows through its plan, every launch recorded and
+    made; the launches equal the trace's (names and shapes), each
+    kernel's first launch is held to its plain version and timed again
+    on CUDA events, beside its cost bound and the cell's memory term."""
+    import torch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import dryrun_gbdt as dg
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.core.predictor import Predictor
+    rows, trees, _ = dg.shard_shape(False)
+    plan = Predictor.build(dg.random_ensemble(trees), device="cuda")
+    x = torch.as_tensor(dg.random_rows(rows), device="cuda")
+    ops.reset_launch_counts()
+    with _build.recording_launches(execute=True) as records:
+        plan.raw(x)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    launches = [r for r in records if r.kind == "launch"]
+    got = [(r.name, [list(s) for _, s in hlo.launch_shapes(r)[1]])
+           for r in launches]
+    want = [(r["name"], r["shapes"]) for r in cell["launches"]]
+    check(got == want, f"the predict-1m shard launched {got}; its trace "
+          f"recorded {want}")
+    check(sum(counts.values()) == len(launches), f"the shard's launch "
+          f"counts {counts} are not its {len(launches)} launches")
+    out, seen = [], set()
+    for rec, row in zip(launches, cell["launches"]):
+        if rec.name in seen:
+            continue
+        seen.add(rec.name)
+        held = hold_launch(rec)
+        ms = events_ms(lambda rec=rec: relaunch(rec), DRYRUN_TIMED)
+        out.append({"name": rec.name, **held, "ms": ms,
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "cell_memory_ms": cell["memory_s"] * 1e3,
+                    "card": card})
+    return {"rows": rows, "trees": trees, "launches": counts,
+            "kernels": out}
+
+
+def dryrun_train_flops() -> dict:
+    """(d) internvl2-1b's remat train step at B = LM_BATCH, S = 4,096
+    traced on one device: its products' FLOPs by part beside
+    `lm_train_flops`.  Head: a product with a vocabulary dim; attention:
+    the other batched products; blocks: the rest.  Head and attention
+    equal the formula's; the blocks fall short of it by exactly each
+    block's last product (w_out), whose forward the remat does not run
+    again (`torch.utils.checkpoint` stops recomputing once every saved
+    tensor is back), and by the norm scales the formula counts as
+    weights."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    cfg = configs.get(DRYRUN_TRAIN_ARCH)
+    t0 = time.perf_counter()
+    traced = dryrun.trace_cell(
+        cfg, ShapeConfig("train_4k", DRYRUN_TRAIN_SEQ, LM_BATCH, "train"),
+        (1,), ("data",))
+    parts = {"blocks": 0, "head": 0, "attention": 0}
+    for (name, shapes), flops in traced["counter"].products.items():
+        if any(cfg.vocab_size in s for s in shapes):
+            parts["head"] += flops
+        elif name == "bmm":
+            parts["attention"] += flops
+        else:
+            parts["blocks"] += flops
+    total, want = lm_train_flops(cfg, DRYRUN_TRAIN_SEQ)
+    pos = DRYRUN_TRAIN_SEQ + (cfg.frontend_seq if cfg.family == "vlm"
+                              else 0)
+    from repro_torch.models import transformer as tf
+    tokens = LM_BATCH * pos
+    # the formula's 8 N T counts the blocks' norm scales (L x D leaves)
+    # as weights of a product; no product takes them
+    vectors = sum(math.prod(v) for k, v in tf.tree_leaves(
+        tf.param_shapes(cfg)) if k.startswith("blocks/") and len(v) == 2)
+    named = {"w_out forwards the remat does not run again":
+             cfg.n_layers * 2 * tokens * cfg.d_ff * cfg.d_model,
+             "norm scales counted as weights": 8 * tokens * vectors}
+    for part in ("head", "attention"):
+        check(parts[part] == want[part], f"the traced {part} products "
+              f"({parts[part]}) are not lm_train_flops' ({want[part]})")
+    short = want["blocks"] - parts["blocks"]
+    check(short in (sum(named.values()), named["norm scales counted as "
+                                               "weights"]),
+          f"the traced block products ({parts['blocks']}) fall short of "
+          f"lm_train_flops' ({want['blocks']}) by {short}, not by {named}")
+    return {"arch": cfg.name, "batch": LM_BATCH, "seq": DRYRUN_TRAIN_SEQ,
+            "traced": parts, "formula": want, "formula_total": total,
+            "traced_total": traced["costs"]["flops"],
+            "blocks_short_by": short, "named": named,
+            "trace_s": time.perf_counter() - t0}
+
+
+def dryrun_gbdt_predict(card: str) -> dict:
+    """(e) `perf --cell gbdt-predict --force` on the card, then the four
+    variants' raws: the staged routes that sum in tree order bit for bit
+    alike, the tree-blocked one within `sum_limit` of them."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.launch import perf
+    perf.run("gbdt-predict", force=True, device="cuda")
+    rows = {name: json.loads((perf.RESULTS / f"gbdt-predict__{name}.json")
+                             .read_text())
+            for name, _, _ in perf.CELLS["gbdt-predict"]["variants"]}
+    for name, res in rows.items():
+        check(res["status"] == "ok", f"perf gbdt-predict {name}: "
+              f"{res.get('error')}")
+    ens, x = perf.gbdt_workload("cuda")
+    raws = {name: perf.gbdt_predict_fn(ens, x, overrides, "cuda")(x)
+            for name, overrides, _ in perf.CELLS["gbdt-predict"]["variants"]}
+    for name in ("kwarg-path", "prequantized"):
+        check(torch.equal(raws[name], raws["prepared-plan"]),
+              f"perf gbdt-predict {name} differs from prepared-plan")
+    ens = ens.to(x.device)
+    idx = ref.leaf_index(ref.binarize(x, ens.borders), ens.split_features,
+                         ens.split_bins)
+    err, share = compare_sums(
+        "perf gbdt-predict prepared-tree-block",
+        raws["prepared-tree-block"], raws["prepared-plan"],
+        sum_limit(idx, ens.leaf_values, ens.base_score))
+    return {"us_per_call": {n: r["us_per_call"] for n, r in rows.items()},
+            "batch": rows["prepared-plan"]["batch"],
+            "tree_block_max_abs_err": err, "tree_block_of_limit": share,
+            "card": card}
+
+
+def run_dryrun() -> None:
+    """`python3 chip_smoke.py --dryrun`: the dry-run launchers on the card
+    in a process of their own (the fake group must not live in the smoke's
+    main process: `runtime.is_distributed()` changes `make_local_mesh`).
+    Outputs go under build/.  Its last line is a JSON object of (a)-(e);
+    any cell not ok or check missed exits 1."""
+    import pathlib
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device; this script measures the port on the card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import dryrun, dryrun_gbdt, perf
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    build = pathlib.Path(ROOT) / "build"
+    dryrun.RESULTS = dryrun_gbdt.RESULTS = build / "dryrun_torch"
+    perf.RESULTS = build / "perf_torch"
+    t0 = time.perf_counter()
+    out = {"card": card}
+    # (a) the GBDT cells on the single-pod mesh
+    check(dryrun_gbdt.main(["--single-pod", "--force"]) == 0,
+          "a dryrun_gbdt cell is not ok")
+    cells = {name: dryrun_gbdt.run_cell(name, False)
+             for name in dryrun_gbdt.CELLS}
+    out["gbdt_cells"] = {name: {k: c[k] for k in (
+        "status", "trace_seconds", "compute_s", "memory_s", "collective_s",
+        "dominant", "bytes_per_device", "collective_bytes")}
+        for name, c in cells.items()}
+    # (b) one device's predict-1m shard, for real
+    out["predict_shard"] = dryrun_predict_shard(cells["predict-1m"], card)
+    # (c) the decode cell at full width
+    arch, shape = DRYRUN_LM_CELL
+    check(dryrun.main(["--arch", arch, "--shape", shape, "--single-pod",
+                       "--force"]) == 0, f"dryrun {arch} {shape} is not ok")
+    lm = dryrun.run_and_save(arch, shape, multi_pod=False)
+    out["lm_cell"] = {k: lm[k] for k in (
+        "arch", "shape", "status", "trace_seconds", "device_type",
+        "compute_s", "memory_s", "collective_s", "dominant",
+        "collective_bytes", "ops_per_device", "memory_analysis")}
+    # (d) the one-device train step against lm_train_flops
+    out["train_flops"] = dryrun_train_flops()
+    # (e) the gbdt-predict perf cell
+    out["gbdt_predict"] = dryrun_gbdt_predict(card)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out, default=float), flush=True)
+
+
+def run_dryrun_phase() -> dict:
+    """The dry-run phase in a process of its own (`run_dryrun`)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dryrun"],
+        cwd=ROOT, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    for line in proc.stdout.strip().splitlines()[-8:-1]:
+        print(f"  dryrun: {line[:400]}")
+    for line in proc.stderr.strip().splitlines()[-5:]:
+        print(f"  dryrun stderr: {line[:400]}")
+    check(proc.returncode == 0,
+          f"chip_smoke.py --dryrun exited {proc.returncode}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 PATH_KERNELS = {
@@ -6093,6 +6477,15 @@ def main() -> None:
           f"{ops.launch_counts()}")
     print(f"lm_dist: {json.dumps(lm_dist)}", flush=True)
 
+    # --- the dry-run launchers: traced on a fake process group, in a
+    # process of their own; its real launches do not touch these counts
+    before = ops.launch_counts()
+    dry = run_dryrun_phase()
+    check(ops.launch_counts() == before,
+          f"the dryrun phase moved this process's launch counts: {before} "
+          f"-> {ops.launch_counts()}")
+    print(f"dryrun: {json.dumps(dry)}", flush=True)
+
     print(json.dumps({"checks": {
         "paths_max_abs_diff": path_diff,
         "layouts_vs_soa": layout_err,
@@ -6125,7 +6518,7 @@ def main() -> None:
                       "fit_scan": fit_scan, "launchers": launchers,
                       "splits": splits, "telemetry": telemetry, "lm": lm,
                       "lm_train": lm_train, "lm_dist": lm_dist,
-                      "launches": path_launches, "card": card,
+                      "dryrun": dry, "launches": path_launches, "card": card,
                       "build_seconds": build_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6142,6 +6535,8 @@ if __name__ == "__main__":
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0])), flush=True)
+    elif sys.argv[1:] == ["--dryrun"]:
+        run_dryrun()
     elif sys.argv[1:2] == ["--lm-dist-rank"] and len(sys.argv) == 6:
         run_lm_dist_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                          sys.argv[5])

@@ -35,16 +35,35 @@ group; several shards need a group of as many ranks
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import threading
+from typing import Callable, Iterator
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.distributed import runtime
 from repro_torch.distributed import sharding as shd
 from repro_torch.models.layers import NEG_INF, from_local
+
+_P2P = threading.local()
+
+
+@contextlib.contextmanager
+def recording_ring_steps(sink: Callable[[torch.Tensor], None]
+                         ) -> Iterator[None]:
+    """Pass the tensor each ring step of this thread receives to `sink`
+    (what a dry run counts as a collective-permute: a point-to-point
+    batch is not an op a dispatch mode sees)."""
+    prev = getattr(_P2P, "sink", None)
+    _P2P.sink = sink
+    try:
+        yield
+    finally:
+        _P2P.sink = prev
 
 
 # --------------------------------------------------------------------------
@@ -70,7 +89,10 @@ class _Axis:
         def rank_at(i: int) -> int:
             at = list(coord)
             at[dim] = i % self.n
-            return int(self.dm.mesh[tuple(at)])
+            # the mesh's rank table is a host tensor: read it outside any
+            # fake tensor mode (a dry run)
+            with _disable_current_modes():
+                return int(self.dm.mesh[tuple(at)])
         self.next, self.prev = rank_at(self.idx + 1), rank_at(self.idx - 1)
 
     def send_recv(self, x: torch.Tensor, to: int, frm: int) -> torch.Tensor:
@@ -78,6 +100,9 @@ class _Axis:
         rank `frm`, in one batch (a ring of blocking pairs deadlocks)."""
         x = x.contiguous()
         out = torch.empty_like(x)
+        sink = getattr(_P2P, "sink", None)
+        if sink is not None:
+            sink(out)
         ops = [dist.P2POp(dist.isend, x, to, self.group),
                dist.P2POp(dist.irecv, out, frm, self.group)]
         for req in dist.batch_isend_irecv(ops):

@@ -15,8 +15,11 @@ group of as many ranks: nothing here falls back to one process.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import functools
 import os
+from typing import Iterator
 
 import torch
 import torch.distributed as dist
@@ -124,3 +127,102 @@ def shutdown() -> None:
     _DEVICE_MESHES.clear()
     if is_distributed():
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# A fake group for a dry run
+# --------------------------------------------------------------------------
+def dry_run_device_type() -> str:
+    """The device type a dry run's tensors and `DeviceMesh` take: "cuda"
+    where PyTorch is built for CUDA (no card is needed: the tensors are
+    fake), else "cpu".  A CPU-only build cannot take the backward of a
+    fake CUDA tensor (autograd asks for a CUDA device guard), so there the
+    dry run is traced on "cpu", with `_dry_run_dtensor` keeping DTensor's
+    all-to-all what it is on the card."""
+    return "cuda" if torch.backends.cuda.is_built() else "cpu"
+
+
+def _host_side(fn):
+    """`fn` run outside every dispatch mode (a fake tensor mode too)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _disable_current_modes():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's `shard_dim_alltoall` as it runs on a CUDA mesh: the
+    all-to-all op itself, never the CPU group's all-gather and chunk."""
+    from torch.distributed import _functional_collectives as funcol
+    group = funcol._resolve_group((mesh, mesh_dim))
+    return torch.ops._dtensor.shard_dim_alltoall(
+        input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+
+
+@contextlib.contextmanager
+def _dry_run_dtensor(device_type: str) -> Iterator[None]:
+    """DTensor as a dry run needs it, put back on leaving:
+
+      * `_StridedShard.local_shard_size_and_offset` (the placement a
+        reshape of a doubly sharded dim leaves) runs outside the fake
+        mode: it reads an index tensor on the host, which a fake tensor
+        cannot give (`DataDependentOutputException`);
+      * the sharding propagator's output-shape probe, which runs each new
+        op once at its global shapes, runs outside every mode, so an op
+        counter sees only the local ops;
+      * on a CPU mesh, DTensor's Shard(i) -> Shard(j) is the all-to-all
+        it is on the card, not the gloo fallback's all-gather and chunk.
+    """
+    from torch.distributed.tensor import placement_types as pt
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    wanted = [(ShardingPropagator, "_propagate_tensor_meta_non_cached")]
+    strided = getattr(pt, "_StridedShard", None)
+    if strided is not None:
+        wanted += [(strided, "local_shard_size_and_offset"),
+                   (strided, "_local_shard_size_and_offset")]
+    patched = []
+    for owner, name in wanted:            # torch versions differ: the
+        raw = owner.__dict__.get(name)    # names present are patched
+        if raw is None:
+            continue
+        patched.append((owner, name, raw))
+        setattr(owner, name, staticmethod(_host_side(raw.__func__))
+                if isinstance(raw, staticmethod) else _host_side(raw))
+    if device_type == "cpu" and "shard_dim_alltoall" in pt.__dict__:
+        patched.append((pt, "shard_dim_alltoall", pt.shard_dim_alltoall))
+        pt.shard_dim_alltoall = _alltoall
+    try:
+        yield
+    finally:
+        for owner, name, raw in reversed(patched):
+            setattr(owner, name, raw)
+
+
+@contextlib.contextmanager
+def fake_group(n: int, device_type: str | None = None) -> Iterator[str]:
+    """Join a fake process group of `n` ranks as rank 0 for the block, and
+    leave it after: the port's counterpart of JAX's
+    ``--xla_force_host_platform_device_count``.  Collectives on it move
+    nothing and return at once, so one process traces what rank 0 of an
+    `n`-card run would do.  Yields the device type (`dry_run_device_type`
+    by default).
+
+    Build every `DeviceMesh` (`device_mesh`) inside the block and before
+    any fake tensor mode is entered: building one under a fake mode reads
+    fake tensors.  Refuses to run inside a real group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if is_distributed():
+        raise RuntimeError("a fake group inside a process group")
+    device_type = device_type or dry_run_device_type()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        with _dry_run_dtensor(device_type):
+            yield device_type
+    finally:
+        shutdown()

@@ -18,6 +18,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
+from torch.utils._python_dispatch import _disable_current_modes
 
 NEG_INF = -1e30
 
@@ -46,6 +47,39 @@ def from_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=shape, stride=torch.empty(
                                   shape, device="meta").stride())
+
+
+def local_shape_and_offset(shape, mesh, placements) -> tuple:
+    """This rank's shard shape and its offset in the global tensor, for a
+    DTensor of `shape` on `mesh` by `placements`.
+
+    DTensor's helper builds small index tensors on the host; it runs here
+    outside every mode, so that under a fake tensor mode (a dry run) they
+    hold values and no op counter sees them."""
+    with _disable_current_modes():
+        return compute_local_shape_and_global_offset(shape, mesh, placements)
+
+
+def settle(x: DTensor) -> DTensor:
+    """`x` with each pending sum (a `Partial` placement, left by a product
+    sharded over its contraction) reduce-scattered onto its first or last
+    dimension where one is free and divides, else all-reduced."""
+    mesh, placements = x.device_mesh, list(x.placements)
+    if not any(p.is_partial() for p in placements):
+        return x
+    for i, p in enumerate(placements):
+        if not p.is_partial():
+            continue
+        placements[i] = Replicate()
+        for dim in (0, x.ndim - 1):
+            taken = [q for q in placements if q.is_shard(dim)]
+            size = x.shape[dim] // math.prod(
+                mesh.size(j) for j, q in enumerate(placements)
+                if q.is_shard(dim))
+            if not taken and size % mesh.size(i) == 0:
+                placements[i] = Shard(dim)
+                break
+    return x.redistribute(mesh, placements)
 
 
 def batch_placements(x: DTensor) -> list:
@@ -314,9 +348,8 @@ def _sharded_attention(q: DTensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_local * G != h_local:
         # k / v whole on some head shards: this shard's q heads read the
         # kv heads h // G of its global heads [h0, h0 + h_local)
-        _, offset = compute_local_shape_and_global_offset(
-            q.shape, mesh, q.placements)
-        h0, k_off = offset[2], compute_local_shape_and_global_offset(
+        _, offset = local_shape_and_offset(q.shape, mesh, q.placements)
+        h0, k_off = offset[2], local_shape_and_offset(
             k.shape, mesh, k.placements)[1][2]
         if h_local % G and G % h_local:
             raise ValueError(f"{h_local} heads a shard split GQA groups "
@@ -391,4 +424,11 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
 
 def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
              w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    h = x @ w_in
+    if isinstance(h, DTensor):
+        # explicit redistribution: on an x sharded over d_model the
+        # product is a pending sum, and torch 2.11's DTensor cannot turn
+        # the d_ff-sharded bias into one (granite-34b and whisper-small
+        # at the production mesh, `launch/dryrun.py`)
+        h = settle(h)
+    return F.gelu(h + b_in, approximate="tanh") @ w_out + b_out

@@ -9,12 +9,15 @@ gather-combine.  Expert weights carry a leading E axis.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
-from repro_torch.models.layers import regroup
+from repro_torch.models.layers import from_local, regroup
 
 
 class MoEMetrics(NamedTuple):
@@ -29,6 +32,66 @@ def stable_top_k(probs: torch.Tensor, k: int
     `torch.topk` promises no order among ties)."""
     values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+
+
+def _dim_plan(p, q, gather_a: bool) -> tuple:
+    """One mesh dim of `_expert_product`: from a's placement `p` and w's
+    `q`, the placements of a and w for the local product, of its result,
+    and of a's and w's local gradients."""
+    r = Replicate()
+    if p.is_shard(1) or (q == Shard(0) and not p.is_shard(0)):
+        # a's experts, or w's where a holds them all (a slice of a)
+        return Shard(1), Shard(0), Shard(1), Shard(1), Shard(0)
+    if p.is_shard(0) and not (gather_a and q in (Shard(1), Shard(2))):
+        # a's groups against the whole w: w's gradient a sum over them
+        return p, r, p, p, Partial()
+    if q == Shard(2):
+        # w's y shard against the whole a: a's gradient a sum over them
+        return r, q, Shard(3), Partial(), q
+    if q == Shard(1):
+        # w's x shard against a's (a slice of a): the result a sum
+        return Shard(3), q, Partial(), Shard(3), q
+    return r, r, r, r, r
+
+
+def _expert_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("gecx,exy->gecy", a, w)``; on a DTensor `a`, shard by
+    shard, each mesh dim by `_dim_plan`: w keeps its own shard (experts,
+    x or y) wherever a is not sharded on g or e, and the result is
+    sharded (or a pending sum) to match.  Where a is sharded on g and w
+    on x or y, the smaller of the two is gathered: w (its gradient then
+    a sum over the g shards), or a, so that expert2d's weights stay
+    sharded where the activations are the smaller.
+
+    Explicit redistribution: DTensor's einsum reshapes its permuted
+    operand (and the backward its gradient) as a view of the local shard,
+    whose layout can differ from the one DTensor records for the whole
+    tensor after a redistribution, so the view fails (kimi-k2 at the
+    production mesh, `launch/dryrun.py`)."""
+    if not isinstance(a, DTensor):
+        return torch.einsum("gecx,exy->gecy", a, w)
+    mesh = a.device_mesh
+    wp = w.placements if isinstance(w, DTensor) else [Replicate()] * \
+        mesh.ndim
+
+    # the blocks either would gather: a's as cut to w's experts, and w's;
+    # from global shapes, so that every rank takes the same plan
+    a_block = a.numel() // math.prod(
+        mesh.size(i) for i, (p, q) in enumerate(zip(a.placements, wp))
+        if p.is_shard() or q == Shard(0))
+    w_block = w.numel() // math.prod(
+        mesh.size(i) for i, q in enumerate(wp) if q.is_shard())
+    gather_a = a_block < w_block
+    a_at, w_at, out_at, a_grad, w_grad = map(list, zip(*(
+        _dim_plan(p, q, gather_a) for p, q in zip(a.placements, wp))))
+    w = w.redistribute(mesh, w_at) if isinstance(w, DTensor) else \
+        distribute_tensor(w, mesh, w_at, src_data_rank=None)
+    out = torch.einsum("gecx,exy->gecy",
+                       a.redistribute(mesh, a_at).to_local(
+                           grad_placements=a_grad),
+                       w.to_local(grad_placements=w_grad))
+    return from_local(out.contiguous(), mesh, out_at,
+                      (*a.shape[:3], w.shape[-1]))
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
@@ -76,11 +139,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
 
     # Expert FFN: grouped products (contraction per expert), f32 sums.
     xe32 = xe.float()
-    h = torch.einsum("gecd,edf->gecf", xe32, w_gate.float())
-    u = torch.einsum("gecd,edf->gecf", xe32, w_in.float())
+    h = _expert_product(xe32, w_gate.float())
+    u = _expert_product(xe32, w_in.float())
     act = (F.silu(h) * u).to(x.dtype)
-    ye = torch.einsum("gecf,efd->gecd", act.float(),
-                      w_out.float()).to(x.dtype)
+    ye = _expert_product(act.float(), w_out.float()).to(x.dtype)
 
     # Combine: gather each selection's slot output, weight, sum over k.
     ye_flat = torch.cat([ye.reshape(G, E * C, D),

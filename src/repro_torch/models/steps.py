@@ -3,14 +3,11 @@ port's counterpart of the JAX package's `models/steps.py`."""
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate,
                                       distribute_tensor)
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
@@ -25,36 +22,12 @@ def token_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor
     """Mean next-token cross entropy; logits (B, S, V) fp32."""
     logits = logits.float()
     if isinstance(logits, DTensor):
-        logits = _settle(logits)
+        # explicit redistribution: DTensor would all-reduce the pending
+        # sums inside `logsumexp`, leaving every shard of that mesh
+        # dimension the whole (B, S, V) block
+        logits = layers.settle(logits)
     lse = torch.logsumexp(logits, dim=-1)
     return torch.mean(lse - _gold(logits, labels))
-
-
-def _settle(logits: DTensor) -> DTensor:
-    """The logits with each pending sum (a `Partial` placement, left by a
-    product DTensor sharded over its contraction) reduce-scattered onto
-    the batch or the vocabulary dimension where one is free and divides,
-    else all-reduced.
-
-    Explicit redistribution: DTensor would all-reduce them inside
-    `logsumexp`, which leaves every shard of that mesh dimension the
-    whole (B, S, V) block."""
-    mesh, placements = logits.device_mesh, list(logits.placements)
-    if not any(p.is_partial() for p in placements):
-        return logits
-    for i, p in enumerate(placements):
-        if not p.is_partial():
-            continue
-        placements[i] = Replicate()
-        for dim in (0, logits.ndim - 1):
-            taken = [q for q in placements if q.is_shard(dim)]
-            size = logits.shape[dim] // math.prod(
-                mesh.size(j) for j, q in enumerate(placements)
-                if q.is_shard(dim))
-            if not taken and size % mesh.size(i) == 0:
-                placements[i] = Shard(dim)
-                break
-    return logits.redistribute(mesh, placements)
 
 
 def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -76,8 +49,8 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     labels = labels.redistribute(mesh, rest) if isinstance(
         labels, DTensor) else distribute_tensor(labels, mesh, rest,
                                                 src_data_rank=None)
-    _, offset = compute_local_shape_and_global_offset(
-        logits.shape, mesh, logits.placements)
+    _, offset = layers.local_shape_and_offset(logits.shape, mesh,
+                                              logits.placements)
     local = logits.to_local()
     idx = labels.to_local().long() - offset[vdim]
     inside = (idx >= 0) & (idx < local.shape[-1])

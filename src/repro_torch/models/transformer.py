@@ -52,8 +52,6 @@ import functools
 import torch
 import torch.utils.checkpoint as torch_checkpoint
 from torch.distributed.tensor import DTensor, Replicate
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ll
@@ -631,8 +629,8 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot) -> None:
     mesh = cache.device_mesh
     new = new.redistribute(mesh, ll.batch_placements(cache)).to_local()
     local = cache.to_local()
-    _, offset = compute_local_shape_and_global_offset(
-        cache.shape, mesh, cache.placements)
+    _, offset = ll.local_shape_and_offset(cache.shape, mesh,
+                                          cache.placements)
     at = slot - offset[1]
     inside = (at >= 0) & (at < local.shape[1])
     at = torch.clamp(at, 0, local.shape[1] - 1).reshape(1).long()
@@ -698,8 +696,8 @@ def _ssm_decode(cfg: ModelConfig, x, p, hc, cc):
          else t for t in weights]
     y, c2 = step(*local, *w)
     for dst, new in ((hc, c2.h), (cc, c2.conv)):
-        shape, offset = compute_local_shape_and_global_offset(
-            dst.shape, mesh, dst.placements)
+        shape, offset = ll.local_shape_and_offset(dst.shape, mesh,
+                                                  dst.placements)
         for d in range(1, new.dim()):
             new = new.narrow(d, offset[d], shape[d])
         dst.to_local().copy_(new)

@@ -50,7 +50,31 @@ def test_fresh_import_loads_no_jax_and_no_repro_module():
     assert "repro_torch.distributed.runtime" in loaded
     assert "repro_torch.distributed.collectives" in loaded
     assert "repro_torch.launch.train" in loaded
+    assert "repro_torch.launch.dryrun" in loaded
+    assert "repro_torch.launch.report" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+LAUNCHERS = ("hlo_analysis", "dryrun", "dryrun_gbdt", "roofline", "perf",
+             "report")
+
+
+def test_dry_run_launchers_import_without_side_effects():
+    """The dry-run and report launchers load without JAX, and importing
+    them sets no XLA_FLAGS (JAX's set it) and joins no process group."""
+    code = (
+        "import importlib, os, sys\n"
+        "import torch.distributed as dist\n"
+        f"for name in {LAUNCHERS!r}:\n"
+        "    importlib.import_module('repro_torch.launch.' + name)\n"
+        "print(os.environ.get('XLA_FLAGS'), dist.is_initialized(),\n"
+        "      sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**env, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split("\n")[0] == "None False []"
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +

@@ -378,6 +378,48 @@ def check_mesh_models(shape, cases) -> dict:
     return out
 
 
+def check_moe(shape) -> dict:
+    """Each `chip_smoke.LM_MOE_CASES` config's `moe_ffn` on `shape` and
+    on one device (`chip_smoke.lm_moe_pair`): {case: the pair}."""
+    mesh = _mesh(shape)
+    return {chip_smoke.lm_moe_key(name, over): chip_smoke.lm_moe_pair(
+        chip_smoke.lm_moe_config(name, over), mesh, seed, "cpu")
+        for seed, (name, over) in enumerate(chip_smoke.LM_MOE_CASES)}
+
+
+def check_expert_products(shape) -> dict:
+    """`moe._expert_product` on every pair of placements of a (whole, or
+    sharded on g, e or x) and w (whole, or sharded on e, x or y) on each
+    mesh dim, in float64: {(a's, w's placements): the largest difference
+    of the output and of each gradient from the plain einsum's}."""
+    import itertools
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import moe
+    mesh = shd._device_mesh(_mesh(shape))
+    gen = torch.Generator().manual_seed(0)
+    a0, w0, dy = (torch.randn(s, generator=gen, dtype=torch.float64)
+                  for s in ((4, 4, 3, 8), (4, 8, 12), (4, 4, 3, 12)))
+    a1, w1 = a0.clone().requires_grad_(), w0.clone().requires_grad_()
+    (torch.einsum("gecx,exy->gecy", a1, w1) * dy).sum().backward()
+    a_places = (Replicate(), Shard(0), Shard(1), Shard(3))
+    w_places = (Replicate(), Shard(0), Shard(1), Shard(2))
+    out = {}
+    for pa in itertools.product(a_places, repeat=mesh.ndim):
+        for pw in itertools.product(w_places, repeat=mesh.ndim):
+            a = distribute_tensor(a0, mesh, pa).detach().requires_grad_()
+            w = distribute_tensor(w0, mesh, pw).detach().requires_grad_()
+            y = moe._expert_product(a, w).full_tensor()
+            (y * dy).sum().backward()
+            out[repr((pa, pw))] = max(
+                float((got - want).abs().max()) for got, want in (
+                    (y, torch.einsum("gecx,exy->gecy", a0, w0)),
+                    (a.grad.full_tensor(), a1.grad),
+                    (w.grad.full_tensor(), w1.grad)))
+    return out
+
+
 def main(argv) -> None:
     group, rank, world, store, out = argv[:5]
     torch.set_num_threads(1)
@@ -417,6 +459,9 @@ def _checks(group: str, args: list):
                 (1, 4), MESH_1X4_CASES))],
         "mesh_one": [("models_1x1", lambda: check_mesh_models(
             (1, 1), MESH_1X1_CASES))],
+        "moe": [("products_2x2", lambda: check_expert_products((2, 2))),
+                ("moe_2x2", lambda: check_moe((2, 2))),
+                ("moe_1x4", lambda: check_moe((1, 4)))],
     }
     return table[group]
 
