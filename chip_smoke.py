@@ -2465,6 +2465,9 @@ SPAN_ARGS = {"dispatch/": {"op", "impl", "layout", "dtype", "shapes",
              "train/iteration": {"iteration", "rows", "hist_ms", "split_ms",
                                  "leaf_ms", "loss", "device_ms"},
              "serve/batch": {"model", "rows", "device_ms"},
+             "plan/h2d": {"rows", "bytes", "pinned", "device_ms"},
+             "trainer/split": {"iteration", "level"},
+             "trainer/sync": {"iteration"},
              "bulk/quantize": {"chunk", "rows", "padded"},
              "bulk/score": {"chunk", "rows", "padded", "models",
                             "device_ms"},
@@ -2514,10 +2517,12 @@ def run_telemetry(data, full, params, tmp: str) -> dict:
     GBDTServer on soa and a bulk run with the prefetch worker, under the
     tracer, each against the same run untraced (bit for bit).  The fit
     makes one `torch.cuda.synchronize` a tree (counted) and the export
-    one more; each level's device time is within its iteration's;
-    `dispatch_count` equals the registry's counts and the kernels'
-    launches; the exported JSON holds to its schema.  `predict_batch`
-    p50 with tracing off and on."""
+    one more; each level's device time is within its iteration's; a
+    `trainer/split` span a level and a `trainer/sync` a tree; the
+    `dispatch/<op>` spans equal the registry's counts and the kernels'
+    launches; each served batch's rows are one `plan/h2d` copy; the
+    exported JSON holds to its schema.  `predict_batch` p50 with tracing
+    off and on."""
     import torch
     from repro_torch.core import quantize
     from repro_torch.core.losses import MultiClass
@@ -2625,12 +2630,18 @@ def run_telemetry(data, full, params, tmp: str) -> dict:
     check(names["serve/batch"] > 0 and names["bulk/sink"] > 0
           and any(n.startswith("compile/") for n in names),
           f"telemetry: spans {dict(names)}")
-    counts: dict = {}
-    for e in events:
-        if e["name"] == "dispatch_count":
-            counts.update(e["args"])
-    check(counts == {op: float(n) for op, n in calls.items()},
-          f"telemetry: dispatch_count {counts} vs the registry's {calls}")
+    check(names["trainer/split"] == TELEMETRY_TREES * params.depth
+          and names["trainer/sync"] == TELEMETRY_TREES,
+          f"telemetry: {names['trainer/split']} trainer/split and "
+          f"{names['trainer/sync']} trainer/sync spans")
+    check(names["plan/h2d"] == names["serve/batch"],
+          f"telemetry: {names['plan/h2d']} plan/h2d spans for "
+          f"{names['serve/batch']} served batches")
+    counts = Counter(e["args"]["op"] for e in events
+                     if e["name"].startswith("dispatch/"))
+    check(counts == Counter(calls),
+          f"telemetry: dispatch spans {dict(counts)} vs the registry's "
+          f"{calls}")
     check(all(launched[op] == n for op, n in calls.items())
           and sum(launched.values()) == sum(calls.values()),
           f"telemetry: dispatches {calls} vs launches {launched}")

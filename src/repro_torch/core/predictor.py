@@ -40,9 +40,15 @@ Strategy = Literal["auto", "staged", "fused"]
 
 _TRACER = get_tracer()
 _STRATEGIES = ("auto", "staged", "fused")
+
 # Set on a thread while `Predictor.trace_entries` walks a plan: its calls
 # count no first call.
 _WALKING = threading.local()
+
+
+def _host_to_card(rows: torch.Tensor, device: torch.device) -> bool:
+    """Whether moving `rows` to `device` copies host memory to a card."""
+    return rows.device.type == "cpu" and device.type == "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,11 +292,19 @@ class Predictor:
 
     def _as_input(self, x) -> tuple[str, torch.Tensor]:
         """(entry suffix, tensor on the plan's device) for floats or a
-        pool."""
+        pool.  While tracing, the copy of host rows to the card is a
+        `plan/h2d` span."""
         if isinstance(x, QuantizedPool):
             self._check_pool(x)
             return "_pool", x.bins.to(self.device).contiguous()
-        return "", self._float_rows(x).to(self.device)
+        rows = self._float_rows(x)
+        if _TRACER.enabled and _host_to_card(rows, self.device):
+            with _TRACER.span("plan/h2d", "plan", device=self.device,
+                              rows=int(rows.shape[0]),
+                              bytes=rows.numel() * rows.element_size(),
+                              pinned=rows.is_pinned()):
+                return "", rows.to(self.device)
+        return "", rows.to(self.device)
 
     def _call(self, name: str, x) -> torch.Tensor:
         suffix, data = self._as_input(x)

@@ -203,13 +203,13 @@ def dispatch(op: str, backend: str, *args: Any,
     While the tracer is enabled each dispatch records a `dispatch/<op>`
     span tagged (op, impl, layout, bin dtype, operand shapes, scalar
     keywords; the CUDA wrapper adds its plan), with CUDA events on the
-    card that become its `device_ms` at export, and a `dispatch_count`
-    counter sample.  Disabled, the cost is one attribute load and a
+    card that become its `device_ms` at export.  The counts are
+    `call_stats()`.  Disabled, the cost is one attribute load and a
     bool test: no span arguments are built."""
     impl = get(op, resolve(op, backend, device=args[0].device, dtype=dtype,
                            layout=layout))
     with _CALL_STATS_LOCK:
-        count = _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
+        _CALL_STATS[op] = _CALL_STATS.get(op, 0) + 1
     if not _TRACER.enabled:
         return impl.fn(*args, **kw)
     attrs: dict[str, Any] = {"op": op, "impl": impl.name,
@@ -221,7 +221,6 @@ def dispatch(op: str, backend: str, *args: Any,
         attrs["shapes"] = str(shapes)
     attrs.update({k: v for k, v in kw.items()
                   if isinstance(v, (bool, int, str))})
-    _TRACER.counter("dispatch_count", "kernel", **{op: float(count)})
     with _TRACER.span(f"dispatch/{op}", "kernel", device=args[0].device,
                       **attrs):
         return impl.fn(*args, **kw)

@@ -1,7 +1,7 @@
 """Span tracer with Chrome-trace-event export.
 
 The port's counterpart of `src/repro/obs/trace.py`: the same tracer,
-event kinds, span taxonomy and Chrome JSON, plus one mechanism for the
+event kinds, span taxonomy and Chrome JSON, plus two mechanisms for the
 card.  Load `export_chrome(path)` output in Perfetto
 (https://ui.perfetto.dev) or chrome://tracing to read the timeline.
 
@@ -21,14 +21,29 @@ Design constraints, in priority order:
 3. **Thread-safe, bounded memory.**  Events land in a
    `collections.deque(maxlen=capacity)` ring: appends are atomic under
    the GIL, eviction is FIFO and counted.
-4. **Monotonic clocks.**  Host timestamps are `time.perf_counter_ns`
-   relative to the tracer's epoch.
+4. **Monotonic clocks, placed on the profiler's.**  Host timestamps are
+   `time.perf_counter_ns` relative to the tracer's epoch.  Whenever the
+   epoch is set (construction, `clear()`) the tracer also reads
+   `time.time_ns()`, the Unix-epoch clock `torch.profiler` stamps its
+   events in: `epoch_unix_ns` (and `otherData.epoch_unix_ns` in the
+   Chrome JSON) puts any event at `epoch_unix_ns + ts_us * 1e3` on the
+   profiler's timeline.
+
+The profiler bridge.  While the tracer is enabled, each live span
+(`span()`) also opens and closes a profiler range of its own name, as
+`torch.profiler.record_function` does: under `torch.profiler` the
+program's spans appear among the host ranges in the profiler's own
+clock, so whatever names the host range open at a moment (the
+benchmark's idle-gap breakdown) names them.  Outside a profile a range
+costs a few microseconds and records nothing.  `complete()` events are
+written after the fact and have no range; place them through
+`epoch_unix_ns`.
 
 Event kinds (Chrome trace `ph` values the exporter emits):
 
   span     `ph="X"` complete event: name, category, ts, dur, args
   instant  `ph="i"` instant event, e.g. a Predictor's first call
-  counter  `ph="C"` counter event, e.g. dispatch totals over time
+  counter  `ph="C"` counter event (a process-level sample)
   (plus `ph="M"` thread-name rows, emitted at export time)
 
 Span taxonomy:
@@ -38,12 +53,28 @@ Span taxonomy:
                      device_ms on the card)
   compile/<entry>    a Predictor entry's first call at a batch shape
                      (entry, layout, batch rows)
+  plan/h2d           a Predictor call's copy of the caller's float rows
+                     from host memory to the card (rows, bytes, pinned;
+                     device_ms); recorded only for that copy
+  sharded/<kind>     a Predictor's mesh entry over a batch
   bulk/quantize      BulkScorer binarize of a chunk (prefetch worker)
   bulk/score         BulkScorer chunk dispatch (main thread)
   bulk/sink          BulkScorer sink write of a chunk
+  trainer/split      GBDTTrainer's host time issuing one level's split
+                     search (iteration, level)
+  trainer/sync       GBDTTrainer, from a tree's one synchronization to the
+                     end of that iteration's host work: the copies of
+                     splits and leaf values, the loss, the metrics, the
+                     checkpoint (iteration); the card has nothing queued
   train/level        GBDTTrainer histogram + split pass of one level
   train/iteration    GBDTTrainer whole boosting iteration
   serve/batch        GBDTServer scored batch (batcher thread)
+
+`train/level` and `train/iteration` are `complete()` events written
+after the tree's synchronization: their `ts` is the host time the stage
+was issued, their `dur` the device time on the card (CUDA events; the
+host clock on the CPU), so on the card a level's span is device time
+placed at its host start, and it has no profiler range.
 """
 from __future__ import annotations
 
@@ -81,11 +112,11 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """A live span: records ts (and a CUDA event) on __enter__, appends
-    on __exit__."""
+    """A live span: records ts (and a CUDA event) and opens its profiler
+    range on __enter__; closes the range and appends on __exit__."""
 
     __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_stream",
-                 "_start")
+                 "_start", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: dict[str, Any], stream):
@@ -96,17 +127,22 @@ class _Span:
         self._t0 = 0
         self._stream = stream
         self._start = None
+        self._range = torch.profiler.record_function(name)
 
     def __enter__(self) -> "_Span":
         self._tracer._open(self)
         if self._stream is not None:
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record(self._stream)
+        # the range's start and ts are read back to back: the two clocks
+        # meet here
+        self._range.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc: Any) -> bool:
         t1 = time.perf_counter_ns()
+        self._range.__exit__(None, None, None)
         if self._stream is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record(self._stream)
@@ -148,7 +184,7 @@ class Tracer:
         self.enabled = False
         # (ph, name, cat, t_ns, dur_ns, thread_ident, args) tuples
         self._ring: collections.deque = collections.deque(maxlen=capacity)
-        self._epoch_ns = time.perf_counter_ns()
+        self._set_epoch()
         self._lock = threading.Lock()
         self._dropped = 0
         # thread ident -> name, captured at record time: a worker may be
@@ -165,8 +201,14 @@ class Tracer:
 
     def clear(self) -> None:
         self._ring.clear()
-        self._epoch_ns = time.perf_counter_ns()
+        self._set_epoch()
         self._dropped = 0
+
+    def _set_epoch(self) -> None:
+        """The epoch on both clocks: spans' `perf_counter_ns` and the
+        profiler's Unix-epoch nanoseconds, read back to back."""
+        self._epoch_ns = time.perf_counter_ns()
+        self._epoch_unix_ns = time.time_ns()
 
     # -- recording ---------------------------------------------------------
     def _append(self, event: tuple) -> None:
@@ -261,6 +303,13 @@ class Tracer:
         """Events evicted by the ring bound (advisory count)."""
         return self._dropped
 
+    @property
+    def epoch_unix_ns(self) -> int:
+        """The epoch in `time.time_ns()`, the clock of `torch.profiler`'s
+        events: an event's `ts_us` is there at `epoch_unix_ns + ts_us *
+        1e3` ns."""
+        return self._epoch_unix_ns
+
     # -- export ------------------------------------------------------------
     def export_chrome(self, path: str | pathlib.Path) -> dict[str, Any]:
         """Write the ring as Chrome trace-event JSON and return the
@@ -292,7 +341,8 @@ class Tracer:
             rows.append(row)
         obj = {"traceEvents": rows, "displayTimeUnit": "ms",
                "otherData": {"dropped_events": dropped,
-                             "capacity": self.capacity}}
+                             "capacity": self.capacity,
+                             "epoch_unix_ns": self._epoch_unix_ns}}
         path = pathlib.Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(obj))

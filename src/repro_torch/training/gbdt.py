@@ -38,7 +38,10 @@ Stage times are CUDA events on the card, read after the tree's one
 synchronization (an explicit `torch.cuda.synchronize`), and the host
 clock on the CPU.  While the tracer is enabled the same times become
 `train/level` and `train/iteration` complete events, emitted after that
-synchronization, so tracing adds none.
+synchronization, so tracing adds none; two live host spans time the host
+itself: `trainer/split`, issuing a level's split search, and
+`trainer/sync`, the iteration's host work after its synchronization,
+while the card waits.
 
 `fit_source` streams a `scoring.RowSource` into a pool chunk by chunk
 (borders from a reservoir sample, then the bins on the device) and boosts
@@ -520,9 +523,16 @@ class GBDTTrainer:
                                    n_leaves=1 << d, backend=self.backend)
                 level_shapes.add(1 << d)
                 clock.mark("split")
-                f_star, b_star, leaf = _split_level(
-                    hist, valid, bins_t, leaf, n_bins=n_bins, d=d,
-                    l2=p.l2_reg)
+                if not _TRACER.enabled:
+                    f_star, b_star, leaf = _split_level(
+                        hist, valid, bins_t, leaf, n_bins=n_bins, d=d,
+                        l2=p.l2_reg)
+                else:
+                    with _TRACER.span("trainer/split", "trainer",
+                                      iteration=it, level=d):
+                        f_star, b_star, leaf = _split_level(
+                            hist, valid, bins_t, leaf, n_bins=n_bins, d=d,
+                            l2=p.l2_reg)
                 sf_d.append(f_star)
                 sb_d.append(b_star)
             clock.mark("leaf")
@@ -537,31 +547,33 @@ class GBDTTrainer:
                 # the tree's one synchronization with the host: the
                 # copies below then wait for nothing
                 torch.cuda.synchronize(dev)
-            splits = (torch.stack(sf_d + sb_d).cpu().numpy() if depth
-                      else np.zeros((0,), np.int32))
-            sf_rows.append(splits[:depth].astype(np.int32))
-            sb_rows.append(splits[depth:].astype(np.int32))
-            lv_rows.append(w.cpu().numpy().astype(np.float32))
-            loss_vals.append(float(val))
-            t_end = time.perf_counter()
-            stage = clock.seconds()
-            if _TRACER.enabled:
-                _trace_tree(it, n, clock.stages(), loss_vals[-1],
-                            dev.type == "cuda")
-            self.metrics.note_iteration(n, stage.get("hist", 0.0),
-                                        stage.get("split", 0.0),
-                                        stage.get("leaf", 0.0),
-                                        t_end - t_iter, loss_vals[-1])
-            done = it + 1
-            if checkpoint is not None and checkpoint_every > 0 and (
-                    done % checkpoint_every == 0 or done == p.n_trees):
-                checkpoint.save(done, TrainState(
-                    iteration=done, key=np.asarray(key),
-                    split_features=np.stack(sf_rows),
-                    split_bins=np.stack(sb_rows),
-                    leaf_values=np.stack(lv_rows),
-                    raw=raw.cpu().numpy(),
-                    train_loss=np.asarray(loss_vals, np.float32)).tree())
+            # from here to the iteration's end the card has nothing queued
+            with _TRACER.span("trainer/sync", "trainer", iteration=it):
+                splits = (torch.stack(sf_d + sb_d).cpu().numpy() if depth
+                          else np.zeros((0,), np.int32))
+                sf_rows.append(splits[:depth].astype(np.int32))
+                sb_rows.append(splits[depth:].astype(np.int32))
+                lv_rows.append(w.cpu().numpy().astype(np.float32))
+                loss_vals.append(float(val))
+                t_end = time.perf_counter()
+                stage = clock.seconds()
+                if _TRACER.enabled:
+                    _trace_tree(it, n, clock.stages(), loss_vals[-1],
+                                dev.type == "cuda")
+                self.metrics.note_iteration(n, stage.get("hist", 0.0),
+                                            stage.get("split", 0.0),
+                                            stage.get("leaf", 0.0),
+                                            t_end - t_iter, loss_vals[-1])
+                done = it + 1
+                if checkpoint is not None and checkpoint_every > 0 and (
+                        done % checkpoint_every == 0 or done == p.n_trees):
+                    checkpoint.save(done, TrainState(
+                        iteration=done, key=np.asarray(key),
+                        split_features=np.stack(sf_rows),
+                        split_bins=np.stack(sb_rows),
+                        leaf_values=np.stack(lv_rows),
+                        raw=raw.cpu().numpy(),
+                        train_loss=np.asarray(loss_vals, np.float32)).tree())
         if checkpoint is not None:
             checkpoint.wait()
 

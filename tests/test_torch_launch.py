@@ -271,7 +271,7 @@ def test_launcher_obs_flags_write_trace_and_metrics(launcher, tmp_path,
                       "dispatch/binarize", "dispatch/leaf_index"}
         prefix = "repro_scoring_bulk_"
     assert want_spans <= names
-    assert "dispatch_count" in names and "thread_name" in names
+    assert "trainer/split" in names and "thread_name" in names
     assert all(g.startswith(prefix) or g.startswith(prefix[:-1])
                for g in gauges)
     assert "[obs]" in capsys.readouterr().err

@@ -7,11 +7,20 @@ spans), a traced BulkScorer run, the deadline-SLO accounting of
 package: the same snapshots give byte-identical Prometheus text and
 equal JSON; a traced fit and a traced bulk run record the same events
 in both packages; the `compile/*` instants are the plan's first calls;
-`dispatch_count` follows `registry.call_stats()`; tracing changes no
-result.  And the card's mechanism, with stand-in CUDA events: a span's
-events are read at export after one synchronization, never before.
+the `dispatch/<op>` spans follow `registry.call_stats()`; tracing
+changes no result.  The port's own spans: a call's copy of host rows to
+the card (`plan/h2d`), the trainer's split search and its host work
+after a tree's synchronization (`trainer/split`, `trainer/sync`), and
+the benchmark's readers of them.  The profiler bridge: every live span
+is a `torch.profiler` range of its name, placed on the profiler's clock
+by `epoch_unix_ns`.  And the card's mechanism, with stand-in CUDA
+events: a span's events are read at export after one synchronization,
+never before.
 """
+import importlib.util
 import json
+import pathlib
+import statistics
 import threading
 import time
 from collections import Counter
@@ -33,6 +42,7 @@ from repro import scoring as jscoring  # noqa: E402
 from repro.obs import trace as jtrace  # noqa: E402
 from repro.training import gbdt as jgbdt  # noqa: E402
 from repro_torch.core import boosting, losses, quantize  # noqa: E402
+from repro_torch.core import predictor as predictor_mod  # noqa: E402
 from repro_torch.core.predictor import PredictConfig, Predictor  # noqa: E402
 from repro_torch.core.trees import ObliviousEnsemble  # noqa: E402
 from repro_torch.kernels import registry, tuning  # noqa: E402
@@ -161,6 +171,7 @@ def test_chrome_export_schema(tmp_path):
     c = next(e for e in evs if e["ph"] == "C")
     assert c["args"] == {"leaf_index": 1.0}
     assert loaded["otherData"]["dropped_events"] == 0
+    assert loaded["otherData"]["epoch_unix_ns"] == tr.epoch_unix_ns
 
 
 def test_export_names_threads_that_already_exited(tmp_path):
@@ -498,7 +509,7 @@ def test_compile_instants_are_the_plans_first_calls():
                e["args"]["batch"] in (5, 9, 17) for e in firsts)
 
 
-def test_dispatch_count_follows_call_stats():
+def test_dispatch_spans_follow_call_stats():
     ens = _rand_ensemble()
     plan = _plan(ens, layout="soa")
     x = np.random.default_rng(0).normal(
@@ -509,15 +520,169 @@ def test_dispatch_count_follows_call_stats():
         plan.raw(x)
         plan.raw(plan.quantize(x))
         events = tracer.events()
-    last: dict = {}
-    for e in events:
-        if e["name"] == "dispatch_count":
-            last.update(e["args"])
-    assert last == {op: float(n) for op, n in registry.call_stats().items()}
+    assert registry.call_stats()
     spans = Counter(e["name"] for e in events
                     if e["name"].startswith("dispatch/"))
     assert spans == Counter({f"dispatch/{op}": n for op, n in
                              registry.call_stats().items()})
+
+
+# --------------------------------------------------------------------------
+# The port's own spans: the input copy, the split search, the sync
+# --------------------------------------------------------------------------
+def test_host_rows_copied_to_the_card_are_one_plan_h2d_span(monkeypatch):
+    assert predictor_mod._host_to_card(torch.zeros(2, 3),
+                                       torch.device("cuda"))
+    assert not predictor_mod._host_to_card(torch.zeros(2, 3),
+                                           torch.device("cpu"))
+    ens = _rand_ensemble()
+    plan = _plan(ens)
+    x = np.random.default_rng(0).normal(
+        size=(33, ens.n_features)).astype(np.float32)
+    tracer = get_tracer()
+    with tracing(tracer, clear=True):
+        plan.proba(x)                   # a CPU plan: nothing is copied
+        assert not [e for e in tracer.events() if e["name"] == "plan/h2d"]
+    pool = plan.quantize(x)
+    # the plan as if on a card: its rows cross, a pool already there not
+    monkeypatch.setattr(predictor_mod, "_host_to_card",
+                        lambda rows, device: True)
+    with tracing(tracer, clear=True):
+        plan.proba(x)
+        plan.proba(pool)
+        events = tracer.events()
+    (h2d,) = [e for e in events if e["name"] == "plan/h2d"]
+    assert h2d["cat"] == "plan"
+    assert h2d["args"] == {"rows": 33, "bytes": 33 * ens.n_features * 4,
+                           "pinned": False}
+    # the copy comes before the call's kernels
+    first = min(e["ts_us"] for e in events
+                if e["name"].startswith("dispatch/"))
+    assert h2d["ts_us"] + h2d["dur_us"] <= first
+
+
+def test_traced_fit_times_each_split_search_and_each_sync():
+    x, y = _fit_data()
+    plain, plain_hist = _port_fit(x, y)
+    tracer = get_tracer()
+    with tracing(tracer, clear=True):
+        ens, hist = _port_fit(x, y)
+        events = tracer.events()
+    split = [e for e in events if e["name"] == "trainer/split"]
+    sync = [e for e in events if e["name"] == "trainer/sync"]
+    assert Counter((e["args"]["iteration"], e["args"]["level"])
+                   for e in split) == Counter(
+        {(i, d): 1 for i in range(3) for d in range(3)})
+    assert sorted(e["args"]["iteration"] for e in sync) == [0, 1, 2]
+    assert all(e["cat"] == "trainer" and e["dur_us"] >= 0
+               for e in split + sync)
+    # a tree's splits are issued before its sync stretch starts
+    for e in split:
+        (s,) = [s for s in sync
+                if s["args"]["iteration"] == e["args"]["iteration"]]
+        assert e["ts_us"] + e["dur_us"] <= s["ts_us"]
+    # tracing changes no bit
+    for name in ("split_features", "split_bins", "leaf_values"):
+        assert torch.equal(getattr(ens, name), getattr(plain, name))
+    assert np.array_equal(hist["final_raw"], plain_hist["final_raw"])
+    assert np.array_equal(hist["train_loss"], plain_hist["train_loss"])
+
+
+# the profiler's range starts a few microseconds before the span's ts; a
+# clock on another base is off by seconds or more
+CLOCK_MEDIAN_US = 1000.0
+CLOCK_MAX_US = 50_000.0
+
+
+def _profiled_ranges(work) -> dict[str, int]:
+    """{name: start in Unix-epoch ns} of the host ranges a CPU profile of
+    `work()` records."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        work()
+    return {e.name(): e.start_ns()
+            for e in prof.profiler.kineto_results.events()
+            if e.is_user_annotation()}
+
+
+def test_live_spans_are_profiler_ranges_on_its_clock():
+    tr = Tracer()
+    tr.enable()
+    names = [f"dispatch/op{i}" for i in range(10)] + [
+        "plan/h2d", "trainer/split", "trainer/sync"]
+
+    def work():
+        for name in names:
+            with tr.span(name, "test", i=1):
+                with tr.span(name + "/inner"):
+                    pass
+        tr.complete("train/level", start_ns=time.perf_counter_ns(),
+                    duration_ns=10)
+
+    ranges = _profiled_ranges(work)
+    spans = {e["name"]: tr.epoch_unix_ns + e["ts_us"] * 1e3
+             for e in tr.events()}
+    live = [n for n in spans if n != "train/level"]
+    assert set(live) <= set(ranges)
+    assert "train/level" not in ranges      # written after the fact
+    offsets = [abs(spans[n] - ranges[n]) / 1e3 for n in live]
+    assert statistics.median(offsets) < CLOCK_MEDIAN_US, offsets
+    assert max(offsets) < CLOCK_MAX_US, offsets
+    # the epoch moves with clear(), on both clocks
+    tr.clear()
+    assert abs(tr.epoch_unix_ns - time.time_ns()) < 1e9
+    # disabled, a span opens no range
+    tr.disable()
+
+    def quiet():
+        with tr.span("quiet"):
+            pass
+    assert "quiet" not in _profiled_ranges(quiet)
+
+
+# --------------------------------------------------------------------------
+# The benchmark's readers of these spans
+# --------------------------------------------------------------------------
+METRICS = pathlib.Path(__file__).resolve().parents[1] / "bench" / "metrics"
+
+
+def _reader(stem: str):
+    spec = importlib.util.spec_from_file_location(
+        f"bench_metric_{stem}", METRICS / f"{stem}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def _x(name, dur_us=1.0, **args):
+    return {"ph": "X", "name": name, "cat": "", "ts_us": 0.0,
+            "dur_us": dur_us, "tid": 1, "args": args}
+
+
+def test_input_copy_reader_is_device_ms_a_call():
+    read = _reader("input_copy_ms")
+    copy = dict(rows=10, bytes=40, pinned=False)
+    events = [_x("plan/h2d", device_ms=5.0, **copy),
+              _x("plan/h2d", device_ms=6.5, **copy),
+              _x("plan/h2d", **copy),          # a CPU span: no device time
+              _x("dispatch/fused_predict", device_ms=17.0),
+              {"ph": "i", "name": "plan/h2d", "args": {"device_ms": 9.0}}]
+    assert read({"events": events, "calls": 2}) == pytest.approx(5.75)
+    assert read({"events": events[2:], "calls": 2}) is None
+    assert read({"events": [], "calls": 3}) is None   # no such span
+    assert read({"window_s": 1.0}) is None
+
+
+def test_split_host_reader_counts_the_trees_its_spans_name():
+    read = _reader("split_host_ms")
+    # the ring dropped trees 0-4: trees 5-7 remain, 3 levels each
+    events = [_x("trainer/split", 1000.0 * (d + 1), iteration=i, level=d)
+              for i in range(5, 8) for d in range(3)]
+    events += [_x("trainer/sync", 5e5, iteration=7),
+               _x("dispatch/histogram", 7e3, device_ms=7.0)]
+    assert read({"events": events, "steps": 8}) == pytest.approx(6.0)
+    assert read({"events": events[-2:], "steps": 8}) is None
+    assert read({"window_s": 1.0}) is None
 
 
 def test_plan_attrs_flatten_a_launch_plan():
