@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one Hopper card:
 
     python3 chip_smoke.py
 
-It builds the port's eleven CUDA kernels from
+It builds the port's twelve CUDA kernels from
 `src/repro_torch/kernels/csrc/` and then, with the kernel launch counts set
 to 0 before each path and read after it:
 
@@ -118,6 +118,13 @@ It checks:
     level's split from the kernel's histogram equals the split from the
     plain histogram, unless their gains lie within the gains' rounding
     bound (counted);
+  * the split kernel (`split_level`) gives the plain version's bits on
+    the CPU (masked gains, f*, b*, refined leaf ids; NaN equal to NaN): on
+    the tie scenario's levels, on the benchmark's Covertype levels at 129
+    bins for d = 0..7 (in-order and window plans; each timed beside the
+    plain version on the card), with an rsm mask, with every border
+    masked ((0, 0)) and on int32 bins at 301 bins; the telemetry fit makes
+    a `dispatch/split_level` span a level, each with its 3 launches;
   * the histogram kernel at every level shape of a depth-8 tree (uint8,
     plus int32 at the deepest level and the first 1,000 and 17 rows) and
     at the leaf sums (one bin, 256 leaves) equals the plain fixed-point
@@ -253,7 +260,7 @@ It checks:
     every real call makes the launches its walk recorded, launcher for
     launcher; every recorded launch's dynamic plus static shared memory
     lies within the opt-in limit and its `kernels.tuning` plan; each of
-    the eleven kernels was launched; it prints the per-kernel resources
+    the twelve kernels was launched; it prints the per-kernel resources
     (registers, shared bytes, local bytes, ptxas spills) with the card.
 
 Then it times each kernel beside its plain version, one PyTorch library
@@ -1435,6 +1442,7 @@ def replay_splits(full, pool, y, params):
     from repro_torch.core.losses import MultiClass
     from repro_torch.kernels import ref
     from repro_torch.kernels.histogram import histogram
+    from repro_torch.kernels.split_level import split_level_plain
     from repro_torch.training import gbdt
 
     dev = pool.bins.device
@@ -1468,7 +1476,7 @@ def replay_splits(full, pool, y, params):
             hp = ref.histogram(bins_t, leaf, gh.double(), **kw)
             fk, bk, new_leaf = gbdt._split_level(
                 hk, valid, bins_t, leaf, n_bins=n_bins, d=d, l2=params.l2_reg)
-            fp, bp, _ = gbdt._split_level(
+            fp, bp, _ = split_level_plain(
                 hp, valid, bins_t, leaf, n_bins=n_bins, d=d, l2=params.l2_reg)
             gains, bound = split_gains(
                 hp, hist_limits(bins_t, leaf, gh, **kw)[0], valid, n_bins,
@@ -2401,15 +2409,78 @@ def split_scenario():
     return x, y
 
 
-def check_splits() -> dict:
-    """The split step on the card gives the CPU's bits: the tie
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, a NaN equal to any NaN: the card's division
+    gives 0x7fffffff where the CPU's gives 0xffc00000."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def held_split(what: str, args, kw) -> tuple:
+    """The split kernel on one level against the plain version on CPU
+    copies: the (F, B) masked gains, f*, b* and the refined leaf ids must
+    have the same bits.  Returns the kernel's (f*, b*, leaf ids)."""
+    from repro_torch.kernels import split_level as split_k
+    got = split_k.split_level(*args, **kw, return_gains=True)
+    want = split_k.split_level_plain(*(a.cpu() for a in args), **kw,
+                                     return_gains=True)
+    for name, w, g in zip(("f*", "b*", "leaf ids", "masked gains"), want,
+                          got):
+        check(same_bits(w, g), f"split_level {what}: the kernel's {name} "
+              "differ from the plain version's")
+    return got[:3]
+
+
+def split_kernel_ms(fn, reps: int = 10) -> dict:
+    """Mean device ms of each split kernel over `reps` calls of `fn`, as
+    `torch.profiler` sees them ({} where it sees no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in ("split_terms", "split_choose", "split_refine"):
+            if name in e.key:
+                out[name] = out.get(name, 0.0) \
+                    + e.device_time_total / reps / 1e3
+    return out
+
+
+SPLIT_COV_BORDERS = 128     # the benchmark's Covertype levels: 129 bins
+SPLIT_WIDE_BORDERS = 300    # int32 bins past 255 borders
+SPLIT_TIMED = 20            # calls timed a level
+
+
+def check_splits(data) -> dict:
+    """The split step on the card gives the CPU's bits.  The tie
     scenario's level histograms, made in f32 by the CPU trainer (8 trees
     of depth 6 at 32 bins, seeds 7-9, plain and ordered), go through
-    `split_sums.level_gains` and `_split_level` on the card and on the
-    CPU; gains (bit for bit), the mass test, f*, b* and the refined leaf
-    ids must be identical."""
+    `split_sums.level_gains` and `_split_level` (the kernel) on the card
+    and through the plain version on the CPU: gains (bit for bit), the
+    mass test, f*, b*, the refined leaf ids and the kernel's masked gains
+    must be identical.  Then the kernel against the plain version on the
+    benchmark's Covertype levels (128 borders, 129 bins, 7 classes, the
+    histograms of a tree grown by the kernel, d = 0..7: in-order and
+    window plans), with an rsm mask, with every border masked, and on
+    int32 bins at 301 bins; each Covertype level timed, the kernel
+    (`device_ms`: the kernels alone; `call_ms`: the call's window) beside
+    the plain version on the card (`plain_ms`), L2 warm as the trainer
+    leaves it."""
     import torch
     from repro_torch.core import boosting, losses, quantize, split_sums
+    from repro_torch.core.losses import MultiClass
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import split_level as split_k
     from repro_torch.training import gbdt
     x, y = split_scenario()
     borders, n_borders = quantize.compute_borders(x, 32)
@@ -2450,9 +2521,97 @@ def check_splits() -> dict:
               f"_split_level at level {kw['d']} picks differently on the "
               f"card: {[int(v) for v in got[:2]]} vs "
               f"{[int(v) for v in want[:2]]}")
+        held_split(f"on the tie scenario at level {kw['d']}",
+                   (hist.cuda(), valid.cuda(), bins_t.cuda(), leaf.cuda()),
+                   kw)
+    torch.cuda.synchronize()
+    ties_s = time.perf_counter() - t0
+
+    # the benchmark's Covertype levels, grown by the kernel's own splits
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cov_borders, cov_nb = quantize.compute_borders(data.x_train,
+                                                   SPLIT_COV_BORDERS)
+    x_dev = torch.as_tensor(data.x_train, device=dev)
+    bins_t = quantize.quantize_pool(x_dev, torch.as_tensor(
+        cov_borders).to(dev)).bins.t().contiguous()
+    n_bins = SPLIT_COV_BORDERS + 1
+    n_feat, n = bins_t.shape
+    b = torch.arange(n_bins, device=dev)
+    valid = (b[None, :] >= 1) & (b[None, :] <= torch.as_tensor(
+        cov_nb).to(dev)[:, None])
+    loss = MultiClass(n_classes=data.n_classes)
+    yt = torch.as_tensor(data.y_train, device=dev)
+    gh = gbdt._grad_stack(loss.init_raw(yt), yt, loss=loss)
+    l2 = boosting.BoostingParams().l2_reg
+    leaf = torch.zeros((n,), dtype=torch.int32, device=dev)
+    flush = torch.empty((1,), dtype=torch.uint8, device=dev)
+    levels, sums_plans = [], []
+    for d in range(8):
+        hist = ref.histogram_fixed(bins_t, leaf, gh, n_bins=n_bins,
+                                   n_leaves=1 << d)
+        kw = dict(n_bins=n_bins, d=d, l2=l2)
+        args = (hist, valid, bins_t, leaf)
+        f_star, b_star, new_leaf = held_split(f"at Covertype level {d}",
+                                              args, kw)
+        kernel_ms, profiled_ms = device_ms(
+            lambda: split_k.split_level(*args, **kw), flush,
+            reps=SPLIT_TIMED, key="split_")
+        levels.append({
+            "d": d, "split": [int(f_star), int(b_star)],
+            "device_ms": kernel_ms, "profiled_ms": profiled_ms,
+            "kernels_ms": split_kernel_ms(
+                lambda: split_k.split_level(*args, **kw)),
+            "call_ms": time_ms(lambda: split_k.split_level(*args, **kw),
+                               SPLIT_TIMED, flush),
+            "plain_ms": time_ms(lambda: split_k.split_level_plain(
+                *args, **kw), SPLIT_TIMED, flush),
+            "plan": dataclasses.asdict(split_sums.leaf_sum_plan(
+                1 << d, n_bins, data.n_classes))})
+        sums_plans.append(levels[-1]["plan"]["windows"])
+        if d == 3:
+            # an rsm mask (half the features), then every border masked
+            keep = torch.zeros(n_feat, dtype=torch.bool)
+            keep[torch.randperm(n_feat, generator=torch.Generator()
+                                .manual_seed(d))[:n_feat // 2]] = True
+            held_split("with an rsm mask", (hist, valid & keep.to(dev)[:, None],
+                                            bins_t, leaf), kw)
+            got = held_split("with every border masked",
+                             (hist, torch.zeros_like(valid), bins_t, leaf),
+                             kw)
+            check([int(v) for v in got[:2]] == [0, 0],
+                  "split_level: an all-masked level did not pick (0, 0)")
+        leaf = new_leaf
+    check(sums_plans[6:] == [1, 1], f"split_level: Covertype's 64 and 128 "
+          f"leaves took window rounds {sums_plans[6:]}")
+    cov_s = time.perf_counter() - t0
+
+    # int32 bins past 255 borders (301 bins: the scan's block totals past
+    # 16 blocks), at level 3
+    # (quantile borders of each column; `compute_borders` stops at 255)
+    wide_borders = np.nanquantile(data.x_train, np.linspace(
+        0.0, 1.0, SPLIT_WIDE_BORDERS + 2)[1:-1], axis=0)
+    wide_borders = np.ascontiguousarray(wide_borders, dtype=np.float32)
+    wide_nb = np.full(n_feat, SPLIT_WIDE_BORDERS, np.int32)
+    wide = quantize.binarize_matrix(x_dev, torch.as_tensor(
+        wide_borders).to(dev)).t().contiguous()
+    check(wide.dtype == torch.int32, f"bins past 255 borders are {wide.dtype}")
+    wide_bins = SPLIT_WIDE_BORDERS + 1
+    b = torch.arange(wide_bins, device=dev)
+    wide_valid = (b[None, :] >= 1) & (b[None, :] <= torch.as_tensor(
+        wide_nb).to(dev)[:, None])
+    leaf3 = torch.randint(0, 8, (n,), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+    held_split("on int32 bins at 301 bins", (
+        ref.histogram_fixed(wide, leaf3, gh, n_bins=wide_bins, n_leaves=8),
+        wide_valid, wide, leaf3), dict(n_bins=wide_bins, d=3, l2=l2))
     torch.cuda.synchronize()
     return {"fits": 2 * len(SPLIT_SEEDS), "levels": len(calls),
-            "card_seconds": time.perf_counter() - t0}
+            "card_seconds": ties_s, "covertype_seconds": cov_s,
+            "covertype_levels": levels,
+            "tree_device_ms": sum(lv["device_ms"] for lv in levels),
+            "tree_call_ms": sum(lv["call_ms"] for lv in levels),
+            "tree_plain_ms": sum(lv["plain_ms"] for lv in levels)}
 
 
 TELEMETRY_TREES = 10     # trees of the traced fit
@@ -2528,6 +2687,7 @@ def run_telemetry(data, full, params, tmp: str) -> dict:
     from repro_torch.core.losses import MultiClass
     from repro_torch.core.predictor import Predictor
     from repro_torch.kernels import ops, registry
+    from repro_torch.kernels.split_level import KERNELS_A_LEVEL
     from repro_torch.obs.trace import get_tracer, tracing
     from repro_torch.scoring import (ArraySink, BulkScorer, ScoreConfig,
                                      SyntheticSource)
@@ -2634,6 +2794,13 @@ def run_telemetry(data, full, params, tmp: str) -> dict:
           and names["trainer/sync"] == TELEMETRY_TREES,
           f"telemetry: {names['trainer/split']} trainer/split and "
           f"{names['trainer/sync']} trainer/sync spans")
+    split_spans = [e["args"] for e in events
+                   if e["name"] == "dispatch/split_level"]
+    check(len(split_spans) == TELEMETRY_TREES * params.depth
+          and all(a["launches"] == KERNELS_A_LEVEL for a in split_spans),
+          f"telemetry: {len(split_spans)} dispatch/split_level spans for "
+          f"{TELEMETRY_TREES} trees of depth {params.depth}, launches "
+          f"{sorted({a.get('launches') for a in split_spans})}")
     check(names["plan/h2d"] == names["serve/batch"],
           f"telemetry: {names['plan/h2d']} plan/h2d spans for "
           f"{names['serve/batch']} served batches")
@@ -2745,9 +2912,11 @@ def plain_versions() -> dict:
     exact), each taking the launch's arguments and keywords on the CPU:
     `leaf_gather` and `fused_predict` sum floats in another order
     (`sum_limit`), the distance kernels obey the distance rule, the
-    histogram equals the plain fixed-point version."""
+    histogram equals the plain fixed-point version, the split search its
+    plain version (f*, b* and the leaf ids)."""
     import torch
     from repro_torch.kernels import l2dist, ref
+    from repro_torch.kernels.split_level import split_level_plain
 
     def fused_limit(a, kw):
         x, borders, sf, sb, lv = a
@@ -2759,6 +2928,7 @@ def plain_versions() -> dict:
             else ref.binarize)(*a), None),
         "leaf_index": (lambda a, kw: ref.leaf_index(*a), None),
         "histogram": (lambda a, kw: ref.histogram_fixed(*a, **kw), None),
+        "split_level": (lambda a, kw: split_level_plain(*a, **kw), None),
         "leaf_gather": (lambda a, kw: ref.leaf_gather(*a),
                         lambda a, kw: sum_limit(*a)),
         "fused_predict": (lambda a, kw: ref.fused_predict(*a), fused_limit),
@@ -2769,7 +2939,8 @@ def plain_versions() -> dict:
     }
 
 
-PLAIN_KEYWORDS = ("out_dtype", "n_bins", "n_leaves")   # the rest pick routes
+PLAIN_KEYWORDS = ("out_dtype", "n_bins", "n_leaves", "d", "l2")   # the
+# rest pick routes
 
 
 def held_to_plain(name: str, fn, plain, report: dict, failures: list):
@@ -2785,20 +2956,29 @@ def held_to_plain(name: str, fn, plain, report: dict, failures: list):
     lock = threading.Lock()
 
     def wrapper(*args, **kw):
-        got = fn(*args, **kw)
+        result = fn(*args, **kw)
+        # the split search returns (f*, b*, leaf ids): held together
+        outs = result if isinstance(result, tuple) else (result,)
+        got = outs[-1]
         if got.device.type != "cuda" or not got.numel():
-            return got
+            return result
         kw = {k: v for k, v in kw.items() if k in PLAIN_KEYWORDS}
         key = (tuple((tuple(a.shape), str(a.dtype)) if torch.is_tensor(a)
                      else a for a in args), tuple(sorted(kw.items())))
         with lock:
             if seen.get(key, 0) >= PLAIN_CHECKS:
-                return got
+                return result
             seen[key] = seen.get(key, 0) + 1
         cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
         want, got_cpu = want_fn(cpu, kw), got.cpu()
+        if isinstance(result, tuple):
+            wants = want
+            want = want[-1]
         if limit_fn is None:
-            err, share = (0.0, 0.0) if torch_equal(got_cpu, want) else (
+            exact = torch_equal(got_cpu, want) and (
+                not isinstance(result, tuple) or all(
+                    torch_equal(g, w) for g, w in zip(outs, wants)))
+            err, share = (0.0, 0.0) if exact else (
                 float((got_cpu.double() - want.double()).abs().max()),
                 math.inf)
         else:
@@ -2820,7 +3000,7 @@ def held_to_plain(name: str, fn, plain, report: dict, failures: list):
                 failures.append(f"{name}({shapes}; {kw}) differs from its "
                                 f"plain version by {err}, {share:.3g} times "
                                 "its limit")
-        return got
+        return result
 
     return wrapper
 
@@ -4118,7 +4298,7 @@ def run_mesh_path(paths: dict, full, x_test: np.ndarray, tmp: str) -> dict:
 CONTRACT_REAL_LABELS = ("canonical", "bucket", "bulk", "matrix", "rowwise",
                         "batch", "stats66")
 CONTRACT_SEED = 7
-# The launchers each of the eleven kernel wrappers calls.
+# The launchers each of the twelve kernel wrappers calls.
 WRAPPER_LAUNCHERS = {
     "binarize": ("repro_binarize",), "leaf_index": ("repro_leaf_index",),
     "leaf_gather": ("repro_leaf_gather",),
@@ -4131,13 +4311,15 @@ WRAPPER_LAUNCHERS = {
                          "repro_fused_predict_bp_spread"),
     "histogram": ("repro_histogram",),
     "l2sq_rowwise": ("repro_l2sq_rowwise",),
-    "l2sq_matrix": ("repro_l2sq_matrix",)}
+    "l2sq_matrix": ("repro_l2sq_matrix",),
+    "split_level": ("repro_split_level",)}
 
 
 def contract_inputs(cell, variant, gen):
     """Real CUDA tensors for a variant's specs, with what each argument's
-    role needs: sorted borders, split features below F, leaf ids below L,
-    bins below n_bins, level weights 2^d, random floats elsewhere."""
+    role needs: sorted borders, split features below F, leaf ids below L
+    (2^d for a split level), bins below n_bins, level weights 2^d, random
+    booleans for valid borders, random floats elsewhere."""
     import torch
     from repro_torch.analysis.trace_tools import Spec
     specs = variant.args
@@ -4166,6 +4348,8 @@ def contract_inputs(cell, variant, gen):
             t = ints(spec, specs[1].shape[1])
         elif cell.op == "histogram":
             t = ints(spec, kw["n_bins"] if i == 0 else kw["n_leaves"])
+        elif cell.op == "split_level":   # valid, bins, leaf ids below 2^d
+            t = ints(spec, (2, kw["n_bins"], 1 << kw["d"])[i - 1])
         elif cell.op == "leaf_index":
             n_feat = specs[0].shape[1]
             t = ints(spec, 10 if i != 1 else n_feat)
@@ -6070,36 +6254,41 @@ PATH_KERNELS = {
     "bitpacked": {"binarize", "leaf_index_bp", "leaf_gather"},
     "bitpacked_one_group": {"binarize", "leaf_index_bp", "leaf_gather",
                             "fused_predict_bp"},
-    "training": {"binarize", "histogram", "leaf_index", "leaf_gather"},
+    "training": {"binarize", "histogram", "split_level", "leaf_index",
+                 "leaf_gather"},
     "trained_soa_pool": {"binarize", "leaf_index", "leaf_gather"},
     "bulk": {"binarize", "leaf_index", "leaf_gather", "fused_predict"},
     "entry_points": {"binarize", "leaf_index", "leaf_gather",
                      "fused_predict"},
-    "fit_source": {"binarize", "histogram", "leaf_index", "leaf_gather"},
-    "training_remainders": {"binarize", "histogram", "leaf_index",
-                            "leaf_gather"},
-    "fit_scan": {"binarize", "histogram", "leaf_index", "leaf_gather"},
-    "splits": set(),
-    "telemetry": {"binarize", "histogram", "leaf_index", "leaf_gather",
-                  "fused_predict"},
+    "fit_source": {"binarize", "histogram", "split_level", "leaf_index",
+                   "leaf_gather"},
+    "training_remainders": {"binarize", "histogram", "split_level",
+                            "leaf_index", "leaf_gather"},
+    "fit_scan": {"binarize", "histogram", "split_level", "leaf_index",
+                 "leaf_gather"},
+    "splits": {"binarize", "split_level"},
+    "telemetry": {"binarize", "histogram", "split_level", "leaf_index",
+                  "leaf_gather", "fused_predict"},
     "knn": {"l2sq_matrix", "l2sq_rowwise", "binarize", "histogram",
-            "leaf_index", "leaf_gather", "fused_predict"},
+            "split_level", "leaf_index", "leaf_gather", "fused_predict"},
     "mesh": {"binarize", "leaf_index", "leaf_index_dm", "leaf_index_bp",
              "leaf_gather", "fused_predict", "fused_predict_dm",
              "fused_predict_bp"},
     # the launcher and example processes (`read_launcher`)
-    "score_cli": {"binarize", "histogram", "leaf_index", "leaf_gather",
-                  "fused_predict"},
-    "train_gbdt": {"binarize", "histogram", "leaf_index", "leaf_gather"},
-    "serve": {"binarize", "histogram", "leaf_index", "leaf_gather",
-              "fused_predict"},
+    "score_cli": {"binarize", "histogram", "split_level", "leaf_index",
+                  "leaf_gather", "fused_predict"},
+    "train_gbdt": {"binarize", "histogram", "split_level", "leaf_index",
+                   "leaf_gather"},
+    "serve": {"binarize", "histogram", "split_level", "leaf_index",
+              "leaf_gather", "fused_predict"},
     "show_kernels": set(),
-    "quickstart": {"binarize", "histogram", "leaf_index", "leaf_gather",
-                   "fused_predict"},
-    "serve_gbdt": {"binarize", "histogram", "leaf_index", "leaf_gather",
-                   "fused_predict"},
-    "embeddings_knn": {"l2sq_matrix", "binarize", "histogram", "leaf_index",
-                       "leaf_gather", "fused_predict"},
+    "quickstart": {"binarize", "histogram", "split_level", "leaf_index",
+                   "leaf_gather", "fused_predict"},
+    "serve_gbdt": {"binarize", "histogram", "split_level", "leaf_index",
+                   "leaf_gather", "fused_predict"},
+    "embeddings_knn": {"l2sq_matrix", "binarize", "histogram",
+                       "split_level", "leaf_index", "leaf_gather",
+                       "fused_predict"},
     "serve_lm_glm4": set(),
     "serve_lm_whisper": set(),
     "train_lm": set(),
@@ -6193,11 +6382,11 @@ def main() -> None:
     del pool, levels, gh0
     torch.cuda.empty_cache()
 
-    # --- the split step on exact ties, the card against the CPU (no
-    # kernel: plain torch ops), with the launch counts set to 0 before it
-    # and read after it
+    # --- the split kernel against the plain version on the CPU: the split
+    # step on exact ties and the benchmark's Covertype levels, with the
+    # launch counts set to 0 before it and read after it
     ops.reset_launch_counts()
-    splits = check_splits()
+    splits = check_splits(data)
     path_launches["splits"] = path_launch_counts("splits")
     print(f"splits: {json.dumps(splits)}", flush=True)
 

@@ -41,12 +41,15 @@ B_WIDE = 300          # >255 borders: forces the int32 bins path
 # trees of depth 8, 7 classes, 54 features, 63 borders) on its test split
 # and its serving buckets, the kNN head (a 1,000-tree depth-4 model on 533
 # columns, 20 classes), the Covertype histogram (14 stats), and rows past
-# the opt-in limit (the caps phase's widest features).
+# the opt-in limit (the caps phase's widest features); and the split search
+# of the benchmark's Covertype levels (128 borders, 129 bins, 7 outputs),
+# a lanes plan (one output, 33 bins) and scans past 256 and 4,096 bins.
 BULK_ROWS, BUCKET_ROWS, SMALL_ROWS = 139_440, 1024, 16
 COV_F, COV_B, COV_T, COV_D, COV_C = 54, 63, 1000, 8, 7
 KNN_ROWS, KNN_F, KNN_T, KNN_D, KNN_C = 2808, 533, 1000, 4, 20
 HIST_ROWS, HIST_STATS, HIST_BINS = 325_360, 14, 64
 KNN_STATS = 40
+SPLIT_BINS = 129
 WIDE_U8_F, WIDE_I32_F, WIDE_ROWS = 30_000, 7_500, 1024
 KNN_QUERIES, KNN_REFS, KNN_K = 2841, 2808, 512
 BULK_QUERIES, BULK_REFS = 4096, 22_464
@@ -219,6 +222,22 @@ def cell_variants(cell: Cell) -> list[Variant]:
             out += [v(f"knn_d{d}", KNN_F, KNN_ROWS, KNN_STATS, HIST_BINS,
                       1 << d) for d in range(KNN_D)]
             out += [v("stats66", F, 2048, 66, B + 1, 4)]
+        return out
+
+    if cell.op == "split_level":
+        def v(label, f, rows, n_out, n_bins, d):
+            return Variant(label, (Spec((f, (1 << d) * n_bins, 2 * n_out),
+                                        f32, dev),
+                                   Spec((f, n_bins), torch.bool, dev),
+                                   Spec((f, rows), bt, dev),
+                                   Spec((rows,), i32, dev)),
+                           (("n_bins", n_bins), ("d", d), ("l2", 3.0)))
+        out = [v("canonical", F, N, C, B + 1, 2)]
+        if card:
+            out += [v(f"covertype_d{d}", COV_F, HIST_ROWS, COV_C,
+                      SPLIT_BINS, d) for d in range(COV_D)]
+            out += [v("lanes", F, N, 1, 33, 4), v("bins257", F, N, C, 257, 3),
+                    v("bins5000", 3, N, 2, 5000, 1)]
         return out
 
     assert cell.op == "fused_predict", cell.op

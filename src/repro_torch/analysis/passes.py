@@ -43,7 +43,8 @@ SANCTIONED_SINKS = ("gather", "index_select", "embedding", "index "
 BINS_ARG = {"repro_binarize": 2, "repro_leaf_index": 0,
             "repro_leaf_index_dm": 0, "repro_leaf_index_bp": 0,
             "repro_histogram": 0, "repro_fused_predict": 6,
-            "repro_fused_predict_dm": 7, "repro_fused_predict_bp": 6}
+            "repro_fused_predict_dm": 7, "repro_fused_predict_bp": 6,
+            "repro_split_level": 2}
 
 
 def _finding(cell: Cell, rule: str, msg: str) -> Finding:

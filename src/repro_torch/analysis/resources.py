@@ -71,6 +71,9 @@ LAUNCHER_KERNELS = {
                                                "l2sq_rowwise_scalar_kernel")),
     "repro_l2sq_split": ("l2sq_matrix.cu", ("l2sq_split_kernel",)),
     "repro_l2sq_matrix": ("l2sq_matrix.cu", ("l2sq_matrix_kernel",)),
+    "repro_split_level": ("split_level.cu", ("split_terms_kernel",
+                                             "split_choose_kernel",
+                                             "split_refine_kernel")),
 }
 
 
@@ -141,6 +144,9 @@ def requested_smem(name: str, a: tuple) -> tuple[int, int]:
                 tuning.HIST_STATIC_BYTES)
     if name == "repro_l2sq_matrix":
         return a[9], 0
+    if name == "repro_split_level":
+        n_bins, ppb, staged = a[11], a[15], a[18]
+        return tuning.split_terms_smem(ppb, n_bins, bool(staged)), 0
     if name == "repro_l2sq_rowwise":
         return 0, ROWWISE_STATIC_BYTES
     if name == "repro_l2sq_split":
@@ -187,6 +193,10 @@ def model_smem(name: str, a: tuple) -> Optional[int]:
     if name == "repro_l2sq_matrix":
         m, n, k_pad = a[5:8]
         return tuning.matrix_plan(m, n, k_pad).smem_bytes
+    if name == "repro_split_level":
+        n, f, n_leaves, n_bins, n_out = a[8:13]
+        return tuning.split_plan(f, n_leaves, n_bins, n_out, n,
+                                 a[19]).smem_bytes
     return None
 
 

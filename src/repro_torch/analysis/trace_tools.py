@@ -20,7 +20,10 @@ Fake CUDA tensors need no card, with exceptions that a `TorchFunctionMode`
 device PyTorch was not built for (`x[:, 1]`, `x[None]`), `copy_` and
 `contiguous` ask that device's runtime for a guard, so they are spelled
 as the aten ops they stand for; `data_ptr()` of a fake tensor is 0 (a
-16-byte aligned address, as the caching allocator gives).  A `.item()` (an aten
+16-byte aligned address, as the caching allocator gives); `numpy()` of a
+fake tensor is zeros of its shape and dtype (the plain split search adds
+its float32 chains with numpy on the CPU, `core.split_sums`), and what is
+made from that array joins the trace as a constant.  A `.item()` (an aten
 `_local_scalar_dense`) is recorded and answered with 0: under the fake
 mode it has no value, and the `transfer` lint flags it.
 
@@ -35,6 +38,7 @@ import dataclasses
 import threading
 from typing import Any, Callable, Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -342,8 +346,9 @@ _GUARDED = {torch.Tensor.contiguous: _contiguous,
 
 
 class _FakeDeviceMode(TorchFunctionMode):
-    """Indexing of tensors off the CPU spelled as aten view ops, and
-    `data_ptr()` of fake tensors as 0 (see the module docstring)."""
+    """Indexing of tensors off the CPU spelled as aten view ops,
+    `data_ptr()` of fake tensors as 0 and their `numpy()` as zeros (see
+    the module docstring)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -355,6 +360,9 @@ class _FakeDeviceMode(TorchFunctionMode):
             return _setitem(*args)
         if func is torch.Tensor.data_ptr and _is_fake(args[0]):
             return 0
+        if func is torch.Tensor.numpy and _is_fake(args[0]):
+            return np.zeros(tuple(args[0].shape),
+                            dtype=dtype_name(args[0].dtype))
         if func in _GUARDED and args[0].device.type != "cpu":
             return _GUARDED[func](*args, **kwargs)
         return func(*args, **kwargs)

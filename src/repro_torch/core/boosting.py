@@ -50,9 +50,8 @@ import torch
 from repro_torch.core import losses as losses_lib
 from repro_torch.core import prng, quantize, split_sums
 from repro_torch.core.predictor import resolve_device
+from repro_torch.core.split_sums import NEG_INF
 from repro_torch.core.trees import ObliviousEnsemble
-
-NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)

@@ -46,6 +46,7 @@ import torch
 
 SCAN_BLOCK = 16         # XLA's reduce-window rewrite: elements a block
 LEAF_WINDOW = 32        # XLA's tree-reduction rewrite: leaves a window
+NEG_INF = -1e30         # the gain of a masked split
 
 
 def sequential_scan(x: torch.Tensor) -> torch.Tensor:

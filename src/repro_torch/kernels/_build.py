@@ -48,6 +48,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v")
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FLOAT = ctypes.c_float
 # Every launcher ends with (device index, stream).
 _SIGNATURES = {
     "repro_binarize": (_PTR, _PTR, _PTR, _LONG, _INT, _INT, _INT),
@@ -66,6 +67,7 @@ _SIGNATURES = {
     "repro_l2sq_rowwise": (_PTR, _PTR, _PTR, _LONG) + (_INT,) * 5,
     "repro_l2sq_split": (_PTR,) * 6 + (_INT,) * 4,
     "repro_l2sq_matrix": (_PTR,) * 5 + (_INT,) * 5,
+    "repro_split_level": (_PTR,) * 8 + (_LONG,) + (_INT,) * 14 + (_FLOAT,),
 }
 # The resource record (csrc/runtime.cu): its switch, and one launch's
 # entry read back by index.

@@ -2,12 +2,13 @@
 CUDA kernels and their plain PyTorch versions.
 
 The port's counterpart of `src/repro/kernels/ops.py`.  Each op has a
-`torch_ref` implementation (the plain versions in `kernels.ref`) and a
-`cuda` one (the kernel wrappers in `kernels.binarize`, `leaf_index`,
-`leaf_gather`, `fused_predict`, `histogram` and `l2dist`); binarize takes
-its output dtype as an argument (int32, or uint8 for the one-byte
-quantized-pool stream).  `l2sq` dispatches on the query's rank: rowwise
-for a (K,) query, the matrix form for (M, K) queries.
+`torch_ref` implementation (the plain versions in `kernels.ref`, and the
+split search's beside its wrapper) and a `cuda` one (the kernel wrappers
+in `kernels.binarize`, `leaf_index`, `leaf_gather`, `fused_predict`,
+`histogram`, `split_level` and `l2dist`); binarize takes its output dtype
+as an argument (int32, or uint8 for the one-byte quantized-pool stream).
+`l2sq` dispatches on the query's rank: rowwise for a (K,) query, the
+matrix form for (M, K) queries.
 `backend="auto"` resolves from the device of the data (`registry.resolve`).
 
 `leaf_index` and `fused_predict` have siblings for the depth_major
@@ -30,6 +31,7 @@ from repro_torch.kernels import leaf_gather as _gather_k
 from repro_torch.kernels import leaf_index as _index_k
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
+from repro_torch.kernels import split_level as _split_k
 from repro_torch.kernels.ref import MAX_U8_BORDERS  # noqa: F401
 
 Backend = str
@@ -50,6 +52,7 @@ KERNELS = {
     "leaf_index_bp": _index_k.leaf_index_bp,
     "fused_predict_bp": _fused_k.fused_predict_bp,
     "histogram": _hist_k.histogram,
+    "split_level": _split_k.split_level,
     "l2sq_rowwise": _l2_k.l2sq_rowwise,
     "l2sq_matrix": _l2_k.l2sq_matrix,
 }
@@ -253,6 +256,32 @@ def _histogram_ref(bins_t, leaf, g, *, n_bins, n_leaves):
 def _histogram_cuda(bins_t, leaf, g, *, n_bins, n_leaves):
     return _hist_k.histogram(bins_t, leaf, g, n_bins=n_bins,
                              n_leaves=n_leaves)
+
+
+# The split search of a level reads no model structure: every layout.
+# Declared widening exception, as the plain histogram's: the plain
+# version compares the chosen feature's column widened to int32 (one
+# column of the pool, clarity over bandwidth); the kernel reads the bytes.
+@registry.register("split_level", "torch_ref", dtypes=("int32", "uint8"),
+                   layouts=ALL_LAYOUTS,
+                   constraints="any shape; sums in core.split_sums' order",
+                   suppressions=(
+                       "widening: the plain version widens the chosen "
+                       "feature's uint8 column to int32 to compare it with "
+                       "b*; the CUDA kernel reads the uint8 stream as it "
+                       "is",))
+def _split_level_ref(hist, valid, bins_t, leaf, *, n_bins, d, l2):
+    return _split_k.split_level_plain(hist, valid, bins_t, leaf,
+                                      n_bins=n_bins, d=d, l2=l2)
+
+
+@registry.register("split_level", "cuda", dtypes=("int32", "uint8"),
+                   layouts=ALL_LAYOUTS,
+                   constraints="three launches a level, no host sync; the "
+                               "plain version's bits; csrc/split_level.cu")
+def _split_level_cuda(hist, valid, bins_t, leaf, *, n_bins, d, l2):
+    return _split_k.split_level(hist, valid, bins_t, leaf, n_bins=n_bins,
+                                d=d, l2=l2)
 
 
 # The kNN distances read no model structure: every layout.  The op

@@ -42,10 +42,10 @@ from repro_torch.obs.trace import get_tracer
 _TRACER = get_tracer()
 
 # The ops every backend family covers: the four of the serving path, the
-# training histogram and the kNN distances (`l2sq`, rowwise for a 1-d
-# query, the matrix form for 2-d queries).
+# training histogram and split search, and the kNN distances (`l2sq`,
+# rowwise for a 1-d query, the matrix form for 2-d queries).
 CORE_OPS = ("binarize", "leaf_index", "leaf_gather", "l2sq",
-            "fused_predict", "histogram")
+            "fused_predict", "histogram", "split_level")
 FAMILIES = ("torch_ref", "cuda")
 
 

@@ -369,6 +369,108 @@ def hist_plan(n_features: int, n_rows: int, n_leaves: int, n_bins: int,
 
 
 # --------------------------------------------------------------------------
+# The split search of one tree level (csrc/split_level.cu)
+# --------------------------------------------------------------------------
+SPLIT_THREADS = 256                # csrc/split_level.cu kThreads
+SPLIT_CHOOSE_THREADS = 64          # csrc/split_level.cu kChooseThreads
+SPLIT_MAX_SLOTS = 8                # csrc/split_level.cu kMaxSlots
+SPLIT_SCAN_BLOCK = 16              # core.split_sums.SCAN_BLOCK
+SPLIT_TERMS_SMEM = 48 * 1024       # the terms kernel's block, at most
+SPLIT_CHOOSE_BLOCKS = 1024         # the choose kernel's blocks, at most
+SPLIT_ROWS_PER_THREAD = 16         # csrc/split_level.cu kRowsPerThread
+SPLIT_REFINE_BLOCKS = 4096         # the refine kernel's blocks, at most
+# The refine kernel's (value, index) pair of each thread; the choose
+# kernel's pairs and window sums.
+SPLIT_STATIC_BYTES = max(SPLIT_THREADS * 8,
+                         SPLIT_CHOOSE_THREADS * (8 + 4 * SPLIT_MAX_SLOTS))
+
+
+def split_scan_floats(n_bins: int) -> int:
+    """Shared floats of one column in the terms kernel: each level of
+    block totals of an `n_bins` scan (ceil(n / 16) while n > 16), and the
+    last bin's own value."""
+    n, floats = n_bins, 1
+    while n > SPLIT_SCAN_BLOCK:
+        n = -(-n // SPLIT_SCAN_BLOCK)
+        floats += n
+    return floats
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The split search's three launches: the terms kernel takes
+    `pairs_per_block` (feature, leaf, output) column pairs a block and,
+    where they fit its shared memory (`staged`), gathers their terms and
+    flags there to store them coalesced; the choose kernel `choose_blocks`
+    blocks (one winner each), `slots` threads a (feature, border) (one a
+    round-0 window of leaves); the refine kernel `refine_blocks`;
+    `scratch_bytes` holds the (F, L, C, B) gain terms, the (F, B) gains,
+    the winners and the (F, L, C, B) mass flags, each 16-byte aligned."""
+    pairs_per_block: int
+    staged: bool
+    term_blocks: int
+    choose_blocks: int
+    slots: int
+    refine_blocks: int
+    terms_smem: int
+    gains_offset: int
+    scratch_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """The most shared memory one of its blocks takes."""
+        return max(self.terms_smem, SPLIT_STATIC_BYTES)
+
+
+def split_terms_smem(pairs: int, n_bins: int, staged: bool) -> int:
+    """Shared bytes of a terms block of `pairs` column pairs: the pair's
+    two scans' levels, and staged, its terms (f32) and flags (uint8)."""
+    return pairs * (8 * split_scan_floats(n_bins)
+                    + (5 * n_bins if staged else 0))
+
+
+def split_plan(n_features: int, n_leaves: int, n_bins: int, n_outputs: int,
+               n_rows: int, windows: int = 0) -> SplitPlan:
+    """The split search's plan (`windows`: the rounds of windows of
+    `split_sums.leaf_sum_plan`): as many column pairs a terms block as
+    give its SPLIT_THREADS threads a 16-bin block each, within
+    SPLIT_TERMS_SMEM with their terms staged, else unstaged; a choose
+    thread a (feature, border), or a round-0 window of one where the
+    leaves make one round of at most SPLIT_MAX_SLOTS windows, in blocks of
+    SPLIT_CHOOSE_THREADS (small, so they spread over the SMs), up to
+    SPLIT_CHOOSE_BLOCKS blocks; a refine thread SPLIT_ROWS_PER_THREAD
+    rows.  At Covertype width (54 features, 129 bins, 7 outputs): 28
+    staged pairs a terms block; 109 choose blocks up to 32 leaves, 218 at
+    64 and 436 at 128; 80 refine blocks at 325,360 rows."""
+    blocks = -(-n_bins // SPLIT_SCAN_BLOCK)
+    pairs = n_features * n_leaves * n_outputs
+    want = max(1, min(SPLIT_THREADS // blocks, pairs))
+    per_block = min(want, SPLIT_TERMS_SMEM // split_terms_smem(1, n_bins,
+                                                                True))
+    staged = per_block >= 1
+    if not staged:
+        per_block = max(1, min(want, SPLIT_TERMS_SMEM
+                               // split_terms_smem(1, n_bins, False)))
+    cands = n_features * n_bins
+    n_windows = n_leaves // 32
+    slots = n_windows if windows == 1 and n_windows <= SPLIT_MAX_SLOTS \
+        else 1
+    choose = max(1, min(SPLIT_CHOOSE_BLOCKS,
+                        -(-cands * slots // SPLIT_CHOOSE_THREADS)))
+    chunks = -(-n_rows // SPLIT_ROWS_PER_THREAD)
+    refine = max(1, min(SPLIT_REFINE_BLOCKS, -(-chunks // SPLIT_THREADS)))
+    cells = pairs * n_bins
+    gains_offset = _align16(4 * cells)
+    scratch = gains_offset + _align16(4 * cands) + 2 * _align16(4 * choose) \
+        + cells
+    return SplitPlan(pairs_per_block=per_block, staged=staged,
+                     term_blocks=max(1, -(-pairs // per_block)),
+                     choose_blocks=choose, slots=slots, refine_blocks=refine,
+                     terms_smem=split_terms_smem(per_block, n_bins, staged),
+                     gains_offset=gains_offset, scratch_bytes=scratch)
+
+
+# --------------------------------------------------------------------------
 # Shared-memory tiles of bins, and their route
 # --------------------------------------------------------------------------
 # The index and fused kernels stage a block's rows of bins in shared

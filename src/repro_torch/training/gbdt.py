@@ -16,9 +16,11 @@ The port's counterpart of `src/repro/training/gbdt.py`:
              `raw(pool)`, so train->serve parity is exact
 
 The per-tree math is the JAX package's: the same split gains, Newton leaf
-values and loss-after-update history.  The split search and the leaf
-update are plain torch, as they run outside Pallas in JAX; f* and b* stay
-on the device within a tree, and the host synchronizes once per tree.
+values and loss-after-update history.  A level's split search is the
+registered `split_level` op (one hand-written kernel's three launches on
+the card, where JAX runs plain `jnp`); the leaf update is plain torch, as
+it runs outside Pallas in JAX.  f* and b* stay on the device within a
+tree, and the host synchronizes once per tree.
 
 Determinism.  A killed run restored from its last checkpoint finishes with
 a bit-identical ensemble.  That needs the same bits from every histogram
@@ -28,7 +30,8 @@ the same op, with one all-zero feature and one bin, for the same reason
 
 Counting.  The JAX package counts jit traces; the port runs eagerly, so
 `history["dispatch_delta"]` counts every registry dispatch (histogram:
-depth + 1 per tree, the leaf sums included), and the JAX contract of at
+depth + 1 per tree, the leaf sums included; split_level: depth per
+tree), and the JAX contract of at
 most `depth` level-histogram traces becomes the level shapes a fit
 launches (`hist_first_calls`, and `TrainingMetrics.hist_dispatches`).  No
 trace stands behind it, so it holds by construction: level d has 2^d
@@ -67,9 +70,8 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core import predictor as predictor_mod
-from repro_torch.core import prng, quantize, split_sums
-from repro_torch.core.boosting import (NEG_INF, BoostingParams,
-                                       _ordered_update)
+from repro_torch.core import prng, quantize
+from repro_torch.core.boosting import BoostingParams, _ordered_update
 from repro_torch.core.trees import ObliviousEnsemble
 from repro_torch.kernels import ops, registry, tuning
 from repro_torch.obs.trace import get_tracer
@@ -228,23 +230,17 @@ def _hist_level(bins_t, leaf, gh, *, n_bins, n_leaves, backend):
 
 def _split_level(hist, valid, bins_t, leaf, *, n_bins, d, l2):
     """Pick the level's oblivious split from the (F, 2^d * n_bins, 2C)
-    histogram and refine the leaf ids; the JAX package's gain math, its
-    sums in the order of its compiled split step (`split_sums`).
+    histogram and refine the leaf ids -> (f*, b*, leaf ids): the
+    registered `split_level` op, the CUDA kernel on the card and the
+    plain version on the CPU, both with the JAX package's gain math and
+    its sums in the order of its compiled split step (`split_sums`).
 
     A split needs hessian mass on both sides; when every gain is masked,
     argmax gives (0, 0) and every sample goes right.  argmax takes the
     first maximum over (F, n_bins) flattened in that order, so gains
     that tie exactly resolve as in JAX."""
-    n_feat, segments, c2 = hist.shape
-    gain, nonempty = split_sums.level_gains(
-        hist.view(n_feat, segments // n_bins, n_bins, c2), l2)
-    gain = torch.where(valid & nonempty, gain, NEG_INF)
-    flat = torch.argmax(gain.reshape(-1))
-    f_star = torch.div(flat, n_bins, rounding_mode="floor").to(torch.int32)
-    b_star = (flat % n_bins).to(torch.int32)
-    column = bins_t.index_select(0, f_star.view(1).long())[0]
-    go_right = (column.to(torch.int32) >= b_star).to(torch.int32)
-    return f_star, b_star, leaf | (go_right << d)
+    return registry.dispatch("split_level", "auto", hist, valid, bins_t,
+                             leaf, n_bins=n_bins, d=d, l2=l2)
 
 
 def _leaf_values(gh, leaf, leaf_bins, *, n_leaves, lr, l2, backend):

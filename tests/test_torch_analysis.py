@@ -75,21 +75,22 @@ def _family_map(impl: str) -> str:
 def test_full_matrix_clean(full_run):
     r = full_run[0]
     assert r.ok, "\n" + r.format(verbose=True)
-    assert r.cells == 76
+    assert r.cells == 92
     assert r.kernels >= 200       # every recorded launch audited
     assert r.traces > 0
     assert r.trace_cache_hits > 0  # layout-identical calls collapse
 
 
 def test_declared_suppressions_are_exercised(full_run):
-    """The three shipped suppressions (the plain leaf_index, its
-    depth-major sibling and the plain histogram) all match real widening
-    findings, on uint8 cells only; depth_grouped is among torch_ref's."""
+    """The four shipped suppressions (the plain leaf_index, its
+    depth-major sibling, the plain histogram and the plain split search)
+    all match real widening findings, on uint8 cells only; depth_grouped
+    is among torch_ref's."""
     sup = full_run[0].suppressed
     assert all(f.rule == "widening" and f.dtype == "uint8" for f in sup)
     assert {(f.op, f.impl) for f in sup} == {
         ("leaf_index", "torch_ref"), ("leaf_index", "torch_ref_dm"),
-        ("histogram", "torch_ref")}
+        ("histogram", "torch_ref"), ("split_level", "torch_ref")}
     assert "depth_grouped" in {f.layout for f in sup
                                if f.impl == "torch_ref"
                                and f.op == "leaf_index"}
@@ -99,9 +100,12 @@ def test_suppressed_set_matches_the_jax_report(full_run):
     """The JAX package's committed report's six suppressed findings
     (histogram ref uint8 x 4 layouts, leaf_index ref uint8 x soa /
     depth_grouped), under the family map, are the port's; the port has
-    one more, its own: the depth-major plain version compares the gathered
+    more, its own: the depth-major plain version compares the gathered
     bytes in int32, where the JAX package's gathers through a one-hot
-    matmul (a sink its checker sanctions).  Nothing is unsuppressed."""
+    matmul (a sink its checker sanctions), and the plain split search
+    (an op the JAX package does not register: its split step is plain
+    jnp) compares the chosen column in int32 on every layout.  Nothing is
+    unsuppressed."""
     jax_report = json.loads(JAX_ARTIFACT.read_text())
     want = {(f["rule"], f["op"], _family_map(f["impl"]), f["layout"],
              f["dtype"]) for f in jax_report["findings"] if f["suppressed"]}
@@ -109,19 +113,22 @@ def test_suppressed_set_matches_the_jax_report(full_run):
     r = full_run[0]
     got = {(f.rule, f.op, f.impl, f.layout, f.dtype) for f in r.suppressed}
     assert got == want | {("widening", "leaf_index", "torch_ref_dm",
-                           "depth_major", "uint8")}
+                           "depth_major", "uint8")} | {
+        ("widening", "split_level", "torch_ref", lay, "uint8")
+        for lay in ("soa", "depth_major", "depth_grouped", "bitpacked")}
     assert not r.unsuppressed
 
 
 def test_verified_map_covers_every_impl(full_run):
     r = full_run[0]
     rows = registry.table()
-    assert len(rows) == 20
+    assert len(rows) == 22
     assert set(r.verified) == {f"{x['op']}:{x['impl']}" for x in rows}
     for key, verdict in r.verified.items():
         assert verdict.startswith("ok"), (key, verdict)
     assert r.verified["leaf_index:torch_ref"] == "ok (2 suppressed)"
     assert r.verified["histogram:torch_ref"] == "ok (4 suppressed)"
+    assert r.verified["split_level:torch_ref"] == "ok (4 suppressed)"
 
 
 def test_walk_launches_and_counts_nothing(full_run):
@@ -154,12 +161,22 @@ def test_report_roundtrip_and_committed_artifact(full_run, tmp_path):
 # Parity with the JAX package's checker
 # --------------------------------------------------------------------------
 def test_cells_match_jax_under_the_family_map():
+    """The port's cells are the JAX package's, under the family map, and
+    the split search's: an op the JAX package does not register (its
+    split step is plain jnp), on both families, both bin dtypes and every
+    layout, as the histogram's."""
     from repro.analysis import matrix as jmatrix
     jax_cells = sorted((c.op, _family_map(c.impl), c.layout, c.dtype)
                        for c in jmatrix.enumerate_cells())
     port = sorted((c.op, c.impl, c.layout, c.dtype)
                   for c in matrix.enumerate_cells())
-    assert len(port) == 76 and port == jax_cells
+    split = [c for c in port if c[0] == "split_level"]
+    assert len(port) == 92 and [c for c in port if c[0] != "split_level"] \
+        == jax_cells
+    assert split == sorted(("split_level", impl, lay, dt)
+                           for impl, lay, dt in (
+                               (c[1], c[2], c[3]) for c in jax_cells
+                               if c[0] == "histogram"))
 
 
 def test_canonical_ensemble_matches_jax():
@@ -176,7 +193,8 @@ def test_canonical_ensemble_matches_jax():
 def test_capability_negatives_agree_with_jax():
     """For every implementation and every layout the registry knows,
     `resolve` rejects or re-routes as the JAX package's does (its `_u8`
-    siblings take the same layouts)."""
+    siblings take the same layouts); the split search, which the JAX
+    package does not register, as its histogram does."""
     from repro.kernels import registry as jregistry
     layouts = sorted({lay for r in registry.table()
                       for lay in r["layouts"].split("/")})
@@ -191,11 +209,12 @@ def test_capability_negatives_agree_with_jax():
     for row in registry.table():
         op, name = row["op"], row["impl"]
         home = "cuda" if row["devices"] == "cuda" else "cpu"
-        jname = jnames[op, name]
+        jop = "histogram" if op == "split_level" else op
+        jname = jnames[jop, name]
         for lay in layouts:
             got = outcome(registry.resolve, op, name, device=home,
                           layout=lay)
-            want = outcome(jregistry.resolve, op, jname, layout=lay)
+            want = outcome(jregistry.resolve, jop, jname, layout=lay)
             want = want if want == "rejected" else _family_map(want)
             assert got == want, (op, name, lay)
     assert not checker._capability_negatives(registry.table())
@@ -630,7 +649,7 @@ def test_cli_check_exit_codes(toy):
         [sys.executable, "-m", "repro_torch.launch.analyze", "--check",
          "--no-write"], cwd=ROOT, env=env, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "RESULT: OK" in proc.stdout and "76 cells" in proc.stdout
+    assert "RESULT: OK" in proc.stdout and "92 cells" in proc.stdout
 
     @toy("leaf_index", "torch_ref_toy_cli", dtypes=("uint8",),
          layouts=("soa",))

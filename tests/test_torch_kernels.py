@@ -562,7 +562,8 @@ def test_registry_routes_by_layout():
     assert registry.known_backends() == ("cuda", "torch_ref")
     assert set(ops.KERNELS) == {"binarize", "leaf_index", "leaf_gather",
                                 "fused_predict", *NEW_OPS, "histogram",
-                                "l2sq_rowwise", "l2sq_matrix"}
+                                "split_level", "l2sq_rowwise",
+                                "l2sq_matrix"}
 
 
 def test_new_kernel_tiles_fit_shared_memory():

@@ -685,6 +685,27 @@ def test_split_host_reader_counts_the_trees_its_spans_name():
     assert read({"window_s": 1.0}) is None
 
 
+def test_split_launches_reader_is_launches_a_level():
+    read = _reader("split_launches_per_level")
+    # 2 trees of 3 levels: each level one trainer/split span holding its
+    # dispatch/split_level span, annotated with the kernel's launches
+    events = []
+    for i in range(2):
+        for d in range(3):
+            events += [_x("trainer/split", 50.0, iteration=i, level=d),
+                       _x("dispatch/split_level", 20.0, op="split_level",
+                          launches=3, device_ms=0.02)]
+    events += [_x("dispatch/histogram", 7e3, device_ms=7.0),
+               {"ph": "i", "name": "dispatch/split_level",
+                "args": {"launches": 9}}]
+    assert read({"events": events}) == pytest.approx(3.0)
+    # the parent's split search: library ops, no dispatch/split_level span
+    parent = [e for e in events if e["name"] != "dispatch/split_level"]
+    assert read({"events": parent}) is None
+    assert read({"events": [_x("dispatch/split_level", launches=3)]}) is None
+    assert read({"window_s": 1.0}) is None
+
+
 def test_plan_attrs_flatten_a_launch_plan():
     plan = tuning.fused_plan(1024, 100, 6, 1, 54, True, None)
     attrs = trace.plan_attrs(plan)

@@ -482,14 +482,16 @@ def test_ensemble_round_trips_through_numpy():
 
 def test_pool_boosting_dispatches_and_first_calls():
     # zero binarize dispatches while boosting; a histogram dispatch per
-    # level and one for the leaf sums; `depth` level shapes a fit, on a
-    # refit too (eager code keeps no trace cache)
+    # level and one for the leaf sums, a split_level dispatch per level;
+    # `depth` level shapes a fit, on a refit too (eager code keeps no
+    # trace cache)
     x, ys = _data(seed=3, n=257)
     pool, borders, n_borders = _pool(x)
     _, h = _trainer("rmse").fit_pool(pool, ys["rmse"], borders=borders,
                                      n_borders=n_borders)
     depth, trees = PARAMS["depth"], PARAMS["n_trees"]
     assert h["dispatch_delta"] == {"histogram": (depth + 1) * trees,
+                                   "split_level": depth * trees,
                                    "leaf_index": 1, "leaf_gather": 1}
     assert h["hist_first_calls"] == depth
     _, h2 = _trainer("rmse").fit_pool(pool, ys["rmse"], borders=borders,
