@@ -224,6 +224,51 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return rot.to(dt)
 
 
+def yarn_frequencies(dim: int, theta: float, factor: float,
+                     original_max_positions: int, beta_fast: float,
+                     beta_slow: float, device: torch.device | str = "cpu"
+                     ) -> torch.Tensor:
+    """The (dim // 2,) inverse frequencies of DeepSeek-V3's YaRN rotary
+    embedding (`DeepseekV3YarnRotaryEmbedding`): theta's own frequencies
+    below the correction range of `beta_fast` / `beta_slow` rotations over
+    `original_max_positions`, those over `factor` above it, a linear ramp
+    between.  With mscale = mscale_all_dim its cos / sin carry no factor."""
+    def correction_dim(rotations: float) -> float:
+        return (dim * math.log(original_max_positions
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(correction_dim(beta_fast)), 0)
+    high = min(math.ceil(correction_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32,
+                            device=device) / dim
+    extra = 1.0 / theta ** exponent
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp                      # 1: theta's own frequency
+    return extra / factor * (1 - keep) + extra * keep
+
+
+def apply_rope_freqs(x: torch.Tensor, positions: torch.Tensor,
+                     inv_freq: torch.Tensor) -> torch.Tensor:
+    """`apply_rope` with given inverse frequencies: rotate-half pairs
+    (x[:half], x[half:]) of the last axis, angles in f32.  x: (B, S, H,
+    Dh); positions: (S,) or (B, S)."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[:, :, None].float() * inv_freq[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(dt)
+
+
 def sinusoidal_positions(seq: int, dim: int,
                          device: torch.device | str = "cpu") -> torch.Tensor:
     pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
@@ -295,6 +340,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   device=q.device) if (causal or window) else None
         out = _attend_block(qg, k, v, m)
     return out.reshape(B, S, H, Dh)
+
+
+def fused_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal attention that never holds the (H, S, S) scores: PyTorch's
+    fused `scaled_dot_product_attention`, softmax in f32 inside the
+    kernel.  q / k: (B, S, H, Dqk), v: (B, S, H, Dv); Dv may differ from
+    Dqk (MLA's 128 against 192).  On the card only cuDNN's fused kernel
+    is allowed: it takes the two widths as they are (flash attention
+    needs v padded to 192 and took 2.4x as long at 2 x 8,192 x 64 heads
+    on an H100), and the unfused math path, which would hold the
+    scores, never runs."""
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    if q.is_cuda:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 scale=scale)
+    else:
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             scale=scale)
+    return out.transpose(1, 2)
 
 
 def _heads_on(x: DTensor, n_heads: int) -> list:

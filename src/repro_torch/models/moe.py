@@ -6,9 +6,17 @@ Token-choice top-k routing with per-group capacity (drops overflow, like
 Switch/GShard), in the JAX package's order (`models/moe.py`): route,
 scatter the slot table, gather-dispatch, grouped expert products,
 gather-combine.  Expert weights carry a leading E axis.
+
+Beside it, for the mla_moe family, DeepSeek-V3's mixture as one card of
+an expert-parallel layer runs it: sigmoid routing with a correction bias
+over every expert (`sigmoid_route`), the selections of the experts held
+here sorted by expert (`hold`) and computed without drops through one
+grouped product a matrix (`routed_held_ffn`), and the bias rule applied
+after a step (`update_bias`).
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import NamedTuple
 
@@ -18,6 +26,9 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 from repro_torch.models.layers import from_local, regroup
+from repro_torch.obs.trace import get_tracer
+
+_TRACER = get_tracer()
 
 
 class MoEMetrics(NamedTuple):
@@ -159,3 +170,116 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     drop = 1.0 - keep.float().mean()
     return regroup(y, (T, D)), MoEMetrics(aux, drop)
 
+
+
+# --------------------------------------------------------------------------
+# DeepSeek-V3 routing over every expert, dropless over the experts held
+# --------------------------------------------------------------------------
+class SigmoidRoute(NamedTuple):
+    experts: torch.Tensor        # (T, k) int64, chosen over all E experts
+    weights: torch.Tensor        # (T, k) f32, normalised and scaled
+    aux_loss: torch.Tensor       # sequence-wise balance loss (unweighted)
+    load: torch.Tensor           # (E,) int64: selections of each expert
+
+
+def sigmoid_route(x: torch.Tensor, router_w: torch.Tensor,
+                  bias: torch.Tensor, *, top_k: int, scaling: float,
+                  n_seqs: int) -> SigmoidRoute:
+    """DeepSeek-V3's `noaux_tc` gate with one group: sigmoid scores of
+    the f32 logits x @ router_w (x: (T, D), router_w: (D, E)), the top-k
+    of scores + `bias` (the correction bias, outside the gradient; ties
+    to the lower index), weights the chosen scores normalised over the k
+    and times `scaling`.  The balance loss is DeepSeek-V3's sequence-wise
+    one over the T = n_seqs x S tokens: per sequence, sum over experts of
+    f_i P_i, f_i = E / (k S) x the sequence's selections of i, P_i the
+    mean over its tokens of the scores normalised over all E; the mean
+    over the sequences."""
+    T, E = x.shape[0], router_w.shape[-1]
+    scores = torch.sigmoid(x.float() @ router_w.float())          # (T, E)
+    _, experts = stable_top_k(scores + bias.detach().float()[None], top_k)
+    chosen = torch.gather(scores, 1, experts)
+    weights = chosen / (chosen.sum(-1, keepdim=True) + 1e-20) * scaling
+    load = torch.bincount(experts.reshape(-1), minlength=E)
+    S = T // n_seqs
+    picked = torch.zeros(n_seqs, E, device=x.device).scatter_add_(
+        1, experts.reshape(n_seqs, S * top_k),
+        torch.ones(n_seqs, S * top_k, device=x.device))
+    f = picked * (E / (top_k * S))
+    p = (scores / scores.sum(-1, keepdim=True)).reshape(n_seqs, S, E)
+    aux = (f * p.mean(1)).sum(-1).mean()
+    return SigmoidRoute(experts, weights, aux, load)
+
+
+def grouped_product(x: torch.Tensor, w: torch.Tensor, rows: list[int]
+                    ) -> torch.Tensor:
+    """Rows of x (n, X), sorted by expert, each times its expert's
+    w[e] (G, X, Y): one `torch._grouped_mm` over the G experts, `rows[e]`
+    rows each (CUTLASS's grouped GEMM on the card: bfloat16 operands, f32
+    sums).  No rows at all: an empty product, which keeps w in the graph
+    with a zero gradient.  Never a loop over experts."""
+    if x.is_cuda and x.dtype != torch.bfloat16:
+        raise ValueError(f"torch._grouped_mm takes bfloat16 operands on "
+                         f"the card, not {x.dtype}")
+    if not sum(rows):
+        return x @ w[0]
+    offs = torch.tensor(list(itertools.accumulate(rows)), dtype=torch.int32,
+                        device=x.device)
+    return torch._grouped_mm(x, w, offs=offs)
+
+
+class Held(NamedTuple):
+    selections: torch.Tensor     # (n,) the held selections (t * k + j),
+    #                              sorted by held expert
+    tokens: torch.Tensor         # (n,) each one's token
+    rows: list[int]              # each held expert's selections
+    chosen: int                  # the route's selections of held experts
+
+
+def hold(route: SigmoidRoute, offset: int, n_held: int) -> Held:
+    """The selections of experts offset .. offset + n_held - 1 (the ones
+    held here), sorted by expert, in token order within one: every one of
+    them (dropless).  Reading the rows, with the route's own count of the
+    held experts' selections (`route.load`, what `chosen` keeps), is the
+    layer's one wait for the card."""
+    k = route.experts.shape[1]
+    local = route.experts.reshape(-1) - offset
+    key = torch.where((local >= 0) & (local < n_held), local,
+                      torch.full_like(local, n_held))
+    order = torch.argsort(key, stable=True)
+    counts = torch.cat([torch.bincount(key, minlength=n_held + 1)[:n_held],
+                        route.load[offset:offset + n_held]]).tolist()
+    rows = counts[:n_held]
+    sel = order[:sum(rows)]
+    return Held(sel, sel // k, rows, sum(counts[n_held:]))
+
+
+def routed_held_ffn(x: torch.Tensor, route: SigmoidRoute, held: Held,
+                    w_gate: torch.Tensor, w_in: torch.Tensor,
+                    w_out: torch.Tensor) -> torch.Tensor:
+    """The part of a routed SwiGLU mixture that the experts held here give,
+    for the tokens x (T, D): each of `held`'s selections through its
+    expert's w_gate / w_in (G, D, F) and w_out (G, F, D), one grouped
+    product a matrix, times its routing weight, summed onto its token in
+    f32.  Selections of experts not held here add nothing (another card's
+    share)."""
+    T, D = x.shape
+    xs = x[held.tokens]
+    with _TRACER.span("dispatch/expert_product", "kernel", device=x.device,
+                      rows=held.rows, D=D, F=w_gate.shape[-1],
+                      dtype=str(x.dtype)):
+        h = grouped_product(xs, w_gate, held.rows)
+        u = grouped_product(xs, w_in, held.rows)
+        ys = grouped_product(F.silu(h) * u, w_out, held.rows)
+    ys = ys.float() * route.weights.reshape(-1)[held.selections, None]
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    return y.index_add_(0, held.tokens, ys).to(x.dtype)
+
+
+def update_bias(bias: torch.Tensor, load: torch.Tensor, speed: float
+                ) -> None:
+    """DeepSeek-V3's auxiliary-loss-free balancing, in place after a step:
+    each expert's correction bias moves by `speed` towards the mean load,
+    bias += speed x sign(mean load - load), over all the router's experts
+    (load: their selections in the step)."""
+    load = load.float()
+    bias.add_(speed * torch.sign(load.mean(-1, keepdim=True) - load))

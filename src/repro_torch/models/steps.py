@@ -62,12 +62,21 @@ def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         labels.shape)
 
 
+def aux_weight(cfg: ModelConfig) -> float:
+    """The balance loss's weight: the configuration's own `aux_alpha`
+    where it states one, else AUX_WEIGHT."""
+    return getattr(cfg, "aux_alpha", AUX_WEIGHT)
+
+
 def loss_fn(cfg: ModelConfig, params, batch, mesh=None
             ) -> tuple[torch.Tensor, dict]:
-    logits, aux = tf.forward(cfg, params, batch, mesh=mesh)
+    """(total loss, parts): `ce`, `aux` and whatever the forward hands a
+    step beside them (`transformer.forward`'s `stats`)."""
+    stats: dict = {}
+    logits, aux = tf.forward(cfg, params, batch, mesh=mesh, stats=stats)
     ce = token_loss(cfg, logits, batch["labels"])
-    total = ce + AUX_WEIGHT * aux
-    return total, {"ce": ce, "aux": aux}
+    total = ce + aux_weight(cfg) * aux
+    return total, {"ce": ce, "aux": aux, **stats}
 
 
 def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
@@ -80,7 +89,14 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
     place and returns them: JAX's trainer donates both, so no caller reads
     the old values (clone them first to keep them).  `metrics` holds
     `loss`, `ce`, `aux` and `grad_norm` as 0-d tensors on the parameters'
-    device; nothing in the step waits for the device.
+    device; nothing in the step waits for the device but mla_moe's MoE
+    layers, each once for its held experts' loads (`moe.hold`).
+
+    Buffers (`transformer.is_buffer`: DeepSeek-V3's routing correction
+    bias) get no gradient and no optimizer update; after the update each
+    moves by its own rule (`transformer.update_buffers`) on what the
+    forward handed the step, and `metrics` adds each 0-d tensor among
+    those (mla_moe: `held_selections`).
 
     On DTensor parameters (the sharded trainer) the same step runs under
     `implicit_replication` (tensors the model makes, masks and positions,
@@ -93,7 +109,7 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
     """
     def train_step(params, opt_state, batch):
         paths = [path for path, leaf in tf.tree_leaves(params)
-                 if leaf.is_floating_point()]
+                 if leaf.is_floating_point() and not tf.is_buffer(path)]
         flat = dict(tf.tree_leaves(params))
         sharded = any(isinstance(v, DTensor) for v in flat.values())
         with _replicating(params):
@@ -115,9 +131,12 @@ def make_train_step(cfg: ModelConfig, optimizer, mesh=None) -> Callable:
                 for path, u in tf.tree_leaves(updates):
                     p = flat[path]
                     p.add_(_like(u, p).to(p.dtype))
+                tf.update_buffers(cfg, flat, parts)
             metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
                        "aux": torch.as_tensor(parts["aux"]).detach(),
                        "grad_norm": gnorm}
+            metrics.update({k: v.detach() for k, v in parts.items()
+                            if k not in metrics and v.dim() == 0})
             if sharded:
                 metrics = {k: _replicated(v) for k, v in metrics.items()}
         return params, opt_state, metrics

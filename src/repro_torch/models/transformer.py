@@ -10,7 +10,10 @@ One parameter-dict + pure-function design, the JAX package's
 Families: dense (internlm2/glm4/stablelm/granite), moe (kimi/mixtral),
 ssm (mamba2), hybrid (zamba2: mamba + shared attention block every k
 layers), vlm (internvl2: stub patch embeddings + decoder LM), audio
-(whisper: stub frame embeddings + enc-dec).
+(whisper: stub frame embeddings + enc-dec), and, beyond JAX's ten,
+mla_moe (Kimi-K2-Instruct, `configs/kimi_k2_instruct.py`: MLA with YaRN,
+dense leading layers, DeepSeek-V3 routing over every expert computing
+the experts held here; training forward only).
 
 Block parameters keep JAX's leading layer axis; each of JAX's `lax.scan`
 over layers is a Python loop over one `torch.unbind` of each stacked leaf
@@ -57,9 +60,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ll
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.obs.trace import get_tracer
 
 Params = dict
 Cache = dict
+_TRACER = get_tracer()
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -124,6 +129,65 @@ def _mlp_shapes(cfg: ModelConfig, stacked: int | None):
             "b_out": lead + (D,)}
 
 
+def _mla_shapes(cfg, lead: tuple) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    return {
+        "attn_norm": lead + (D,),
+        "wq_a": lead + (D, cfg.q_lora_rank),
+        "q_norm": lead + (cfg.q_lora_rank,),
+        "wq_b": lead + (cfg.q_lora_rank, H * cfg.qk_head_dim),
+        "wkv_a": lead + (D, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+        "kv_norm": lead + (cfg.kv_lora_rank,),
+        "wkv_b": lead + (cfg.kv_lora_rank,
+                         H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+        "wo": lead + (H * cfg.v_head_dim, D),
+    }
+
+
+def _mla_moe_shapes(cfg) -> dict:
+    """The leading dense layers (`dense`, stacked) apart from the MoE
+    layers (`blocks`, stacked): MLA, then a SwiGLU of width d_ff, or the
+    router over all n_experts, its correction bias, the `held` routed
+    experts and the shared experts (`shared_*`, their widths side by
+    side)."""
+    D, K, L = cfg.d_model, cfg.first_k_dense, cfg.n_moe_layers
+    G, Fm, Fs = cfg.held, cfg.moe_d_ff, cfg.n_shared_experts * cfg.moe_d_ff
+    return {
+        "dense": {**_mla_shapes(cfg, (K,)), "mlp_norm": (K, D),
+                  "w_gate": (K, D, cfg.d_ff), "w_in": (K, D, cfg.d_ff),
+                  "w_out": (K, cfg.d_ff, D)},
+        "blocks": {**_mla_shapes(cfg, (L,)), "mlp_norm": (L, D),
+                   "router": (L, D, cfg.n_experts),
+                   "e_score_correction_bias": (L, cfg.n_experts),
+                   "w_gate": (L, G, D, Fm), "w_in": (L, G, D, Fm),
+                   "w_out": (L, G, Fm, D), "shared_gate": (L, D, Fs),
+                   "shared_in": (L, D, Fs), "shared_out": (L, Fs, D)},
+    }
+
+
+# leaves the model reads but no gradient trains, by name, each with its own
+# rule: the train step leaves them out of the gradient and the optimizer and,
+# after the update, applies the rule to the leaf with what the forward
+# handed the step (`forward`'s `stats`)
+BUFFERS = {
+    # DeepSeek-V3's correction bias, on the step's expert loads
+    "e_score_correction_bias": lambda cfg, leaf, stats: moe_lib.update_bias(
+        leaf, stats["expert_load"], cfg.bias_update_speed),
+}
+
+
+def is_buffer(path: str) -> bool:
+    return path.rsplit("/", 1)[-1] in BUFFERS
+
+
+def update_buffers(cfg: ModelConfig, flat: dict, stats: dict) -> None:
+    """Each buffer among the leaves `flat` ({path: leaf}) updated in place
+    by its rule (`BUFFERS`) from the step's `stats`."""
+    for path, leaf in flat.items():
+        if is_buffer(path):
+            BUFFERS[path.rsplit("/", 1)[-1]](cfg, leaf, stats)
+
+
 def _ssm_shapes(cfg: ModelConfig, stacked: int):
     dims = ssm_dims(cfg)
     L = stacked
@@ -176,6 +240,8 @@ def param_shapes(cfg: ModelConfig, *, max_positions: int = 0) -> dict:
                   "mlp_norm": (D,), "w_gate": (D, cfg.d_ff),
                   "w_in": (D, cfg.d_ff), "w_out": (cfg.d_ff, D)}
         tree["shared_attn"] = shared
+    elif cfg.family == "mla_moe":
+        tree.update(_mla_moe_shapes(cfg))
     elif cfg.family == "audio":
         enc: dict = {**_attn_shapes(cfg, cfg.encoder_layers),
                      **_mlp_shapes(cfg, cfg.encoder_layers)}
@@ -533,11 +599,18 @@ def _positions(S: int, device) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict,
-            mesh=None) -> tuple:
+            mesh=None, stats: dict | None = None) -> tuple:
     """Training/prefill forward -> (logits, aux_loss).
 
     batch: tokens (B, S) [+ frontend_embeds (B, S_f, D) for vlm/audio].
+    `stats`, where given, receives what a step needs beside the loss:
+    for mla_moe `expert_load`, the (MoE layers, n_experts) selections of
+    each expert (the correction bias's rule reads it), and
+    `held_selections`, the selections the experts held here computed,
+    summed over the layers (0-d: a metric of the step).
     """
+    if cfg.family == "mla_moe":
+        return _mla_moe_forward(cfg, params, batch["tokens"], stats)
     params = _cast_params(cfg, params)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -567,6 +640,115 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
 
     x = _norm(cfg, _seq_whole(x), params["final_norm"],
               params.get("final_norm_bias"))
+    return _logits(cfg, params, x), aux
+
+
+# ==========================================================================
+# mla_moe: DeepSeek-V3's block at Kimi-K2's settings
+# (configs/kimi_k2_instruct.py)
+# ==========================================================================
+def _mla_attn_block(cfg, x, p, positions):
+    """Pre-norm multi-head latent attention: q = wq_b(norm(wq_a h)), its
+    first qk_nope_head_dim columns a head the content part, the rest the
+    rope part; wkv_a h = [latent, one rope key for all heads]; wkv_b
+    (norm(latent)) = [k content, v] a head; k = [k content, the rope key];
+    YaRN rope; causal attention at `cfg.softmax_scale`; then wo."""
+    B, S, _ = x.shape
+    H, eps = cfg.n_heads, cfg.rms_norm_eps
+    nope, rope, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    inv_freq = ll.yarn_frequencies(
+        rope, cfg.rope_theta, cfg.rope_factor,
+        cfg.rope_original_max_positions, cfg.rope_beta_fast,
+        cfg.rope_beta_slow, x.device)
+    h = ll.rms_norm(x, p["attn_norm"], eps)
+    q = (ll.rms_norm(h @ p["wq_a"], p["q_norm"], eps) @ p["wq_b"]
+         ).reshape(B, S, H, nope + rope)
+    latent, k_rope = (h @ p["wkv_a"]).split([cfg.kv_lora_rank, rope], -1)
+    k_nope, v = (ll.rms_norm(latent, p["kv_norm"], eps) @ p["wkv_b"]
+                 ).reshape(B, S, H, nope + dv).split([nope, dv], -1)
+    q_nope, q_rope = q.split([nope, rope], -1)
+    q = torch.cat([q_nope, ll.apply_rope_freqs(q_rope, positions,
+                                               inv_freq)], -1)
+    k_rope = ll.apply_rope_freqs(k_rope[:, :, None, :], positions, inv_freq)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], -1)
+    with _TRACER.span("dispatch/mla_attention", "kernel", device=x.device,
+                      shapes=str([tuple(q.shape), tuple(k.shape),
+                                  tuple(v.shape)]), causal=True,
+                      dtype=str(q.dtype)):
+        out = ll.fused_causal_attention(q, k, v, cfg.softmax_scale)
+    return x + out.reshape(B, S, H * dv) @ p["wo"]
+
+
+def _held_moe_block(cfg, x, p, router, bias):
+    """Pre-norm DeepSeek-V3 mixture: routing over every expert
+    (`moe.sigmoid_route`, the router `router` and correction bias `bias`
+    in f32), the held experts' part dropless (`moe.routed_held_ffn`), and
+    the shared experts on every token.  -> (x, balance loss, load)."""
+    B, S, D = x.shape
+    h = ll.rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps).reshape(B * S, D)
+    with _TRACER.span("moe/route", "moe", device=x.device) as sp:
+        route = moe_lib.sigmoid_route(
+            h, router, bias, top_k=cfg.experts_per_token,
+            scaling=cfg.routed_scaling_factor, n_seqs=B)
+        held = moe_lib.hold(route, cfg.expert_offset, cfg.held)
+        sp.set(tokens=B * S, selections_held=sum(held.rows),
+               load_max=max(held.rows), load_min=min(held.rows),
+               dropped=held.chosen - held.selections.numel())
+    y = moe_lib.routed_held_ffn(h, route, held, p["w_gate"], p["w_in"],
+                                p["w_out"])
+    y = y + ll.swiglu(h, p["shared_gate"], p["shared_in"], p["shared_out"])
+    return x + y.reshape(B, S, D), route.aux_loss, route.load
+
+
+_MLA_MOE_F32 = ("router", "e_score_correction_bias")
+
+
+def _mla_moe_forward(cfg, params, tokens, stats):
+    """Embedding, the dense layers, the MoE layers (each under remat with
+    cfg.remat), the final norm and f32 logits.  The embedding, the router
+    and its correction bias are read from their f32 leaves: the rows are
+    looked up in f32 and then cast, so that the embedding's gradient, a
+    sum over every occurrence of a token (thousands for a frequent id in
+    16,384 tokens), adds up in f32 (summed in bfloat16 it came out 28%
+    short at the benchmark's size); every other weight is used in
+    cfg.compute_dtype."""
+    blocks = params["blocks"]
+    router, bias = (blocks[k] for k in _MLA_MOE_F32)
+    x = ll.lookup(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
+    params = _cast_params(cfg, {
+        **{k: v for k, v in params.items() if k != "embed"},
+        "blocks": {k: v for k, v in blocks.items()
+                   if k not in _MLA_MOE_F32}})
+    positions = _positions(tokens.shape[1], tokens.device)
+
+    def dense_body(h, p):
+        with _TRACER.span("train/mla_layer", "train", device=h.device):
+            h = _mla_attn_block(cfg, h, p, positions)
+        hn = ll.rms_norm(h, p["mlp_norm"], cfg.rms_norm_eps)
+        return h + ll.swiglu(hn, p["w_gate"], p["w_in"], p["w_out"])
+
+    def moe_body(h, p, w_router, b):
+        with _TRACER.span("train/mla_layer", "train", device=h.device):
+            h = _mla_attn_block(cfg, h, p, positions)
+        with _TRACER.span("train/moe_layer", "train", device=h.device):
+            return _held_moe_block(cfg, h, p, w_router, b)
+
+    dense_body, moe_body = _remat(cfg, dense_body), _remat(cfg, moe_body)
+    for p in _layers(params["dense"]):
+        x = dense_body(x, p)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loads = []
+    for p, w_router, b in zip(_layers(params["blocks"]),
+                              torch.unbind(router), torch.unbind(bias)):
+        x, a, load = moe_body(x, p, w_router, b)
+        aux = aux + a
+        loads.append(load)
+    if stats is not None:
+        load = stats["expert_load"] = torch.stack(loads)
+        stats["held_selections"] = load[
+            :, cfg.expert_offset:cfg.expert_offset + cfg.held].sum()
+    x = ll.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(cfg, params, x), aux
 
 

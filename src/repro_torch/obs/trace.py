@@ -214,8 +214,10 @@ class Tracer:
     def _append(self, event: tuple) -> None:
         if len(self._ring) == self.capacity:
             self._dropped += 1      # racy, advisory; the ring evicts right
-        if event[5] not in self._thread_names:
-            self._thread_names[event[5]] = threading.current_thread().name
+        # an ident is reused once its thread ends, so keep the newest name
+        name = threading.current_thread().name
+        if self._thread_names.get(event[5]) != name:
+            self._thread_names[event[5]] = name
         self._ring.append(event)
 
     def _open(self, sp: _Span) -> None:

@@ -42,14 +42,17 @@ from repro_torch.distributed import runtime
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import steps as steps_lib
 from repro_torch.models import transformer as tf
+from repro_torch.obs.trace import get_tracer
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.checkpoint import CheckpointManager
+
+_TRACER = get_tracer()
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
-    ckpt_every: int = 20
+    ckpt_every: int = 20        # 0: no checkpoint, not even at the end
     log_every: int = 10
     peak_lr: float = 3e-4
     straggler_factor: float = 3.0
@@ -204,8 +207,10 @@ class Trainer:
             if batch is None:
                 break
             t0 = time.perf_counter()
-            self.params, self.opt_state, metrics = self._step(
-                self.params, self.opt_state, self._batch(batch))
+            with _TRACER.span("train/step", "train", device=self.device,
+                              step=self.step):
+                self.params, self.opt_state, metrics = self._step(
+                    self.params, self.opt_state, self._batch(batch))
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = self._step_time(time.perf_counter() - t0)
             self.step_times.append(dt)
@@ -222,12 +227,12 @@ class Trainer:
             self.step += 1
             metrics["step"] = self.step
             history.append(metrics)
-            if self.step % self.tcfg.ckpt_every == 0:
+            if self.tcfg.ckpt_every and self.step % self.tcfg.ckpt_every == 0:
                 self.save()
             if fail_at is not None and self.step >= fail_at:
                 self.ckpt.wait()
                 raise RuntimeError(f"injected failure at step {self.step}")
-        if self._saved_step == self.step:
+        if self._saved_step == self.step or not self.tcfg.ckpt_every:
             self.ckpt.wait()
         else:
             self.save(blocking=True)

@@ -191,6 +191,25 @@ def test_export_names_threads_that_already_exited(tmp_path):
     assert "my-worker" in names
 
 
+def test_export_names_a_reused_thread_ident_by_its_newest_thread(tmp_path):
+    """A thread's ident is reused once it ends: the label follows the
+    thread that holds it now, not the first that held it."""
+    tr = Tracer()
+    tr.enable()
+
+    def record():
+        tr._append(("i", "ev", "", time.perf_counter_ns(), 0, 4242, {}))
+
+    for name in ("old-worker", "prefetcher"):
+        t = threading.Thread(target=record, name=name)
+        t.start()
+        t.join()
+    obj = tr.export_chrome(tmp_path / "t.json")
+    names = [e["args"]["name"] for e in obj["traceEvents"]
+             if e["ph"] == "M"]
+    assert names == ["prefetcher"]
+
+
 def test_tracing_context_restores_prior_state():
     tr = Tracer()
     with tracing(tr):
